@@ -1,0 +1,173 @@
+"""Plain PyTorch versions of the attention kernels (forward only).
+
+These are the port's counterparts of ``repro/kernels/ref.py`` and keep its
+conventions: ``NEG_INF = -1e30`` (not -inf), fp32 ``(acc, l, m)`` decode
+partials, and the ``l == 0 -> 1`` guard.  A CPU tensor takes these paths
+(``kernels/ops.py``); on the card they are what the CUDA kernels are held
+against.
+
+Layout conventions:
+  q:      (B, Sq, H,   Dh)
+  k, v:   (B, Skv, Hkv, Dh)       H % Hkv == 0 (GQA: q head h reads h // g)
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def naive_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None, q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Full-materialization attention (small shapes only)."""
+    B, Sq, H, dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    g = H // Hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Sq, Hkv, g, dh).float()
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.float()) * scale
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def _pad_axis(x, multiple: int, axis: int):
+    pad = (-x.shape[axis]) % multiple
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = pad
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def _kv_chunk_starts(window, q_offset, q_chunk, kv_chunk, nq_idx: int,
+                     skv_padded: int):
+    """Starts of the kv chunks visited by q chunk ``nq_idx``."""
+    kc = kv_chunk
+    if window is None:
+        return list(range(0, skv_padded, kc))
+    span = window + q_chunk + kc
+    n_chunks = -(-span // kc)
+    q_hi = q_offset + (nq_idx + 1) * q_chunk
+    base = q_hi - n_chunks * kc
+    base = min(max(base, 0), max(skv_padded - n_chunks * kc, 0))
+    base = (base // kc) * kc
+    return [base + i * kc for i in range(n_chunks)]
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0,
+                      scale: Optional[float] = None, q_chunk: int = 512,
+                      kv_chunk: int = 512) -> torch.Tensor:
+    """Chunked online-softmax attention, the forward of the reference's
+    ``chunked_attention`` (``_flash_fwd_impl``): the same chunking, the same
+    -1e30 masking with no mask on ``p``, and the same ``l == 0`` guard.
+    Returns (B, Sq, H, dhv) in q's dtype."""
+    B, Sq, H, dh = q.shape
+    dhv = v.shape[-1]
+    _, Skv, Hkv, _ = k.shape
+    g = H // Hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qc = min(q_chunk, Sq)
+    kc = min(kv_chunk, Skv)
+    qp = _pad_axis(q, qc, 1)
+    kp = _pad_axis(k, kc, 1)
+    vp = _pad_axis(v, kc, 1)
+    if window is not None:
+        need = (-(-(window + qc + kc) // kc)) * kc
+        if kp.shape[1] < need:
+            kp = _pad_axis(kp, need, 1)
+            vp = _pad_axis(vp, need, 1)
+    sq_p, skv_p = qp.shape[1], kp.shape[1]
+    nq = sq_p // qc
+    kf, vf = kp.float(), vp.float()
+    outs = []
+    for qi in range(nq):
+        qblk = qp[:, qi * qc:(qi + 1) * qc].reshape(B, qc, Hkv, g, dh).float()
+        qpos = q_offset + qi * qc + torch.arange(qc, device=q.device)
+        m = torch.full((B, qc, Hkv, g), NEG_INF, device=q.device)
+        l = torch.zeros((B, qc, Hkv, g), device=q.device)
+        acc = torch.zeros((B, qc, Hkv, g, dhv), device=q.device)
+        for start in _kv_chunk_starts(window, q_offset, qc, kc, qi, skv_p):
+            kblk = kf[:, start:start + kc]
+            vblk = vf[:, start:start + kc]
+            kpos = start + torch.arange(kc, device=q.device)
+            s = torch.einsum("bqhgd,bkhd->bqhgk", qblk, kblk) * scale
+            mask = kpos[None, :] < Skv
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
+            if window is not None:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bqhgk,bkhd->bqhgd",
+                                                        p, vblk)
+            m = m_new
+        l_safe = torch.where(l == 0, torch.ones_like(l), l)
+        outs.append((acc / l_safe[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=1).reshape(B, sq_p, H, dhv)
+    return out[:, :Sq]
+
+
+def _decode_valid_mask(kpos, cur_pos, window: Optional[int] = None):
+    """Validity mask for decode attention, broadcast to (B*, S).
+
+    kpos: (S,) shared cache positions or (B, S) per-slot positions;
+    cur_pos: scalar or (B,) per-slot positions.
+    """
+    kposb = kpos if kpos.dim() == 2 else kpos[None, :]
+    cur = torch.as_tensor(cur_pos, device=kpos.device)
+    curb = cur[:, None] if cur.dim() == 1 else cur
+    valid = (kposb >= 0) & (kposb <= curb)
+    if window is not None:
+        valid = valid & (kposb > curb - window)
+    return valid
+
+
+def decode_partial_masked(q, k, v, kpos, cur_pos, *,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None):
+    """Decode partial with explicit per-slot global positions.
+
+    q: (B, H, dh); k/v: (B, S, Hkv, dh); kpos: (S,) or (B, S) int32 (-1 =
+    empty); cur_pos: scalar or (B,).  Returns (acc (B,H,dhv) fp32,
+    l (B,H) fp32, m (B,H) fp32).
+    """
+    B, H, dh = q.shape
+    _, S, Hkv, dhv = v.shape
+    g = H // Hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Hkv, g, dh).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) * scale
+    valid = _decode_valid_mask(kpos, cur_pos, window)[:, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(valid, p, 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    return acc.reshape(B, H, dhv), l.reshape(B, H), m.reshape(B, H)
+
+
+def combine_partials(acc, l, m, axis: int = 0):
+    """Merge flash-decoding partials along ``axis`` (stacked shards)."""
+    m_glob = m.amax(dim=axis, keepdim=True)
+    w = torch.exp(m - m_glob)
+    acc = (acc * w[..., None]).sum(dim=axis)
+    l = (l * w).sum(dim=axis)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / l[..., None]

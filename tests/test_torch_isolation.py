@@ -1,0 +1,97 @@
+"""The port stands alone: no module of repro_torch (nor chip_smoke.py)
+imports JAX or the reference package, and its entry points default to the
+CUDA device and raise without one instead of carrying on on the CPU."""
+import dataclasses
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.config import reduced_config
+from repro_torch.models import model as TM
+from repro_torch.train.serve_loop import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_BANNED = [re.compile(r"^\s*(import|from)\s+jax\b"),
+           re.compile(r"^\s*(import|from)\s+repro(\.|\s|$)"),
+           re.compile(r"^\s*from\s+repro\s+import\b")]
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_importing_every_module_loads_no_jax():
+    mods = _modules()
+    assert "repro_torch.train.serve_loop" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith('jax.')\n"
+            "             or m == 'repro' or m.startswith('repro.'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, env=_env(),
+                   timeout=120)
+
+
+def test_sources_import_neither_jax_nor_reference():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        for n, line in enumerate(f.read_text().splitlines(), 1):
+            for pat in _BANNED:
+                assert not pat.search(line), f"{f}:{n}: {line.strip()}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    cfg = dataclasses.replace(reduced_config("yi-9b"), dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TM.init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TM.init_caches(cfg, 2, 32)
+    params = TM.init_params(cfg, gen, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    ServeEngine(cfg, params, device="cpu")
+
+
+def test_unported_options_raise(tmp_path):
+    cfg = dataclasses.replace(reduced_config("yi-9b"), dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for kw in (dict(kv_layout="strip"), dict(chunk_prefill=8),
+               dict(jit_donor=object()), dict(prewarm=True)):
+        with pytest.raises(NotImplementedError):
+            ServeEngine(cfg, params, device="cpu", **kw)
+    with pytest.raises(ValueError):
+        ServeEngine(cfg, params, device="cpu", kv_layout="dense")
+
+
+def test_chip_smoke_fails_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result where
+    torch.cuda.is_available() is false."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                       cwd=ROOT, env=_env(), capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
