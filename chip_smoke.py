@@ -7,7 +7,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 the parallel nvcc build of every kernel in
                 src/repro_torch/kernels/csrc;
   2. kernels  — each CUDA kernel against its plain PyTorch version at the
-                serve path's shapes, in bfloat16 and float32, then timed
+                shapes its serve path gives it (yi-9b: dh 128; gemma3-12b:
+                dh 240, window 1024), in bfloat16 and float32, then timed
                 with CUDA events (median of 25 runs, L2 flushed between
                 runs) beside its plain version, its bound and, where one
                 PyTorch call computes the same function, that call;
@@ -19,14 +20,34 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 show the flash kernel on every layer of every prefill call
                 and the paged-decode kernel on every layer of every step;
   4. consistency — the same requests with k_block=1 give identical tokens;
-  then two engine ticks under torch.profiler (CUDA activity) show where
-  the device time goes and how much of a decode step the card sits idle.
+     then two engine ticks under torch.profiler (CUDA activity) show where
+     the device time goes and how much of a decode step the card sits idle;
+  5. strip    — yi-9b at 8 layers in float32 on kv_layout="strip" against
+                "paged", on the same 16 requests: the isp-decode kernel on
+                every layer of every strip step, and the same tokens (a
+                flip passes only at a printed top-2 logit margin < 1e-3);
+  6. gemma3   — full-width, full-depth gemma3-12b in bfloat16 (40 window
+                layers on per-slot rings, 8 global layers on the paged
+                pool): 16 requests with prompt lengths in 16..1500, two of
+                them 1000-token prompts with max_new=64 so their rings wrap
+                while decoding, through ServeEngine(num_slots=8,
+                max_len=2048, page_size=16, k_block=8); all ok, a balanced
+                free list, the flash kernel on all 48 layers of every
+                prefill call, the isp-decode kernel on the 40 window layers
+                and the paged-decode kernel on the 8 global layers of every
+                step; k_block=1 gives identical tokens; one decode tick is
+                profiled.
+Each path's launch counters are set to 0 just before it runs and read just
+after; the launches that hold a kernel against its plain version do not
+count.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -92,18 +113,26 @@ def max_err(got, want, dtype) -> float:
     return err
 
 
-def decode_case(dtype, dev, gen):
-    """Decode shapes of the serve path: 8 slots, 32 q / 4 kv heads, dh 128,
-    pages of 16, ragged positions up to 1023, an unallocated page inside a
-    slot's span and one empty slot."""
-    B, H, Hkv, dh, ps, maxp = 8, 32, 4, 128, 16, 64
+def bound(nbytes: float, flops: float, dtype):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of ``dtype``, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def decode_case(dtype, dev, gen, H=32, Hkv=4, dh=128, maxp=64,
+                lengths=(1023, 700, 16, 0, 513, 1, 257, 900)):
+    """Paged-decode shapes of a serve path: 8 slots, pages of 16, ragged
+    positions (``lengths``: tokens per slot, slot 3 empty), and an
+    unallocated page inside slot 4's span."""
+    B, ps = len(lengths), 16
     P = B * maxp
     r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
     q, kp, vp = r(B, H, dh), r(P + 1, ps, Hkv, dh), r(P + 1, ps, Hkv, dh)
     perm = torch.randperm(P, generator=gen)
     pages = torch.full((B, maxp), -1, dtype=torch.int32)
     cur = torch.zeros(B, dtype=torch.int32)
-    lengths = [1023, 700, 16, 0, 513, 1, 257, 900]      # slot 3 is empty
     used = 0
     for b, n in enumerate(lengths):
         if n == 0:
@@ -123,98 +152,198 @@ def decode_case(dtype, dev, gen):
     return (q, kp, vp, pages, cur), valid
 
 
+def ring_tracks(cur, S: int, empty=()):
+    """Per-slot ring tracks (B, S): slot b holds positions
+    max(0, cur[b] - S + 1) .. cur[b] at row pos % S, -1 elsewhere."""
+    kpos = torch.full((len(cur), S), -1, dtype=torch.int32)
+    for b, c in enumerate(cur):
+        if b not in empty:
+            p = torch.arange(max(0, c - S + 1), c + 1, dtype=torch.int32)
+            kpos[b, p % S] = p
+    return kpos
+
+
+def strip_case(layout, dtype, dev, gen):
+    """Dense-strip decode shapes.  "shared": the Pallas layout at yi-9b's
+    shapes, one track kpos (S,) with half the rows empty and a scalar cur.
+    "ring": gemma3-12b's window layers, per-slot rings kpos (8, 1024) with
+    wrapped slots, an empty slot (3) and a slot with fewer keys than the
+    window (7), window 1024."""
+    if layout == "shared":
+        B, H, Hkv, dh, S, window = 8, 32, 4, 128, 1024, None
+        pos = torch.arange(S, dtype=torch.int32)
+        kpos = torch.where(pos < S // 2, pos, -1)
+        cur = torch.tensor(S // 2 - 1, dtype=torch.int32)
+    else:
+        B, H, Hkv, dh, S, window = 8, 16, 8, 240, 1024, 1024
+        now = [1500, 2047, 1023, 0, 700, 1024, 1999, 50]
+        kpos = ring_tracks(now, S, empty=(3,))
+        cur = torch.tensor(now, dtype=torch.int32)
+    r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
+    q, k, v = r(B, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh)
+    kpos, cur = kpos.to(dev), cur.to(dev)
+    from repro_torch.kernels import ref
+    valid = int(ref._decode_valid_mask(kpos, cur, window).expand(B, S).sum())
+    return (q, k, v, kpos, cur), window, valid
+
+
 def kernel_phase(dev):
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import isp_decode as isp
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ref
     gen = torch.Generator().manual_seed(SEED)
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     flush = lambda: flush_buf.zero_()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
 
-    # -- paged decode ----------------------------------------------------
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        (q, kp, vp, pages, cur), valid = decode_case(dtype, dev, gen)
-        got = pd.paged_decode_partial(q, kp, vp, pages, cur)
-        want = pd.paged_decode_partial_ref(q, kp, vp, pages, cur)
-        torch.cuda.synchronize()
-        errs[dtype] = max_err(got, want, dtype)
-        assert float(got[1][3].abs().max()) == 0.0, "empty slot: l != 0"
-        assert bool((got[2][3] == ref.NEG_INF).all()), \
-            "empty slot: m != -1e30"
-        log(f"[kernels] paged_decode {dtype}: max abs err {errs[dtype]:.3g}")
-    (q, kp, vp, pages, cur), valid = decode_case(torch.bfloat16, dev, gen)
-    B, H, dh = q.shape
-    Hkv = kp.shape[2]
-    nbytes = (q.numel() * 2 + 2 * valid * Hkv * dh * 2 + pages.numel() * 4
-              + cur.numel() * 4 + B * H * dh * 4 + 2 * B * H * 4)
-    flops = 4 * valid * H * dh
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    rows.append(dict(
-        name="paged_decode_partial", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_decode.cu",
-        replaces="src/repro/kernels/paged_decode.py:102",
-        dtype="bfloat16", shape=f"B={B} H={H} Hkv={Hkv} dh={dh} ps=16 "
-        f"cur<=1023 ({valid} valid keys)",
-        max_abs_err=errs[torch.bfloat16],
-        max_abs_err_fp32=errs[torch.float32],
-        ms=time_ms(lambda: pd.paged_decode_partial(q, kp, vp, pages, cur),
-                   flush),
-        plain_ms=time_ms(lambda: pd.paged_decode_partial_ref(
-            q, kp, vp, pages, cur), flush),
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None))
+    # -- paged decode: yi-9b (dh 128) and gemma3-12b's global layers (dh 240)
+    for path, kw in (("yi-9b serve", {}),
+                     ("gemma3-12b serve", dict(
+                         H=16, Hkv=8, dh=240, maxp=128,
+                         lengths=(2048, 1500, 16, 0, 1031, 1, 700, 1990)))):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            (q, kp, vp, pages, cur), valid = decode_case(dtype, dev, gen,
+                                                         **kw)
+            got = pd.paged_decode_partial(q, kp, vp, pages, cur)
+            want = pd.paged_decode_partial_ref(q, kp, vp, pages, cur)
+            torch.cuda.synchronize()
+            errs[dtype] = max_err(got, want, dtype)
+            assert float(got[1][3].abs().max()) == 0.0, "empty slot: l != 0"
+            assert bool((got[2][3] == ref.NEG_INF).all()), \
+                "empty slot: m != -1e30"
+            log(f"[kernels] paged_decode {path} {dtype}: max abs err "
+                f"{errs[dtype]:.3g}")
+        # q/kp/... are the bf16 inputs of the last iteration
+        B, H, dh = q.shape
+        Hkv = kp.shape[2]
+        nbytes = (q.numel() * 2 + 2 * valid * Hkv * dh * 2
+                  + pages.numel() * 4 + cur.numel() * 4 + B * H * dh * 4
+                  + 2 * B * H * 4)
+        bound_ms, bound_by = bound(nbytes, 4 * valid * H * dh,
+                                   torch.bfloat16)
+        rows.append(dict(
+            name="paged_decode_partial", kernel="paged_decode", path=path,
+            route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
+            replaces="src/repro/kernels/paged_decode.py:102",
+            dtype="bfloat16", shape=f"B={B} H={H} Hkv={Hkv} dh={dh} ps=16 "
+            f"cur<={int(cur.max())} ({valid} valid keys)",
+            max_abs_err=errs[torch.bfloat16],
+            max_abs_err_fp32=errs[torch.float32],
+            ms=time_ms(lambda: pd.paged_decode_partial(q, kp, vp, pages, cur),
+                       flush),
+            plain_ms=time_ms(lambda: pd.paged_decode_partial_ref(
+                q, kp, vp, pages, cur), flush),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
 
-    # -- flash attention -------------------------------------------------
-    B, S, H, Hkv, dh = 8, 704, 32, 4, 128
-    for dtype in (torch.float32, torch.bfloat16):
-        r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
-        q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh)
-        got = fa.flash_attention(q, k, v)
-        want = ref.chunked_attention(q, k, v)
-        torch.cuda.synchronize()
-        errs[dtype] = max_err([got], [want], dtype)
-        log(f"[kernels] flash_attention {dtype}: max abs err "
-            f"{errs[dtype]:.3g}")
-    # q/k/v are the bf16 inputs of the last iteration
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    flops = 4 * dh * (S * (S + 1) // 2) * B * H
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:77",
-        dtype="bfloat16", shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} causal",
-        max_abs_err=errs[torch.bfloat16],
-        max_abs_err_fp32=errs[torch.float32],
-        ms=time_ms(lambda: fa.flash_attention(q, k, v), flush),
-        plain_ms=time_ms(lambda: ref.chunked_attention(q, k, v), flush),
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                        enable_gqa=True), flush)))
+    # -- dense-strip decode: the Pallas layout (yi-9b's shapes, the strip
+    # phase) and gemma3-12b's per-slot window rings
+    for path, layout in (("yi-9b strip", "shared"),
+                         ("gemma3-12b serve", "ring")):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            args, window, valid = strip_case(layout, dtype, dev, gen)
+            got = isp.decode_partial(*args, window=window)
+            want = isp.decode_partial_ref(*args, window=window)
+            torch.cuda.synchronize()
+            errs[dtype] = max_err(got, want, dtype)
+            if layout == "ring":
+                assert float(got[0][3].abs().max()) == 0.0, \
+                    "empty slot: acc != 0"
+                assert float(got[1][3].abs().max()) == 0.0, \
+                    "empty slot: l != 0"
+                assert bool((got[2][3] == ref.NEG_INF).all()), \
+                    "empty slot: m != -1e30"
+            log(f"[kernels] isp_decode {layout} {dtype}: max abs err "
+                f"{errs[dtype]:.3g}")
+        q, k, v, kpos, cur = args
+        B, H, dh = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        nbytes = (q.numel() * 2 + 2 * valid * Hkv * dh * 2 + kpos.numel() * 4
+                  + cur.numel() * 4 + B * H * dh * 4 + 2 * B * H * 4)
+        bound_ms, bound_by = bound(nbytes, 4 * valid * H * dh,
+                                   torch.bfloat16)
+        rows.append(dict(
+            name="decode_partial", kernel="isp_decode", path=path,
+            route="cuda", source="src/repro_torch/kernels/csrc/isp_decode.cu",
+            replaces="src/repro/kernels/isp_decode.py:72",
+            dtype="bfloat16", shape=f"B={B} H={H} Hkv={Hkv} dh={dh} S={S} "
+            f"kpos {tuple(kpos.shape)} window={window} ({valid} valid keys)",
+            max_abs_err=errs[torch.bfloat16],
+            max_abs_err_fp32=errs[torch.float32],
+            ms=time_ms(lambda: isp.decode_partial(*args, window=window),
+                       flush),
+            plain_ms=time_ms(lambda: isp.decode_partial_ref(
+                *args, window=window), flush),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+
+    # -- flash attention: yi-9b's prefill (dh 128, causal) and gemma3-12b's
+    # window layers (dh 240, window 1024)
+    for path, (B, S, H, Hkv, dh, window) in (
+            ("yi-9b serve", (8, 704, 32, 4, 128, None)),
+            ("gemma3-12b serve", (8, 1536, 16, 8, 240, 1024))):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
+            q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh)
+            got = fa.flash_attention(q, k, v, window=window)
+            want = ref.chunked_attention(q, k, v, window=window)
+            torch.cuda.synchronize()
+            errs[dtype] = max_err([got], [want], dtype)
+            log(f"[kernels] flash_attention {path} {dtype}: max abs err "
+                f"{errs[dtype]:.3g}")
+        # q/k/v are the bf16 inputs of the last iteration; (query, key)
+        # pairs the causal mask and the window leave
+        w = S if window is None else window
+        pairs = sum(min(i + 1, w) for i in range(S))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
+        bound_ms, bound_by = bound(nbytes, 4 * dh * pairs * B * H,
+                                   torch.bfloat16)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            i = torch.arange(S, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        rows.append(dict(
+            name="flash_attention", kernel="flash_attention", path=path,
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:77",
+            dtype="bfloat16", shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
+            f"causal window={window}",
+            max_abs_err=errs[torch.bfloat16],
+            max_abs_err_fp32=errs[torch.float32],
+            ms=time_ms(lambda: fa.flash_attention(q, k, v, window=window),
+                       flush),
+            plain_ms=time_ms(lambda: ref.chunked_attention(
+                q, k, v, window=window), flush),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(lib,
+                                                                     flush)))
     del flush_buf
     for row in rows:
         row["kernel_ms"] = row["ms"]
-        log(f"[kernels] {row['name']}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({row['bound_by']}), library {row['library_ms']}")
+        log(f"[kernels] {row['name']} ({row['path']}): kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"{row['library_ms']}")
     return rows
 
 
-def serve(cfg, params, requests, k_block, dev):
+def serve(cfg, params, requests, k_block, dev, max_len=1024,
+          kv_layout="paged"):
+    """Serve ``requests`` through a fresh engine with the launch counters
+    set to 0 just before and read just after."""
     from repro_torch.core.telemetry import TelemetryHub
     from repro_torch.kernels import ops
     from repro_torch.train.serve_loop import ServeEngine
     hub = TelemetryHub()
-    eng = ServeEngine(cfg, params, num_slots=8, max_len=1024, page_size=16,
-                      k_block=k_block, telemetry=hub, device=dev)
+    eng = ServeEngine(cfg, params, num_slots=8, max_len=max_len,
+                      page_size=16, k_block=k_block, kv_layout=kv_layout,
+                      telemetry=hub, device=dev)
     for prompt, max_new in requests:
         eng.submit(prompt, max_new=max_new)
     torch.cuda.synchronize()
@@ -275,6 +404,163 @@ def profile_window(eng, label, step_ms=None):
         log(f"[profile] {label}:   {t / 1e3:9.3f} ms x{n:<5d} {name[:80]}")
 
 
+def free_device() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_report(tag, eng, results, wall, launches, prefill_calls):
+    st = eng.stats
+    lat = st.latency
+    log(f"[{tag}] {len(results)} requests ok, {st.tokens} tokens in "
+        f"{wall:.2f} s wall ({st.tokens / wall:.1f} tok/s wall); "
+        f"{prefill_calls} prefill calls, {st.decode_steps} decode steps")
+    log(f"[{tag}] prefill {st.prefill_s * 1e3:.1f} ms serving "
+        f"({st.prefill_s * 1e3 / max(prefill_calls - 1, 1):.1f} ms per warm "
+        f"call), decode {st.decode_s * 1e3 / max(st.decode_steps, 1):.2f} "
+        f"ms per step (first block and first prefill booked as compile "
+        f"{st.compile_s:.2f} s), {st.tokens / (st.prefill_s + st.decode_s):.1f}"
+        f" tok/s serving; TTFT p50 {lat.p50_ttft_s * 1e3:.1f} ms, p99 "
+        f"{lat.p99_ttft_s * 1e3:.1f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[{tag}] launches {launches}")
+    for line in st.summary().splitlines():
+        log(f"[{tag}] {line}")
+
+
+def top2_margin(model, cfg, seq, dev) -> float:
+    """Top-2 logit margin of the next token after ``seq`` (one prefill)."""
+    from repro_torch.core import embedding as emb
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rms_norm
+    with torch.no_grad():
+        toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+        x = emb.gather_baseline(model.embed.table, toks)
+        x, _ = M.run_blocks(model, x, torch.arange(len(seq), dtype=torch.int32,
+                                                   device=dev), cfg, None,
+                            "prefill")
+        x = rms_norm(x, model.final_norm, cfg.norm_eps)
+        top = torch.topk(emb.sharded_logits_last(x[:, -1], model.head_table(),
+                                                 cfg)[0], 2).values
+    return float(top[0] - top[1])
+
+
+def strip_phase(dev, requests):
+    """yi-9b at 8 layers in float32 on the strip layout against the paged
+    layout: the same tokens, and the isp-decode kernel on every layer of
+    every strip step.  Returns the strip run's launches."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=8,
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    L = cfg.num_layers
+    out = {}
+    for layout in ("paged", "strip"):
+        eng, results, wall, launches, prefill_calls = serve(
+            cfg, params, requests, 8, dev, kv_layout=layout)
+        assert eng.kv_layout == layout
+        assert len(results) == 16 and all(r.status == "ok" for r in results)
+        steps = eng.stats.decode_steps
+        assert launches["flash_attention"] == L * prefill_calls > 0, launches
+        if layout == "strip":
+            assert launches["isp_decode"] == L * steps > 0, (launches, steps)
+            assert launches["paged_decode"] == 0, launches
+        else:
+            assert launches["paged_decode"] == L * steps > 0, (launches,
+                                                               steps)
+            assert launches["isp_decode"] == 0, launches
+            eng.pager.check_balanced()
+        log(f"[strip] {layout}: {len(results)} ok, {steps} decode steps, "
+            f"{eng.stats.decode_s * 1e3 / steps:.2f} ms per step, "
+            f"{wall:.2f} s wall; launches {launches}")
+        out[layout] = ([r.tokens for r in results], launches)
+        del eng
+    flips = 0
+    for (prompt, _), a, b in zip(requests, out["strip"][0], out["paged"][0]):
+        if a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        margin = top2_margin(params, cfg, prompt + b[:t], dev)
+        log(f"[strip] token flip at step {t}: strip {a[t]} vs paged {b[t]}, "
+            f"top-2 logit margin {margin:.3g}")
+        assert margin < 1e-3, "strip and paged disagree at a clear margin"
+        flips += 1
+    log(f"[strip] strip and paged give identical tokens on "
+        f"{16 - flips}/16 requests ({flips} flips at near-ties)")
+    del params
+    free_device()
+    return out["strip"][1]
+
+
+def gemma_phase(dev):
+    """Full gemma3-12b in bfloat16: returns (launches, requests' tokens)."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.serve_loop import ServeEngine
+    cfg = get_config("gemma3-12b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    log(f"[gemma3] gemma3-12b bf16: {M.count_params(cfg) / 1e9:.3f} B "
+        f"params, {cfg.num_layers} layers "
+        f"({cfg.layer_pattern.count('local')} window {cfg.attn.window}), "
+        f"init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 1)
+    lens = [int(rng.integers(16, 1501)) for _ in range(16)]
+    long = (1, 12)             # 1000-token prompts whose rings wrap decoding
+    for i in long:
+        lens[i] = 1000
+    requests = [(rng.integers(0, cfg.vocab_size, n).tolist(),
+                 64 if i in long else 32) for i, n in enumerate(lens)]
+    log(f"[gemma3] prompt lengths {lens}")
+    eng, results, wall, launches, prefill_calls = serve(
+        cfg, params, requests, 8, dev, max_len=2048)
+    st = eng.stats
+    assert len(results) == 16 and all(r.status == "ok" for r in results), \
+        [r.status for r in results]
+    assert [len(r.tokens) for r in results] == [m for _, m in requests]
+    assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
+    eng.pager.check_balanced()
+    n_local = cfg.layer_pattern.count("local")
+    n_global = cfg.num_layers - n_local
+    assert launches["flash_attention"] == cfg.num_layers * prefill_calls > 0, \
+        (launches, prefill_calls)
+    assert launches["isp_decode"] == n_local * st.decode_steps > 0, \
+        (launches, st.decode_steps)
+    assert launches["paged_decode"] == n_global * st.decode_steps > 0, \
+        (launches, st.decode_steps)
+    serve_report("gemma3", eng, results, wall, launches, prefill_calls)
+    step_ms = st.decode_s * 1e3 / st.decode_steps
+    tokens = [r.tokens for r in results]
+    del eng
+    free_device()
+
+    eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev,
+                                        max_len=2048)
+    assert [r.tokens for r in results1] == tokens, \
+        "gemma3: k_block=1 and k_block=8 disagree"
+    eng1.pager.check_balanced()
+    log(f"[gemma3] k_block=1 gives identical tokens ({wall1:.2f} s wall, "
+        f"{eng1.stats.decode_s * 1e3 / eng1.stats.decode_steps:.2f} ms per "
+        f"step)")
+    del eng1
+    free_device()
+
+    # a warm engine: one tick admits 8 requests, the next decodes only
+    eng = ServeEngine(cfg, params, num_slots=8, max_len=2048, page_size=16,
+                      k_block=8, device=dev)
+    for prompt, _ in requests[:8]:
+        eng.submit(prompt, max_new=32)
+    eng.step()
+    profile_window(eng, "gemma3 decode block tick", step_ms=step_ms)
+    del eng, params
+    free_device()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -330,21 +616,9 @@ def main() -> int:
         (launches, prefill_calls)
     assert launches["paged_decode"] == L * st.decode_steps > 0, \
         (launches, st.decode_steps)
-    for row in rows:
-        row["launches"] = launches[row["name"].replace("_partial", "")]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[serve] {len(results)} requests ok, {st.tokens} tokens in "
-        f"{wall:.2f} s wall ({st.tokens / wall:.1f} tok/s wall); "
-        f"{prefill_calls} prefill calls, {st.decode_steps} decode steps")
-    log(f"[serve] prefill {st.prefill_s * 1e3:.1f} ms serving "
-        f"({st.prefill_s * 1e3 / max(prefill_calls - 1, 1):.1f} ms per warm "
-        f"call), decode {st.decode_s * 1e3 / max(st.decode_steps, 1):.2f} "
-        f"ms per step (first block and first prefill booked as compile "
-        f"{st.compile_s:.2f} s), {st.tokens / (st.prefill_s + st.decode_s):.1f}"
-        f" tok/s serving; peak memory {peak_gb:.2f} GB")
-    log(f"[serve] launches {launches}")
-    for line in st.summary().splitlines():
-        log(f"[serve] {line}")
+    assert launches["isp_decode"] == 0, launches
+    serve_report("serve", eng, results, wall, launches, prefill_calls)
+    path_launches = {"yi-9b serve": launches}
 
     # -- consistency ---------------------------------------------------------
     eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)
@@ -367,6 +641,14 @@ def main() -> int:
     profile_window(eng, "decode block tick",
                    step_ms=st.decode_s * 1e3 / st.decode_steps)
     eng.run_until_complete()
+    del eng, eng1, params
+    free_device()
+
+    # -- strip layout, then gemma3-12b -----------------------------------------
+    path_launches["yi-9b strip"] = strip_phase(dev, requests)
+    path_launches["gemma3-12b serve"] = gemma_phase(dev)
+    for row in rows:
+        row["launches"] = path_launches[row["path"]][row["kernel"]]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": rows}))

@@ -33,11 +33,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> (source basename, C entry point, argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 KERNELS = {
     "paged_decode": ("paged_decode.cu", "repro_paged_decode",
                      [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
+    "isp_decode": ("isp_decode.cu", "repro_isp_decode",
+                   [_P] * 8 + [_I] * 5 + [_L] * 6 + [_I] * 4 + [_F, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -6,7 +6,8 @@
 // across the kv axis).
 //
 // What bounds it on an H100: operations.  At the prefill shapes (S = 704,
-// dh = 128) a causal call does ~S/2 * 4 * dh flops per query row against
+// dh = 128 for yi-9b; S up to 1500, dh = 240, window 1024 for gemma3-12b)
+// a causal call does ~S/2 * 4 * dh flops per query row against
 // 4 * dh bytes of q/out per row, thousands of flops per byte.  This first
 // version runs on the fp32 CUDA cores (67 TFLOP/s peak), not the tensor
 // cores (989 TFLOP/s bf16), so it sits far from the operations bound; a
@@ -17,9 +18,11 @@
 //     per query row, each owning a quarter of the head dims (interleaved in
 //     float4 groups so the four read neighbouring shared-memory words);
 //     the row's score is a 4-lane shuffle reduction;
-//   * K/V tiles of 32 keys are staged in shared memory as fp32 and shared
-//     by the block's 64 rows; the kv loop visits only tiles that the causal
-//     and window masks can reach, so the work follows the triangle;
+//   * K/V tiles of BK keys (32, or 16 above dh 128, so two fp32 tiles of
+//     dh 240 stay within the 48 KB of static shared memory) are staged in
+//     shared memory as fp32 and shared by the block's 64 rows; the kv loop
+//     visits only tiles that the causal and window masks can reach, so the
+//     work follows the triangle (or the window's band);
 //   * GQA maps q head h to kv head h / G (the (Hkv, G) reshape of the TPU
 //     wrapper), so no KV head is repeated in memory;
 //   * masking uses -1e30 and masked keys contribute p = 0; the TPU kernel
@@ -33,7 +36,6 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 32;   // keys per shared-memory tile
 constexpr int TPR = 4;   // threads per query row
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -54,6 +56,7 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Sq, H, DH)
                  int Sq, int Skv, int H, int Hkv, int causal, int window,
                  int q_offset, float scale) {
   constexpr int NG = DH / 16;      // float4 groups per thread
+  constexpr int BK = DH > 128 ? 16 : 32;   // keys per shared-memory tile
   __shared__ __align__(16) float ks[BK * DH];
   __shared__ __align__(16) float vs[BK * DH];
 
@@ -170,6 +173,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   switch (dh) {
     case 64: REPRO_FA_LAUNCH(64); break;
     case 128: REPRO_FA_LAUNCH(128); break;
+    case 240: REPRO_FA_LAUNCH(240); break;
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_FA_LAUNCH

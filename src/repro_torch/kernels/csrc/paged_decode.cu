@@ -12,8 +12,10 @@
 //
 // Design:
 //   * one thread block per (slot, kv head); one warp per query head of the
-//     GQA group (G warps), each lane owning dh/32 contiguous output dims, so
-//     the K/V page is fetched once per kv head and shared by its G heads;
+//     GQA group (G warps), each lane owning DPL = ceil(dh/32) contiguous
+//     output dims (lanes past dh, as at dh 240 with DPL 8, hold zeros and
+//     read nothing), so the K/V page is fetched once per kv head and shared
+//     by its G heads;
 //   * the pool is read in place through its (P+1, ps, Hkv, dh) layout (the
 //     Pallas wrapper transposed the whole pool on every call, a full copy
 //     per layer per step on this card);
@@ -40,7 +42,7 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T, int DPL>  // DPL: output dims per lane, dh = 32 * DPL
+template <typename T, int DPL>  // DPL: output dims per lane, dh <= 32 * DPL
 __global__ void paged_decode_kernel(
     const T* __restrict__ q,        // (B, H, dh)
     const T* __restrict__ kpool,    // (P+1, ps, Hkv, dh)
@@ -50,11 +52,10 @@ __global__ void paged_decode_kernel(
     float* __restrict__ acc_out,    // (B, H, dh)
     float* __restrict__ l_out,      // (B, H)
     float* __restrict__ m_out,      // (B, H)
-    int H, int Hkv, int ps, int maxp, int window, float scale) {
-  constexpr int DH = 32 * DPL;
+    int H, int Hkv, int dh, int ps, int maxp, int window, float scale) {
   extern __shared__ float smem[];
-  float* ks = smem;               // (ps, DH)
-  float* vs = smem + ps * DH;     // (ps, DH)
+  float* ks = smem;               // (ps, dh)
+  float* vs = smem + ps * dh;     // (ps, dh)
 
   const int b = blockIdx.x;
   const int hk = blockIdx.y;
@@ -66,7 +67,8 @@ __global__ void paged_decode_kernel(
 
   float qr[DPL];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) qr[i] = to_f(q[((size_t)b * H + h) * DH + d0 + i]);
+  for (int i = 0; i < DPL; ++i)
+    qr[i] = d0 + i < dh ? to_f(q[((size_t)b * H + h) * dh + d0 + i]) : 0.f;
 
   float m = kNegInf, l = 0.f;
   float acc[DPL];
@@ -84,15 +86,15 @@ __global__ void paged_decode_kernel(
   int lp_hi = c >= 0 ? c / ps : -1;
   if (lp_hi > maxp - 1) lp_hi = maxp - 1;
 
-  const size_t row_stride = (size_t)Hkv * DH;
-  const int n_el = ps * DH;
+  const size_t row_stride = (size_t)Hkv * dh;
+  const int n_el = ps * dh;
   for (int lp = lp_lo; lp <= lp_hi; ++lp) {
     const int page = pages[(size_t)b * maxp + lp];
     if (page < 0) continue;       // unallocated: every key invalid
-    const size_t base = (size_t)page * ps * row_stride + (size_t)hk * DH;
+    const size_t base = (size_t)page * ps * row_stride + (size_t)hk * dh;
     __syncthreads();              // previous page fully consumed
     for (int e = threadIdx.x; e < n_el; e += blockDim.x) {
-      const int r = e / DH, d = e - r * DH;
+      const int r = e / dh, d = e - r * dh;
       ks[e] = to_f(kpool[base + r * row_stride + d]);
       vs[e] = to_f(vpool[base + r * row_stride + d]);
     }
@@ -104,7 +106,8 @@ __global__ void paged_decode_kernel(
       const int pos = lp * ps + j;
       float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) part += qr[i] * ks[j * DH + d0 + i];
+      for (int i = 0; i < DPL; ++i)
+        if (d0 + i < dh) part += qr[i] * ks[j * dh + d0 + i];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -122,21 +125,24 @@ __global__ void paged_decode_kernel(
       if (!ok) continue;
       float part = 0.f;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) part += qr[i] * ks[j * DH + d0 + i];
+      for (int i = 0; i < DPL; ++i)
+        if (d0 + i < dh) part += qr[i] * ks[j * dh + d0 + i];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         part += __shfl_xor_sync(0xffffffffu, part, off);
       const float p = expf(part * scale - m_new);
       l += p;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] += p * vs[j * DH + d0 + i];
+      for (int i = 0; i < DPL; ++i)
+        if (d0 + i < dh) acc[i] += p * vs[j * dh + d0 + i];
     }
     m = m_new;
   }
 
-  const size_t o = ((size_t)b * H + h) * DH + d0;
+  const size_t o = ((size_t)b * H + h) * dh + d0;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc_out[o + i] = acc[i];
+  for (int i = 0; i < DPL; ++i)
+    if (d0 + i < dh) acc_out[o + i] = acc[i];
   if (lane == 0) {
     l_out[(size_t)b * H + h] = l;
     m_out[(size_t)b * H + h] = m;
@@ -154,12 +160,13 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 #define REPRO_PD_LAUNCH(DPL)                                                  \
   paged_decode_kernel<T, DPL><<<grid, block, smem, stream>>>(                 \
       (const T*)q, (const T*)kp, (const T*)vp, (const int32_t*)pages,         \
-      (const int32_t*)cur, (float*)acc, (float*)l, (float*)m, H, Hkv, ps,     \
+      (const int32_t*)cur, (float*)acc, (float*)l, (float*)m, H, Hkv, dh, ps, \
       maxp, window, scale)
   switch (dh) {
     case 32: REPRO_PD_LAUNCH(1); break;
     case 64: REPRO_PD_LAUNCH(2); break;
     case 128: REPRO_PD_LAUNCH(4); break;
+    case 240: REPRO_PD_LAUNCH(8); break;
     case 256: REPRO_PD_LAUNCH(8); break;
     default: return cudaErrorInvalidValue;
   }

@@ -28,7 +28,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA kernel.  q: (B, Sq, H, dh); k/v: (B, Skv, Hkv, dh),
     contiguous CUDA tensors of one dtype (float32 or bfloat16) on an sm_90
-    device, dh 64 or 128.  Returns (B, Sq, H, dh) in q's dtype."""
+    device, dh 64, 128 or 240.  Returns (B, Sq, H, dh) in q's dtype."""
     B, Sq, H, dh = q.shape
     Bk, Skv, Hkv, dhk = k.shape
     build.check_device(q)
@@ -39,7 +39,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if v.shape != k.shape or Bk != B or dhk != dh or H % Hkv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if dh not in (64, 128):
+    if dh not in (64, 128, 240):
         raise ValueError(f"flash_attention: head dim {dh} not supported by "
                          f"the kernel")
     if window is not None and window <= 0:

@@ -14,6 +14,7 @@ from typing import Dict, Optional
 
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import isp_decode as isp
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import ref
 
@@ -51,6 +52,19 @@ def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
                                            window=window, scale=scale)
     return pd.paged_decode_partial(q, kpool, vpool, pages, cur_pos,
                                    window=window, scale=scale)
+
+
+def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
+                   scale: Optional[float] = None):
+    """Decode partial over a dense strip with explicit key positions.
+    q: (B,H,dh); k/v: (B,S,Hkv,dh); kpos (S,) with scalar cur_pos, or
+    per-slot kpos (B,S) with cur_pos (B,).  Both layouts take the kernel on
+    the card.  Returns (acc fp32 (B,H,dh), l (B,H), m (B,H))."""
+    if _on_cpu(q):
+        return isp.decode_partial_ref(q, k, v, kpos, cur_pos, window=window,
+                                      scale=scale)
+    return isp.decode_partial(q, k, v, kpos, cur_pos, window=window,
+                              scale=scale)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -59,7 +59,7 @@ def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
     if vpool.shape != kpool.shape or dhk != dh or H % Hkv:
         raise ValueError(f"paged_decode: shapes q {tuple(q.shape)}, kpool "
                          f"{tuple(kpool.shape)}, vpool {tuple(vpool.shape)}")
-    if dh not in (32, 64, 128, 256) or H // Hkv > 32:
+    if dh not in (32, 64, 128, 240, 256) or H // Hkv > 32:
         raise ValueError(f"paged_decode: head dim {dh} / group "
                          f"{H // Hkv} not supported by the kernel")
     if 2 * ps * dh * 4 > 48 * 1024:

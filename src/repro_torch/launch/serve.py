@@ -1,9 +1,10 @@
 """Serving CLI of the port: init a model from a seed and serve random
 variable-length requests through the continuous-batching engine.
 
-  python -m repro_torch.launch.serve --arch yi-9b [--smoke] --requests N \
-      --max-new M --max-len L --num-slots S --page-size P --k-block K \
-      --seed X [--device cpu]
+  python -m repro_torch.launch.serve --arch {yi-9b,gemma3-12b} [--smoke] \
+      --requests N --max-new M --max-len L --num-slots S \
+      --kv-layout {paged,strip} --page-size P --k-block K --seed X \
+      [--device cpu]
 
 Runs on the CUDA device unless ``--device cpu`` is given (the plain
 PyTorch path).  Prints the engine's per-tier throughput, the ledger's
@@ -35,6 +36,9 @@ def main() -> int:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--num-slots", type=int, default=8)
+    ap.add_argument("--kv-layout", choices=("paged", "strip"),
+                    default="paged",
+                    help="full-attention KV in paged pools or dense strips")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=0,
                     help="KV pool size in pages (0 = dense worst case)")
@@ -54,7 +58,7 @@ def main() -> int:
     params = M.init_params(cfg, gen, device)
     engine = ServeEngine(
         cfg, params, max_len=args.max_len, num_slots=args.num_slots,
-        page_size=args.page_size, num_pages=args.num_pages or None,
+        kv_layout=args.kv_layout, page_size=args.page_size, num_pages=args.num_pages or None,
         k_block=args.k_block, device=device,
         admission=AdmissionController(args.num_slots,
                                       host_rate=args.host_rate,

@@ -1,14 +1,22 @@
-"""GQA attention, full attention only (port of the prefill and paged-decode
+"""GQA attention, full and sliding-window (port of the prefill and decode
 branches of ``repro/models/attention.py::gqa_apply``).
 
 Two entry modes:
   prefill  — full-sequence causal attention (flash kernel), emits the
-             sequence's K/V for the engine to splice into the paged pool;
-  decode   — one new token per slot against the paged pool (paged-decode
-             kernel), writing the new K/V row into the pool first.
+             sequence's K/V: the whole sequence for a full-attention layer,
+             the last ``window`` rows as a ring (slot = pos % window) for a
+             sliding-window layer;
+  decode   — one new token per slot, written into the cache first, then
+             attended: against a paged pool (paged-decode kernel) or a
+             dense strip with explicit key positions ``kpos`` (isp-decode
+             kernel), either per slot (kpos (B, S), the serve engine) or
+             shared (kpos (S,), uniform-position decode).
 
-Parameters keep the reference's layouts: wq (D, H, dh), wk/wv (D, Hkv,
-dh), wo (H, dh, D).  Activations are (B, S, H, dh).
+The window and the RoPE base follow the layer's kind: ``"local"`` layers
+use ``cfg.attn.window`` and ``rope_base_local``, full layers no window and
+``rope_base``.  Parameters keep the reference's layouts: wq (D, H, dh),
+wk/wv (D, Hkv, dh), wo (H, dh, D).  Activations are (B, S, H, dh).  Decode
+updates the caches in place where the reference returned new arrays.
 """
 from __future__ import annotations
 
@@ -18,7 +26,8 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.decode_attention import paged_decode_attention
+from repro_torch.core.decode_attention import (decode_attention,
+                                               paged_decode_attention)
 from repro_torch.core.kv_pages import pages_for
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense_init, empty_param
@@ -51,6 +60,21 @@ def gqa_params(cfg: ModelConfig, generator: torch.Generator, dtype,
     }
 
 
+def init_gqa_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                   dtype, device):
+    """Dense decode strip of one layer: ``window`` rows for a
+    sliding-window layer (a ring, slot = pos % window), ``max_len`` rows
+    otherwise, with a shared position track ``kpos`` (-1 = empty)."""
+    window = cfg.attn.window if kind == "local" else None
+    s = window if window else max_len
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, s, hkv, dh), dtype=dtype, device=device),
+        "v": torch.zeros((batch, s, hkv, dh), dtype=dtype, device=device),
+        "kpos": torch.full((s,), -1, dtype=torch.int32, device=device),
+    }
+
+
 def init_paged_gqa_cache(cfg: ModelConfig, batch: int, num_pages: int,
                          page_size: int, max_len: int, dtype, device):
     """Paged decode cache of one full-attention layer: ``kp``/``vp`` pools
@@ -66,6 +90,86 @@ def init_paged_gqa_cache(cfg: ModelConfig, batch: int, num_pages: int,
         "pages": torch.full((batch, maxp), -1, dtype=torch.int32,
                             device=device),
     }
+
+
+def _paged_cache(cache) -> bool:
+    """Whether this decode cache is the paged-pool layout (pools + per-slot
+    page table) rather than dense strips."""
+    return "pages" in cache
+
+
+def _per_slot_cache(cache) -> bool:
+    """Whether this decode cache keeps one position track per batch slot
+    (kpos (B, S), or a paged page table) — the serve engine's layout — vs
+    one shared track (kpos (S,)) for uniform-position decode."""
+    return _paged_cache(cache) or cache["kpos"].dim() == 2
+
+
+def _decode_positions(positions, batch: int, cache, mode: str):
+    """(per_slot, posb, rope_pos): per-slot (B,) positions against a
+    per-slot cache, or the shared (1, S) rope layout of prefill and
+    uniform decode."""
+    if mode == "decode" and cache is not None and _per_slot_cache(cache):
+        posb = positions.expand(batch).to(torch.int32)
+        return True, posb, posb[:, None]
+    return False, None, positions[None, :]
+
+
+def _ring_slot(pos, s: int, ring: bool):
+    """Strip row of position ``pos``: ``pos % s`` in a ring, else ``pos``
+    capped at the last row."""
+    return pos % s if ring else torch.clamp(pos, max=s - 1)
+
+
+def _ring_update(cache, k_new, v_new, pos, ring: bool):
+    """Uniform decode: write every slot's (1, hkv, dh) row at the shared
+    position ``pos`` (0-dim) and stamp the shared track, in place."""
+    slot = _ring_slot(pos, cache["k"].shape[1], ring).reshape(1).long()
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    cache["kpos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+    return cache
+
+
+def _slot_update(cache, new_vals, posb, ring: bool, write_mask=None):
+    """Per-slot decode: write each slot's (1, ...) row at its own position
+    and stamp its kpos track, in place.  ``write_mask`` (B,) keeps masked
+    slots' rows and stamps untouched (slots that finished mid-way through a
+    K-step block)."""
+    s = cache["kpos"].shape[1]
+    slot = _ring_slot(posb, s, ring).long()
+    bidx = torch.arange(posb.shape[0], device=posb.device)
+    for name, val in new_vals.items():
+        row = val[:, 0].to(cache[name].dtype)
+        if write_mask is not None:
+            keep = write_mask.reshape((-1,) + (1,) * (row.dim() - 1))
+            row = torch.where(keep, row, cache[name][bidx, slot])
+        cache[name][bidx, slot] = row
+    stamp = posb if write_mask is None else \
+        torch.where(write_mask, posb, cache["kpos"][bidx, slot])
+    cache["kpos"][bidx, slot] = stamp
+    return cache
+
+
+def _ring_prefill_cache(k, v, window: int):
+    """The decode ring of a sliding-window layer after a prefill of ``sq``
+    rows: the last ``min(window, sq)`` rows rolled so that slot = pos %
+    window, padded with empty rows (kpos -1) up to ``window``."""
+    sq = k.shape[1]
+    w = min(window, sq)
+    ck, cv = k[:, sq - w:], v[:, sq - w:]
+    kpos = torch.arange(sq - w, sq, dtype=torch.int32, device=k.device)
+    roll = (sq % window) if sq >= window else 0
+    ck = torch.roll(ck, roll, dims=1)
+    cv = torch.roll(cv, roll, dims=1)
+    kpos = torch.roll(kpos, roll, dims=0)
+    if w < window:
+        pad = window - w
+        zeros = ck.new_zeros((ck.shape[0], pad) + tuple(ck.shape[2:]))
+        ck = torch.cat([ck, zeros], dim=1)
+        cv = torch.cat([cv, zeros], dim=1)
+        kpos = torch.cat([kpos, kpos.new_full((pad,), -1)])
+    return {"k": ck, "v": cv, "kpos": kpos}
 
 
 def _paged_update(cache, k_new, v_new, posb, write_mask=None):
@@ -98,44 +202,57 @@ def _project(x, w):
         B, S, w.shape[1], w.shape[2])
 
 
-def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig,
+def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
               cache: Optional[Dict] = None, mode: str = "prefill",
               write_mask=None):
-    """x: (B, S, D).  prefill: positions (S,); decode: per-slot (B,)
-    positions against a paged cache, ``write_mask`` (B,) bool gating the
-    cache write per slot.  Returns (out (B, S, D), new_cache)."""
-    if cfg.attn.kind != "full":
-        raise NotImplementedError(
-            f"attention kind {cfg.attn.kind!r} is not ported yet")
-    rope_base = cfg.attn.rope_base
-    B, S, _ = x.shape
-    if mode == "decode":
-        posb = positions.expand(B).to(torch.int32)
-        rope_pos = posb[:, None]
-    elif mode == "prefill":
-        rope_pos = positions[None, :]
-    else:
+    """x: (B, S, D); ``kind`` "full" or "local".  prefill: positions (S,);
+    decode: per-slot (B,) positions against a per-slot cache (paged pool or
+    kpos (B, S) strips), or one shared position (1,) against a kpos (S,)
+    strip.  ``write_mask`` (B,) bool gates per-slot cache writes.  Returns
+    (out (B, S, D), new_cache)."""
+    if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
+    window = cfg.attn.window if kind == "local" else None
+    rope_base = cfg.attn.rope_base_local if kind == "local" \
+        else cfg.attn.rope_base
+    B, S, _ = x.shape
+    per_slot, posb, rope_pos = _decode_positions(positions, B, cache, mode)
 
     q = apply_rope(_project(x, attn.wq), rope_pos, rope_base)
     k = apply_rope(_project(x, attn.wk), rope_pos, rope_base)
     v = _project(x, attn.wv)
 
     if mode == "decode":
-        if cache is None or "pages" not in cache:
-            raise NotImplementedError("decode needs the paged cache layout; "
-                                      "the strip layout is not ported")
-        new_cache = _paged_update(cache, k, v, posb, write_mask)
-        out_h = paged_decode_attention(q[:, 0], cache["kp"], cache["vp"],
-                                       cache["pages"], posb, window=None)
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        if _paged_cache(cache):
+            if window is not None:
+                raise ValueError("paged KV applies to full-attention layers")
+            new_cache = _paged_update(cache, k, v, posb, write_mask)
+            out_h = paged_decode_attention(q[:, 0], cache["kp"], cache["vp"],
+                                           cache["pages"], posb, window=None)
+        else:
+            ring = window is not None
+            if per_slot:
+                new_cache = _slot_update(cache, {"k": k, "v": v}, posb, ring,
+                                         write_mask)
+                pos = posb
+            else:
+                pos = positions[0]
+                new_cache = _ring_update(cache, k, v, pos, ring)
+            out_h = decode_attention(q[:, 0], new_cache["k"], new_cache["v"],
+                                     new_cache["kpos"], pos, window=window)
         out_h = out_h[:, None]                                # (B,1,H,dh)
     else:
-        out_h = kops.flash_attention(q, k, v, causal=True, window=None,
+        out_h = kops.flash_attention(q, k, v, causal=True, window=window,
                                      q_chunk=cfg.attn_chunk,
                                      kv_chunk=cfg.attn_chunk)
-        new_cache = {"k": k, "v": v,
-                     "kpos": torch.arange(S, dtype=torch.int32,
-                                          device=x.device)}
+        if window is not None:
+            new_cache = _ring_prefill_cache(k, v, window)
+        else:
+            new_cache = {"k": k, "v": v,
+                         "kpos": torch.arange(S, dtype=torch.int32,
+                                              device=x.device)}
     H, dh, D = attn.wo.shape
     out = out_h.to(x.dtype).reshape(B * S, H * dh) @ attn.wo.reshape(H * dh, D)
     return out.reshape(B, S, D), new_cache

@@ -1,6 +1,7 @@
-"""Transformer blocks (port of the ``"attn"`` block of
-``repro/models/blocks.py``): RMSNorm → GQA full attention → residual,
-RMSNorm → swiglu MLP → residual."""
+"""Transformer blocks (port of the ``"attn"`` and ``"local"`` blocks of
+``repro/models/blocks.py``): RMSNorm → GQA attention → residual, RMSNorm →
+swiglu MLP → residual.  ``"attn"`` attends to the whole sequence,
+``"local"`` to a sliding window (gemma3's local layers)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -11,9 +12,11 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import empty_param, rms_norm, swiglu
 
+KINDS = ("attn", "local")
+
 
 def _check_kind(kind: str) -> None:
-    if kind != "attn":
+    if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
@@ -27,12 +30,14 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One ``"attn"`` block; parameter names follow the reference's pytree
-    (``ln1``, ``attn.{wq,wk,wv,wo}``, ``ln2``, ``mlp.{w_gate,w_up,w_down}``)."""
+    """One ``"attn"`` or ``"local"`` block; parameter names follow the
+    reference's pytree (``ln1``, ``attn.{wq,wk,wv,wo}``, ``ln2``,
+    ``mlp.{w_gate,w_up,w_down}``)."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
         _check_kind(kind)
+        self.kind = kind
         d = cfg.d_model
         self.ln1 = empty_param((d,), dtype, device)
         self.attn = attn_mod.GQA(cfg, dtype, device)
@@ -45,8 +50,10 @@ def apply_block(block: Block, x, positions, cfg: ModelConfig,
     """Returns (x, new_cache)."""
     eps = cfg.norm_eps
     h = rms_norm(x, block.ln1, eps)
-    a, new_cache = attn_mod.gqa_apply(block.attn, h, positions, cfg, cache,
-                                      mode, write_mask=write_mask)
+    a, new_cache = attn_mod.gqa_apply(
+        block.attn, h, positions, cfg,
+        "local" if block.kind == "local" else "full", cache, mode,
+        write_mask=write_mask)
     x = x + a
     h = rms_norm(x, block.ln2, eps)
     x = x + swiglu(h, block.mlp.w_gate, block.mlp.w_up, block.mlp.w_down)
@@ -54,11 +61,15 @@ def apply_block(block: Block, x, positions, cfg: ModelConfig,
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                     dtype, device, paged: bool = True, num_pages: int = 0,
+                     dtype, device, paged: bool = False, num_pages: int = 0,
                      page_size: int = 16):
-    """Decode cache of one block: the paged pool of a full-attention layer."""
+    """Decode cache of one block.  ``paged=True`` gives a full-attention
+    layer the paged pool; a sliding-window layer always keeps its dense
+    ring of ``window`` rows (its state is bounded already), and a
+    full-attention layer without ``paged`` a dense ``max_len`` strip."""
     _check_kind(kind)
-    if not paged:
-        raise NotImplementedError("the strip KV layout is not ported yet")
-    return attn_mod.init_paged_gqa_cache(cfg, batch, num_pages, page_size,
-                                         max_len, dtype, device)
+    if kind == "attn" and paged:
+        return attn_mod.init_paged_gqa_cache(cfg, batch, num_pages, page_size,
+                                             max_len, dtype, device)
+    return attn_mod.init_gqa_cache(cfg, "local" if kind == "local" else
+                                   "full", batch, max_len, dtype, device)

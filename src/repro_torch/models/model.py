@@ -6,7 +6,7 @@ Entry points:
   prefill_fn       (model, batch, cfg) -> (next_token, caches)
   decode_fn        (model, caches, token, pos, cfg) -> (next_token, caches)
   decode_block_fn  up to k fused greedy steps with on-device termination
-  init_caches      paged decode caches
+  init_caches      decode caches: shared or per-slot strips, paged pools
 
 Caches keep the reference's stacked layout: ``caches["b{j}"]`` holds the
 leaves of the j-th block of every layer group with a leading
@@ -151,11 +151,14 @@ def prefill_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
 
 def decode_fn(model: LM, caches, token, pos, cfg: ModelConfig,
               write_mask=None):
-    """One decode step.  token: (B, 1) int32; pos: (B,) int32 per-slot
-    positions against paged caches.  ``write_mask`` (B,) bool gates the
-    cache writes per slot.  Returns (next_token (B,), caches)."""
+    """One decode step.  token: (B, 1) int32; pos: () int32, one position
+    for the whole batch against shared-track caches, or (B,) int32
+    per-slot positions against per-slot caches (the serve engine's).
+    ``write_mask`` (B,) bool gates the per-slot cache writes.  Returns
+    (next_token (B,), caches)."""
     x = emb.gather_baseline(model.embed.table, token)
-    positions = pos.to(torch.int32)
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = (pos[None] if pos.dim() == 0 else pos).to(torch.int32)
     x, caches = run_blocks(model, x, positions, cfg, caches, "decode",
                            write_mask=write_mask)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
@@ -202,24 +205,35 @@ def decode_block_fn(model: LM, caches, tokens, positions, alive, remaining,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                paged: bool = True, page_size: int = 16,
-                num_pages: Optional[int] = None, device=None):
-    """Stacked paged decode caches: per block of the group, ``kp``/``vp``
-    (num_groups, num_pages + 1, page_size, Hkv, dh) and ``pages``
-    (num_groups, batch, maxp) int32, all -1.  ``num_pages`` defaults to the
-    dense worst case ``batch * pages_for(max_len, page_size)``."""
-    if not paged:
-        raise NotImplementedError("the strip KV layout is not ported yet")
+                per_slot: bool = False, paged: bool = False,
+                page_size: int = 16, num_pages: Optional[int] = None,
+                device=None):
+    """Stacked decode caches: per block of the group, leaves with a leading
+    ``num_groups`` axis.
+
+    Full-attention layers get a dense ``max_len`` strip, sliding-window
+    layers a ring of ``window`` rows, each with a position track ``kpos``
+    that starts empty (-1): one shared track (num_groups, S) for
+    uniform-position decode, or with ``per_slot=True`` one per slot
+    (num_groups, batch, S), as the serve engine needs.  ``paged=True``
+    (implies per-slot) gives full-attention layers paged pools instead:
+    ``kp``/``vp`` (num_groups, num_pages + 1, page_size, Hkv, dh) and
+    ``pages`` (num_groups, batch, maxp), all -1; ``num_pages`` defaults to
+    the dense worst case ``batch * pages_for(max_len, page_size)``."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     ng = num_groups(cfg)
-    if num_pages is None:
-        num_pages = batch * pages_for(max_len, page_size)
+    if paged:
+        per_slot = True
+        if num_pages is None:
+            num_pages = batch * pages_for(max_len, page_size)
     out: Dict[str, Any] = {}
     for j, kind in enumerate(group_pattern(cfg)):
         one = blk.init_block_cache(cfg, kind, batch, max_len, dtype, dev,
-                                   paged=True, num_pages=num_pages,
+                                   paged=paged, num_pages=num_pages or 0,
                                    page_size=page_size)
+        if per_slot and "kpos" in one:
+            one["kpos"] = one["kpos"][None].repeat(batch, 1)
         out[f"b{j}"] = {k: t[None].repeat((ng,) + (1,) * t.dim())
                         for k, t in one.items()}
     return out

@@ -1,5 +1,5 @@
 """Continuous-batching serve engine with scheduler-driven admission (port
-of ``repro/train/serve_loop.py`` on the paged KV layout).
+of ``repro/train/serve_loop.py``).
 
   request queue ──▶ admission (PullScheduler.tick + rebalance_shares)
                ──▶ slot pool (per-slot position/length tracks)
@@ -7,13 +7,19 @@ of ``repro/train/serve_loop.py`` on the paged KV layout).
                ──▶ TransferLedger ("bytes that never crossed the link")
 
 Mechanics, as in the reference:
-  * KV lives in a paged pool (``core.kv_pages``): prefill allocates
-    ``ceil(len/page_size)`` pages per slot, decode pre-reserves the pages a
-    K-block can touch, and EOS/eviction frees the slot's pages in the same
-    tick; admission reserves each request's worst-case page count, so a
-    full pool backpressures the queue instead of failing mid-decode;
-  * prefill is length-bucketed with a fixed ``num_slots`` batch; pad rows
-    are never spliced into the pool;
+  * ``kv_layout="paged"`` keeps full-attention KV in a paged pool
+    (``core.kv_pages``): prefill allocates ``ceil(len/page_size)`` pages per
+    slot, decode pre-reserves the pages a K-block can touch, and
+    EOS/eviction frees the slot's pages in the same tick; admission
+    reserves each request's worst-case page count, so a full pool
+    backpressures the queue instead of failing mid-decode;
+  * ``kv_layout="strip"`` keeps them in dense per-slot strips of
+    ``max_len`` rows; sliding-window layers keep a per-slot ring of
+    ``window`` rows under either layout (a model with no full-attention
+    layer always serves on strips);
+  * prefill is length-bucketed with a fixed ``num_slots`` batch, padded only
+    where padding is exact (no window ring shorter than the bucket); pad
+    rows are never spliced into the pool;
   * ``k_block`` > 1 runs up to ``k_block`` greedy steps per tick with
     on-device sampling and termination masks (``decode_block_fn``) and
     reads back one (K, num_slots) token block; ``k_block=1`` is the
@@ -21,14 +27,14 @@ Mechanics, as in the reference:
   * every prefill/decode step records the chosen and the host-baseline
     link bytes in the ledgers.
 
-On the card, prefill runs the flash-attention kernel and decode the
-paged-decode kernel (``kernels/csrc``); the KV pools and the per-slot
-device state are updated in place where the reference donated buffers.
+On the card, prefill runs the flash-attention kernel, decode the
+paged-decode kernel on paged layers and the isp-decode kernel on strips
+and rings (``kernels/csrc``); the KV caches and the per-slot device state
+are updated in place where the reference donated buffers.
 
-Not ported yet (each raises ``NotImplementedError``): the dense ``strip``
-KV layout, ``chunk_prefill`` (and its ``chunk_budget``), ``jit_donor``
-and ``prewarm``.  The cluster tier's pool-clamp fault hook waits for the
-cluster tier.
+Not ported yet (each raises ``NotImplementedError``): ``chunk_prefill``
+(and its ``chunk_budget``), ``jit_donor`` and ``prewarm``.  The cluster
+tier's pool-clamp fault hook waits for the cluster tier.
 """
 from __future__ import annotations
 
@@ -312,8 +318,6 @@ class ServeEngine:
         if admission_order not in ("fifo", "edf"):
             raise ValueError(f"admission_order must be 'fifo' or 'edf', "
                              f"got {admission_order!r}")
-        if kv_layout == "strip":
-            raise NotImplementedError("kv_layout='strip' is not ported yet")
         if chunk_prefill:
             raise NotImplementedError("chunk_prefill is not ported yet")
         if jit_donor is not None:
@@ -335,21 +339,32 @@ class ServeEngine:
         self.admission = admission if admission is not None else \
             AdmissionController(num_slots)
         self.k_block = max(int(k_block), 1)
-        self.kv_layout = "paged"
+        self.kv_layout = kv_layout if self._has_paged_layers() else "strip"
         self.page_size = max(page_size, 1)
         self._maxp = pages_for(max_len, self.page_size)
-        if num_pages is None:
-            num_pages = num_slots * self._maxp        # dense worst case
-        self.pager = PageAllocator(num_pages, self.page_size)
-        self.page_table = np.full((num_slots, self._maxp), -1, np.int32)
-        self.caches = M.init_caches(cfg, num_slots, max_len, paged=True,
-                                    page_size=self.page_size,
-                                    num_pages=num_pages, device=self.device)
-        # the single device copy of the page table; every group's ``pages``
-        # leaf is a view of it, so row updates reach all layers at once
-        self._pages_dev = torch.full((num_slots, self._maxp), -1,
-                                     dtype=torch.int32, device=self.device)
-        self._sync_pages_leaves()
+        if self.kv_layout == "paged":
+            if num_pages is None:
+                num_pages = num_slots * self._maxp    # dense worst case
+            self.pager: Optional[PageAllocator] = PageAllocator(
+                num_pages, self.page_size)
+            self.page_table = np.full((num_slots, self._maxp), -1, np.int32)
+            self.caches = M.init_caches(cfg, num_slots, max_len, paged=True,
+                                        page_size=self.page_size,
+                                        num_pages=num_pages,
+                                        device=self.device)
+            # the single device copy of the page table; every paged group's
+            # ``pages`` leaf is a view of it, so row updates reach all
+            # layers at once
+            self._pages_dev = torch.full((num_slots, self._maxp), -1,
+                                         dtype=torch.int32,
+                                         device=self.device)
+            self._sync_pages_leaves()
+        else:
+            self.pager = None
+            self.page_table = None
+            self._pages_dev = None
+            self.caches = M.init_caches(cfg, num_slots, max_len,
+                                        per_slot=True, device=self.device)
         # per-slot decode state of the fused block, updated in place at
         # admission/finish and round-tripped through the block
         dev = self.device
@@ -394,13 +409,19 @@ class ServeEngine:
 
     # -- paged KV bookkeeping ------------------------------------------------
 
+    def _has_paged_layers(self) -> bool:
+        """Paged pools exist only for full-attention layers; a model with
+        none serves on the strip layout."""
+        return "attn" in self.cfg.layer_pattern
+
     def _sync_pages_leaves(self) -> None:
-        """Point every group's ``pages`` leaf at (a view of) the device
-        page table."""
+        """Point every paged group's ``pages`` leaf at (a view of) the
+        device page table."""
         for g, cache in self.caches.items():
-            ng = cache["pages"].shape[0]
-            cache["pages"] = self._pages_dev[None].expand(
-                (ng,) + tuple(self._pages_dev.shape))
+            if "pages" in cache:
+                ng = cache["pages"].shape[0]
+                cache["pages"] = self._pages_dev[None].expand(
+                    (ng,) + tuple(self._pages_dev.shape))
 
     def _set_pages_rows(self, slot_ids: List[int]) -> None:
         """Copy the host table's rows for ``slot_ids`` to the device table."""
@@ -439,12 +460,16 @@ class ServeEngine:
             * M.torch_dtype(self.cfg).itemsize * n_kv_layers
 
     def kv_stats(self) -> Dict[str, float]:
-        """Live/peak KV footprint vs the dense per-slot baseline (bytes)."""
+        """Live/peak KV footprint of the full-attention layers vs the dense
+        per-slot baseline (bytes)."""
         per_token = self._kv_bytes_per_token()
         dense_tokens = self.num_slots * self.max_len
-        live = self.pager.num_in_use * self.page_size
-        peak = self.pager.peak_pages * self.page_size
-        pool = self.pager.num_pages * self.page_size
+        if self.kv_layout == "paged":
+            live = self.pager.num_in_use * self.page_size
+            peak = self.pager.peak_pages * self.page_size
+            pool = self.pager.num_pages * self.page_size
+        else:
+            live = peak = pool = dense_tokens
         return {"layout": self.kv_layout, "page_size": self.page_size,
                 "live_kv_bytes": live * per_token,
                 "peak_kv_bytes": peak * per_token,
@@ -474,7 +499,8 @@ class ServeEngine:
         if len(prompt) >= self.max_len:
             raise ValueError(f"prompt ({len(prompt)}) must fit below "
                              f"max_len ({self.max_len})")
-        if self._reservation(len(prompt), max_new) > self.pager.num_pages:
+        if self.kv_layout == "paged" and \
+                self._reservation(len(prompt), max_new) > self.pager.num_pages:
             raise ValueError(
                 f"request needs {self._reservation(len(prompt), max_new)} KV "
                 f"pages but the pool only has {self.pager.num_pages}")
@@ -572,11 +598,17 @@ class ServeEngine:
 
     # -- bucketing -----------------------------------------------------------
 
+    def _padding_safe(self, padded_len: int) -> bool:
+        """Padded prefill is exact iff no sliding-window ring evicts real
+        prompt positions (recurrent kinds are not ported)."""
+        return not ("local" in self.cfg.layer_pattern
+                    and self.cfg.attn.window is not None
+                    and padded_len > self.cfg.attn.window)
+
     def _bucket_len(self, n: int) -> int:
-        """Padded prefill length: full-attention stacks are padding-safe."""
         q = self.bucket_quantum
         padded = min(-(-n // q) * q, self.max_len - 1)
-        return padded if padded > n else n
+        return padded if padded > n and self._padding_safe(padded) else n
 
     # -- engine steps --------------------------------------------------------
 
@@ -652,19 +684,20 @@ class ServeEngine:
                 self.queue,
                 key=lambda r: (r.deadline_s if r.deadline_s is not None
                                else math.inf, r.priority, r.rid)))
-        # backpressure at the pool: admit only while each request's worst
-        # case can still be reserved
-        budget = self._reservable_pages()
-        fits = 0
-        for req in list(self.queue)[:n]:
-            need = self._reservation(len(req.prompt), req.max_new)
-            if need > budget:
-                break
-            budget -= need
-            fits += 1
-        n = fits
-        if n == 0:
-            return
+        if self.kv_layout == "paged":
+            # backpressure at the pool: admit only while each request's
+            # worst case can still be reserved
+            budget = self._reservable_pages()
+            fits = 0
+            for req in list(self.queue)[:n]:
+                need = self._reservation(len(req.prompt), req.max_new)
+                if need > budget:
+                    break
+                budget -= need
+                fits += 1
+            n = fits
+            if n == 0:
+                return
         tiers = self.admission.tiers_for(n, queued=len(self.queue))
         admitted: List[_Slot] = []
         prompts: Dict[int, List[int]] = {}
@@ -679,12 +712,13 @@ class ServeEngine:
             slot.prefill_s = 0.0
             slot.decode_s = 0.0
             prompts[slot.index] = req.prompt
-            slot.reserved_pages = self._reservation(len(req.prompt),
-                                                    req.max_new)
-            pages = self.pager.alloc(pages_for(len(req.prompt),
-                                               self.page_size))
-            self.page_table[slot.index, :] = -1
-            self.page_table[slot.index, : len(pages)] = pages
+            if self.kv_layout == "paged":
+                slot.reserved_pages = self._reservation(len(req.prompt),
+                                                        req.max_new)
+                pages = self.pager.alloc(pages_for(len(req.prompt),
+                                                   self.page_size))
+                self.page_table[slot.index, :] = -1
+                self.page_table[slot.index, : len(pages)] = pages
             admitted.append(slot)
             self.last_tick.admitted_rids.append(req.rid)
             rec = self.records.get(req.rid)
@@ -696,7 +730,8 @@ class ServeEngine:
             self.stats.requests += 1
             self.stats.tier_requests[tier] = \
                 self.stats.tier_requests.get(tier, 0) + 1
-        self._set_pages_rows([s.index for s in admitted])
+        if self.kv_layout == "paged":
+            self._set_pages_rows([s.index for s in admitted])
 
         buckets: Dict[int, List[_Slot]] = {}
         for slot in admitted:
@@ -755,7 +790,8 @@ class ServeEngine:
             if s.decoding:
                 tokens[s.index, 0] = s.cur_token
                 positions[s.index] = s.pos
-        self._grow_pages(1)
+        if self.kv_layout == "paged":
+            self._grow_pages(1)
         t0 = time.perf_counter()
         nxt, self.caches = M.decode_fn(self.params, self.caches,
                                        self._dev(tokens),
@@ -791,7 +827,8 @@ class ServeEngine:
         """Fused tick: up to ``k_block`` decode steps with sampling and
         termination on the device; the host reads back the (K, num_slots)
         token block and replays the per-step bookkeeping from it."""
-        self._grow_pages(self.k_block)
+        if self.kv_layout == "paged":
+            self._grow_pages(self.k_block)
         t0 = time.perf_counter()
         out = M.decode_block_fn(self.params, self.caches, self._tok_dev,
                                 self._pos_dev, self._alive_dev,
@@ -890,17 +927,18 @@ class ServeEngine:
         self._release_slot(slot)
 
     def _release_slot(self, slot: _Slot) -> None:
-        """Return a slot and its pages to the pool in the same step."""
+        """Return a slot (and its pages) to the pool in the same step."""
         slot.active = False
         slot.out = []
         slot.rid = -1
-        row = self.page_table[slot.index]
-        live = [int(p) for p in row[row >= 0]]
-        if live:
-            self.pager.free(live)
-        self.page_table[slot.index, :] = -1
-        slot.reserved_pages = 0
-        self._set_pages_rows([slot.index])
+        if self.kv_layout == "paged":
+            row = self.page_table[slot.index]
+            live = [int(p) for p in row[row >= 0]]
+            if live:
+                self.pager.free(live)
+            self.page_table[slot.index, :] = -1
+            slot.reserved_pages = 0
+            self._set_pages_rows([slot.index])
 
     # -- transfer accounting -------------------------------------------------
 
@@ -931,13 +969,17 @@ class ServeEngine:
         self._account_kv_step()
 
     def _account_kv_step(self) -> None:
-        """KV rows this decode step walks (live pages) vs the dense
-        per-slot strips."""
+        """KV rows of the full-attention layers this decode step walks
+        (live pages, or every slot's whole strip on the strip layout) vs
+        the dense per-slot strips."""
         per_token = self._kv_bytes_per_token()
         if per_token == 0:
             return
         dense = self.num_slots * self.max_len * per_token
-        touched = self.pager.num_in_use * self.page_size * per_token
+        if self.kv_layout == "paged":
+            touched = self.pager.num_in_use * self.page_size * per_token
+        else:
+            touched = dense
         self.ledger.add("kv", touched, "decode KV rows")
         self.baseline.add("kv", dense, "decode KV rows")
 
@@ -956,11 +998,16 @@ def collect_results(engine, rids: List[int]) -> List[GenResult]:
 
 
 def _splice_slots(pool, pre, slot_ids: List[int], lengths: List[int],
-                  page_table, page_size: int):
-    """Scatter a bucket's prefill K/V into the paged pools, per group."""
+                  page_table=None, page_size: int = 0):
+    """Scatter a bucket's prefill caches into the engine's caches, per
+    group and in place: paged groups into their allocated pages, strip and
+    ring groups into their slots' rows."""
     for gname, dst in pool.items():
-        _splice_paged_group(dst, pre[gname], slot_ids, lengths, page_table,
-                            page_size)
+        if "pages" in dst:
+            _splice_paged_group(dst, pre[gname], slot_ids, lengths,
+                                page_table, page_size)
+        else:
+            _splice_strip_group(dst, pre[gname], slot_ids, lengths)
     return pool
 
 
@@ -988,4 +1035,24 @@ def _splice_paged_group(dst, src, slot_ids: List[int], lengths: List[int],
     do = torch.from_numpy(np.concatenate(dst_off)).to(dev)
     dst["kp"][:, dp, do] = src["k"][:, sb, sp].to(dst["kp"].dtype)
     dst["vp"][:, dp, do] = src["v"][:, sb, sp].to(dst["vp"].dtype)
+    return dst
+
+
+def _splice_strip_group(dst, src, slot_ids: List[int], lengths: List[int]):
+    """Dense per-slot splice, in place: ``dst`` leaves are (ng, num_slots,
+    S, ...), ``src`` leaves (ng, bpad, n, ...) with the bucket's real
+    sequences first.  A slot's kpos row becomes its own track: prefill
+    positions at or past the true prompt length (padding) are -1, and so
+    is everything past the copied span."""
+    b = len(slot_ids)
+    dev = dst["kpos"].device
+    slots = torch.as_tensor(slot_ids, dtype=torch.long, device=dev)
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    n = min(src["kpos"].shape[1], dst["kpos"].shape[2])
+    row = src["kpos"][:, None, :n].expand(-1, b, -1)
+    row = torch.where((row >= 0) & (row < lens[None, :, None]), row, -1)
+    dst["kpos"][:, slots] = -1
+    dst["kpos"][:, slots, :n] = row
+    for name in ("k", "v"):
+        dst[name][:, slots, :n] = src[name][:, :b, :n].to(dst[name].dtype)
     return dst

@@ -38,7 +38,10 @@ def _env():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "repro_torch.train.serve_loop" in mods
+    for m in ("repro_torch.train.serve_loop", "repro_torch.kernels.isp_decode",
+              "repro_torch.configs.gemma3_12b",
+              "repro_torch.core.decode_attention"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -68,17 +71,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         TM.init_params(cfg, gen)
     with pytest.raises(RuntimeError, match="CUDA"):
         TM.init_caches(cfg, 2, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TM.init_caches(cfg, 2, 32, per_slot=False)
     params = TM.init_params(cfg, gen, "cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(cfg, params)
     ServeEngine(cfg, params, device="cpu")
+    gemma = dataclasses.replace(reduced_config("gemma3-12b"),
+                                dtype="float32")
+    gparams = TM.init_params(gemma, gen, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(gemma, gparams)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(gemma, gparams, kv_layout="strip")
+    ServeEngine(gemma, gparams, device="cpu")
 
 
 def test_unported_options_raise(tmp_path):
     cfg = dataclasses.replace(reduced_config("yi-9b"), dtype="float32")
     params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    for kw in (dict(kv_layout="strip"), dict(chunk_prefill=8),
-               dict(jit_donor=object()), dict(prewarm=True)):
+    for kw in (dict(chunk_prefill=8), dict(jit_donor=object()),
+               dict(prewarm=True)):
         with pytest.raises(NotImplementedError):
             ServeEngine(cfg, params, device="cpu", **kw)
     with pytest.raises(ValueError):
