@@ -5,12 +5,17 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. device   — the card's name and power limit, torch/CUDA versions, and
                 the parallel nvcc build of every kernel in
-                src/repro_torch/kernels/csrc;
+                src/repro_torch/kernels/csrc (four sources);
   2. kernels  — each CUDA kernel against its plain PyTorch version at the
                 shapes its serve path gives it (yi-9b: dh 128; gemma3-12b:
-                dh 240, window 1024), in bfloat16 and float32, then timed
-                with CUDA events (median of 25 runs, L2 flushed between
-                runs) beside its plain version, its bound and, where one
+                dh 240, window 1024, and its 262144 x 3840 vocabulary table
+                for isp_gather: 8 ids of a decode step and 8 x 1024 of a
+                prefill at offset 0, a four-shard layout with weights and
+                -1 pads, an n no block size divides at a D the vector width
+                does not divide), in bfloat16 and float32, then timed with
+                CUDA events (median of 25 runs, L2 flushed between runs, a
+                spin on the card before each so that the interval is device
+                time) beside its plain version, its bound and, where one
                 PyTorch call computes the same function, that call;
   3. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
@@ -36,7 +41,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 prefill call, the isp-decode kernel on the 40 window layers
                 and the paged-decode kernel on the 8 global layers of every
                 step; k_block=1 gives identical tokens; one decode tick is
-                profiled.
+                profiled;
+  7. plan     — the same gemma3-12b (before it is freed) through a sharding
+                plan on the one-rank (1, 1) ("data", "model") mesh (NCCL,
+                make_plan's FSDP heuristic on): prefill_fn with the recipe
+                on 8 prompts of 1024 random tokens, then 32 uniform decode_fn
+                steps from init_caches(cfg, 8, 1024) (16 prompt tokens fed,
+                16 greedy), against the same run without a recipe: identical
+                tokens; isp_gather launched exactly once per prefill call and
+                decode step under the plan and never without it, the other
+                kernels exactly as on the uniform path (flash 48 per prefill,
+                isp decode 48 per step); embed_lookup under the plan
+                bit-equal to gather_baseline; decode ms per step and peak
+                memory with and without the recipe, in turns (plan, no
+                plan, no plan, plan); the process group is torn down at the
+                end.
 Each path's launch counters are set to 0 just before it runs and read just
 after; the launches that hold a kernel against its plain version do not
 count.
@@ -62,6 +81,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 N_TIMED = 25
+SPIN_CYCLES = 10_000_000    # ~5 ms of GPU spin at the H100's ~1.98 GHz
 
 # tolerances of kernel vs plain version on the same inputs:
 #  fp32 — both accumulate in fp32 in another order (online vs one-shot
@@ -69,6 +89,9 @@ N_TIMED = 25
 #  bf16 — inputs are identical; the decode partials are fp32 (only the
 #         order differs), the flash output is rounded to bf16, one bf16
 #         ulp at |x| < 4 is <= 2**-6, so 2e-2 covers a rounding flip.
+# isp_gather copies rows: exact (atol 0) without weights and in fp32; with
+# weights in bf16 the kernel multiplies in fp32 and rounds once where the
+# plain version multiplies in bf16, so they may differ by one bf16 ulp.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 
@@ -87,12 +110,16 @@ def nvidia_smi() -> str:
 
 def time_ms(fn, flush) -> float:
     """Median of N_TIMED single runs timed with CUDA events, after a
-    warm-up; ``flush`` evicts the L2 cache before each run."""
+    warm-up; ``flush`` evicts the L2 cache before each run.  A spin on the
+    card before the start event keeps it busy while the host enqueues the
+    run, so the interval is the run's device time: without it a slow host
+    shows its launch overhead as kernel time."""
     fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(N_TIMED):
         flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -119,6 +146,67 @@ def bound(nbytes: float, flops: float, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bf16_ulps(a, b) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors."""
+    def line(x):
+        i = x.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((line(a) - line(b)).abs().max())
+
+
+def gather_cases(dev):
+    """isp_gather against its plain version.  Returns, per number of ids,
+    gemma3-12b's bf16 table and ids at offset 0 (the timed cases) and the
+    max abs error at that case in bf16 and in fp32."""
+    from repro_torch.kernels import isp_gather as ig
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    V, D = 262144, 3840
+    ids = lambda n, lo=0, hi=V: torch.randint(   # noqa: E731
+        lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
+    timed, errs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn(V, D, generator=gen, device=dev).to(dtype)
+        for n in (8, 8 * 1024):
+            idx = ids(n)
+            got = ig.isp_gather(table, idx)
+            want = ig.isp_gather_ref(table, idx)
+            errs[dtype, n] = float((got.float() - want.float()).abs().max())
+            assert torch.equal(got, want), \
+                f"isp_gather {dtype} n={n}: not exact"
+            if dtype == torch.bfloat16:
+                timed[n] = (table, idx)
+        # four shards: this one holds rows [131072, 196608); ids over the
+        # whole vocabulary, every 9th a -1 pad, with weights
+        off, v_loc = 131072, 65536
+        idx = ids(8192)
+        idx[::9] = -1
+        w = torch.randn(8192, generator=gen, device=dev)
+        shard = table[off:off + v_loc]
+        got = ig.isp_gather(shard, idx, shard_offset=off, weights=w)
+        want = ig.isp_gather_ref(shard, idx, shard_offset=off, weights=w)
+        out = (idx < off) | (idx >= off + v_loc)
+        assert int(out.sum()) > 0 and not bool(got[out].any())
+        if dtype == torch.float32:
+            assert torch.equal(got, want), "isp_gather fp32 weighted"
+        else:
+            assert bf16_ulps(got, want) <= 1, "isp_gather bf16 weighted"
+        # n = 1001 (no block of 8 ids divides it), D = 3841 (rows not
+        # 16-byte aligned take the scalar path)
+        odd = torch.randn(4096, 3841, generator=gen, device=dev).to(dtype)
+        idx = ids(1001, -1, 4200)
+        got = ig.isp_gather(odd, idx, shard_offset=100)
+        assert torch.equal(got, ig.isp_gather_ref(odd, idx,
+                                                  shard_offset=100))
+        torch.cuda.synchronize()
+        log(f"[kernels] isp_gather {dtype}: exact at gemma3's table (8 and "
+            f"8192 ids), four-shard weighted "
+            f"{'exact' if dtype == torch.float32 else '<= 1 bf16 ulp'}, "
+            f"n=1001 D=3841 exact")
+        del table, shard, odd
+    return {n: (t, i, errs[torch.bfloat16, n], errs[torch.float32, n])
+            for n, (t, i) in timed.items()}
 
 
 def decode_case(dtype, dev, gen, H=32, Hkv=4, dh=128, maxp=64,
@@ -323,6 +411,27 @@ def kernel_phase(dev):
                 q, k, v, window=window), flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(lib,
                                                                      flush)))
+    # -- isp gather: gemma3-12b's vocabulary table under the plan (offset 0:
+    # the whole table is this rank's shard on the one-rank mesh)
+    from repro_torch.kernels import isp_gather as ig
+    for n, (table, idx, err, err32) in gather_cases(dev).items():
+        V, D = table.shape
+        idx64 = idx.long()
+        nbytes = 2 * n * D * 2 + 4 * n          # rows read + written, ids
+        bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+        rows.append(dict(
+            name="isp_gather", kernel="isp_gather", path="gemma3-12b plan",
+            route="cuda", source="src/repro_torch/kernels/csrc/isp_gather.cu",
+            replaces="src/repro/kernels/isp_gather.py:50",
+            dtype="bfloat16", shape=f"table ({V}, {D}) offset 0, {n} ids "
+            f"({'decode step' if n == 8 else 'prefill'})",
+            max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
+            ms=time_ms(lambda: ig.isp_gather(table, idx), flush),
+            plain_ms=time_ms(lambda: ig.isp_gather_ref(table, idx), flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(lambda: torch.nn.functional.embedding(
+                idx64, table), flush)))
+        del table
     del flush_buf
     for row in rows:
         row["kernel_ms"] = row["ms"]
@@ -556,9 +665,93 @@ def gemma_phase(dev):
         eng.submit(prompt, max_new=32)
     eng.step()
     profile_window(eng, "gemma3 decode block tick", step_ms=step_ms)
-    del eng, params
+    del eng
     free_device()
-    return launches
+    plan_launches = plan_phase(cfg, params, dev)
+    del params
+    free_device()
+    return launches, plan_launches
+
+
+def plan_phase(cfg, params, dev):
+    """gemma3-12b through a sharding recipe on the one-rank mesh against
+    the same calls without one; returns the plan run's launches."""
+    from repro_torch import sharding as sh
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import embedding as emb
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as lm
+    from repro_torch.models import model as M
+    B, S, FED, STEPS = 8, 1024, 16, 32
+    rng = np.random.default_rng(SEED + 2)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)).to(dev)
+    mesh = lm.make_local_mesh(dev)
+    try:
+        plan = sh.make_plan(mesh, cfg)
+        assert plan.fsdp and plan.fsdp_axis == "data", plan
+        recipe = sh.make_recipe(plan, cfg, ShapeConfig(S, B))
+        log(f"[plan] mesh {mesh}; fsdp {plan.fsdp} (axis {plan.fsdp_axis}), "
+            f"batch axes {recipe.batch_axes}, seq axes {recipe.seq_axes}, "
+            f"vocab sharded {sh.vocab_sharded(recipe, cfg)}")
+        runs = []      # in turns, so that a drift of the host hits both sides
+        for tag in ("plan", "no plan", "no plan", "plan"):
+            rc = recipe if tag == "plan" else None
+            free_device()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                nxt, caches = M.prefill_fn(params, {"tokens": prompts}, cfg,
+                                           rc)
+                del caches
+                caches = M.init_caches(cfg, B, S, device=dev, plan=rc)
+                tok, out = prompts[:, :1], []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(STEPS):
+                    o, caches = M.decode_fn(
+                        params, caches, tok,
+                        torch.tensor(t, dtype=torch.int32, device=dev), cfg,
+                        rc)
+                    out.append(o)
+                    tok = prompts[:, t + 1:t + 2] if t + 1 < FED \
+                        else o[:, None]
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            runs.append((tag, nxt, torch.stack(out), launches, step_ms))
+            log(f"[plan] {tag}: decode {step_ms:.2f} ms per step over "
+                f"{STEPS} steps, peak memory {peak:.2f} GB; launches "
+                f"{launches}")
+            del caches
+        L = cfg.num_layers
+        _, n_p, d_p, l_p, _ = runs[0]
+        for tag, nxt, toks, launches, _ in runs:
+            assert torch.equal(nxt, n_p), "plan: prefill tokens differ"
+            assert torch.equal(toks, d_p), "plan: decode tokens differ"
+            gathers = 1 + STEPS if tag == "plan" else 0
+            assert launches == {"flash_attention": L, "isp_decode": L * STEPS,
+                                "paged_decode": 0, "isp_gather": gathers}, \
+                (tag, launches)
+        assert all(0 <= t < cfg.vocab_size for t in d_p.flatten().tolist())
+        for tag in ("plan", "no plan"):
+            ms = [r[4] for r in runs if r[0] == tag]
+            log(f"[plan] {tag}: decode {np.mean(ms):.2f} ms per step, mean "
+                f"of the two runs {[round(m, 2) for m in ms]}")
+        with torch.no_grad():
+            rows = emb.embed_lookup(params.embed.table, prompts, cfg,
+                                    recipe, seq_sharded=False)
+        assert torch.equal(rows, emb.gather_baseline(params.embed.table,
+                                                     prompts))
+        log(f"[plan] identical prefill and {STEPS} decode tokens with and "
+            f"without the recipe; isp_gather {l_p['isp_gather']} launches "
+            f"(1 prefill + {STEPS} steps); embed_lookup under the plan is "
+            f"bit-equal to gather_baseline")
+    finally:
+        lm.teardown()
+    return l_p
 
 
 def main() -> int:
@@ -646,7 +839,8 @@ def main() -> int:
 
     # -- strip layout, then gemma3-12b -----------------------------------------
     path_launches["yi-9b strip"] = strip_phase(dev, requests)
-    path_launches["gemma3-12b serve"] = gemma_phase(dev)
+    (path_launches["gemma3-12b serve"],
+     path_launches["gemma3-12b plan"]) = gemma_phase(dev)
     for row in rows:
         row["launches"] = path_launches[row["path"]][row["kernel"]]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")

@@ -4,9 +4,11 @@
 leaves of ``repro.models.model.init_params``, converted by the caller) and
 returns the port's ``LM`` with the same values.  The pytree's stacked
 ``blocks.b{j}.*`` leaves carry a leading ``num_groups`` axis; layer
-``g * group_size + j`` takes index ``g``.  Only the tests call this (the
-port itself never imports JAX); ``chip_smoke.py`` draws its weights with
-the port's own ``init_params``.
+``g * group_size + j`` takes index ``g``.  With a sharding ``plan`` the
+vocabulary tables are cut to this rank's shard (rows by model rank,
+columns by FSDP rank).  Only the tests call this (the port itself never
+imports JAX); ``chip_smoke.py`` draws its weights with the port's own
+``init_params``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import LM, group_pattern
@@ -47,10 +50,14 @@ def state_from_jax(tree: Dict[str, Any], cfg: ModelConfig
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device=None) -> LM:
+                    device=None, plan=None) -> LM:
     dev = resolve_device(device)
-    model = LM(cfg, dev)
+    model = LM(cfg, dev, plan)
     state = state_from_jax(tree, cfg)
+    for name in ("embed.table", "head.w_head"):
+        if name in state:
+            rows, cols = sh.vocab_slices(plan, cfg)
+            state[name] = state[name][rows, cols]
     own = model.state_dict()
     if set(state) != set(own):
         raise KeyError(f"pytree/module mismatch: missing "

@@ -11,6 +11,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, Optional, Tuple
 
+VOCAB_PAD = 32   # vocabulary tables are padded to a multiple of this many rows
+
 
 @dataclass(frozen=True)
 class AttnConfig:
@@ -87,6 +89,11 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.num_heads)
 
     @property
+    def padded_vocab(self) -> int:
+        """Rows of the vocabulary tables (embedding and head)."""
+        return -(-self.vocab_size // VOCAB_PAD) * VOCAB_PAD
+
+    @property
     def layer_pattern(self) -> Tuple[str, ...]:
         """block_pattern tiled to num_layers."""
         p = self.block_pattern
@@ -103,6 +110,14 @@ class ModelConfig:
         """Analytic parameter count of the port's parameterization."""
         from repro_torch.models.model import count_params  # avoids a cycle
         return count_params(self)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (sequence length, global batch) cell of a step: what a sharding
+    recipe is cut for."""
+    seq_len: int
+    global_batch: int
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}

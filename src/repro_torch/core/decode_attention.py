@@ -1,33 +1,74 @@
-"""Decode attention on one device (port of the local branches of
-``repro/core/decode_attention.py``): over a dense KV strip with explicit
-key positions (``decode_attention``) and over a paged KV pool
-(``paged_decode_attention``)."""
+"""Decode attention (port of ``repro/core/decode_attention.py``): over a
+dense KV strip with explicit key positions (``decode_attention``) and over
+a paged KV pool (``paged_decode_attention``).
+
+ISP decode under a sequence-sharded plan: each rank holds its own
+contiguous block of the strip's rows, and the per-step query goes to where
+the KV span lives.  Each rank computes a partial over its rows and only
+the partials move — per head ``acc`` (dh floats), ``l`` and ``m`` — merged
+by the numerically stable flash-decoding combine over the sequence axes.
+The KV bytes never cross a link.
+"""
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+import torch.distributed as dist
+
+from repro_torch import sharding as sh
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 
 
+def _seq_sharded(plan) -> bool:
+    return plan is not None and plan.mesh is not None and bool(plan.seq_axes)
+
+
+def _combine(acc, l, m, group):
+    """Stable merge of the ranks' partials: max of ``m`` over the group,
+    then one sum of the rescaled ``acc`` and ``l`` (packed together)."""
+    m_glob = m.clone()
+    dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(m - m_glob)
+    buf = torch.cat([acc * w[..., None], (l * w)[..., None]], dim=-1)
+    dist.all_reduce(buf, group=group)
+    acc, l = buf[..., :-1], buf[..., -1]
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return acc / l[..., None]
+
+
 def decode_attention(q, k_cache, v_cache, kpos, cur_pos, *,
-                     window: Optional[int],
+                     window: Optional[int], plan=None,
                      scale: Optional[float] = None):
     """q: (B, H, dh); k/v_cache: (B, S, Hkv, dh); kpos (S,) with a scalar
     cur_pos, or per-slot kpos (B, S) with cur_pos (B,) (continuous
-    batching).  Returns (B, H, dhv) in q's dtype."""
+    batching).  Returns (B, H, dhv) in q's dtype.
+
+    ``plan`` is a ShardingRecipe; with a mesh and non-empty ``seq_axes`` the
+    strip (and kpos) passed in are this rank's block of rows, each rank runs
+    the decode partial over its block and the partials are combined over
+    the sequence axes."""
     acc, l, m = kops.decode_partial(q, k_cache, v_cache, kpos, cur_pos,
                                     window=window, scale=scale)
-    return ref.combine_partials(acc[None], l[None], m[None],
-                                axis=0).to(q.dtype)
+    if not _seq_sharded(plan):
+        return ref.combine_partials(acc[None], l[None], m[None],
+                                    axis=0).to(q.dtype)
+    group = sh.axis_group(plan, plan.seq_axes)
+    return _combine(acc, l, m, group).to(q.dtype)
 
 
 def paged_decode_attention(q, kpool, vpool, pages, cur_pos, *,
-                           window: Optional[int],
+                           window: Optional[int], plan=None,
                            scale: Optional[float] = None):
     """q: (B, H, dh); kpool/vpool: (P(+scratch), page_size, Hkv, dh);
     pages: (B, maxp) int32 per-slot page tables; cur_pos: (B,) int32.
-    Returns (B, H, dhv) in q's dtype."""
+    Returns (B, H, dhv) in q's dtype.  Under a sequence-sharded plan the
+    reference gathers the pool into strips and takes the strip path; that
+    is not ported."""
+    if _seq_sharded(plan):
+        raise NotImplementedError("paged KV under a sequence-sharded plan "
+                                  "is not ported")
     acc, l, m = kops.paged_decode_partial(q, kpool, vpool, pages, cur_pos,
                                           window=window, scale=scale)
     return ref.combine_partials(acc[None], l[None], m[None],

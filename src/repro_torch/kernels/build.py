@@ -41,6 +41,8 @@ KERNELS = {
                         [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
     "isp_decode": ("isp_decode.cu", "repro_isp_decode",
                    [_P] * 8 + [_I] * 5 + [_L] * 6 + [_I] * 4 + [_F, _I, _P]),
+    "isp_gather": ("isp_gather.cu", "repro_isp_gather",
+                   [_P] * 4 + [_L, _L, _I, _L, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -1,4 +1,4 @@
-"""Dispatch of the attention ops by the device of their tensors.
+"""Dispatch of the kernel ops by the device of their tensors.
 
   * a CUDA tensor launches the hand-written kernel (``csrc/*.cu``), which
     raises if it cannot be built or launched, or if the device is not
@@ -15,6 +15,7 @@ from typing import Dict, Optional
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import isp_decode as isp
+from repro_torch.kernels import isp_gather as ig
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import ref
 
@@ -65,6 +66,17 @@ def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
                                       scale=scale)
     return isp.decode_partial(q, k, v, kpos, cur_pos, window=window,
                               scale=scale)
+
+
+def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
+    """Masked shard-local row gather: ``table[id - shard_offset]`` for ids in
+    this shard's rows, zeros elsewhere.  table (V_loc, D); indices (...)
+    int; weights optional (...).  Returns (..., D) in the table's dtype."""
+    if _on_cpu(table):
+        return ig.isp_gather_ref(table, indices, shard_offset=shard_offset,
+                                 weights=weights)
+    return ig.isp_gather(table, indices, shard_offset=shard_offset,
+                         weights=weights)
 
 
 def launch_counts() -> Dict[str, int]:

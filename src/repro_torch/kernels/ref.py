@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels (forward only).
+"""Plain PyTorch versions of the kernels (forward only).
 
 These are the port's counterparts of ``repro/kernels/ref.py`` and keep its
 conventions: ``NEG_INF = -1e30`` (not -inf), fp32 ``(acc, l, m)`` decode
@@ -171,3 +171,25 @@ def combine_partials(acc, l, m, axis: int = 0):
     l = (l * w).sum(dim=axis)
     l = torch.where(l == 0, torch.ones_like(l), l)
     return acc / l[..., None]
+
+
+def isp_gather(table, indices, shard_offset: int = 0, weights=None):
+    """Gather rows of a (local) table shard for global ``indices``.
+
+    Rows outside [shard_offset, shard_offset + V_local) contribute zeros —
+    summing across shards reconstructs the full gather.  This is the paper's
+    "send indexes, not data": indices travel, table rows do not.
+
+    table: (V_local, D); indices: (...,) int; weights: optional (...,) scale,
+    applied in the table's dtype.  Returns (..., D) in the table's dtype.
+    """
+    v_local = table.shape[0]
+    local = indices.long() - shard_offset
+    in_range = (local >= 0) & (local < v_local)
+    safe = torch.clamp(local, 0, v_local - 1)
+    rows = table[safe]
+    rows = torch.where(in_range[..., None], rows,
+                       torch.zeros((), dtype=table.dtype, device=table.device))
+    if weights is not None:
+        rows = rows * weights[..., None].to(rows.dtype)
+    return rows

@@ -17,6 +17,12 @@ use ``cfg.attn.window`` and ``rope_base_local``, full layers no window and
 ``rope_base``.  Parameters keep the reference's layouts: wq (D, H, dh),
 wk/wv (D, Hkv, dh), wo (H, dh, D).  Activations are (B, S, H, dh).  Decode
 updates the caches in place where the reference returned new arrays.
+
+Under a sequence-sharded recipe (``plan.seq_axes``) a dense strip is held
+as this rank's contiguous block of rows — ``(B, S/n, Hkv, dh)`` and its
+kpos — so the KV bytes stay on the rank that owns them: decode writes a
+position's row only on the rank owning its strip row, and prefill keeps
+each rank's block of the rows it computed.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.core.decode_attention import (decode_attention,
                                                paged_decode_attention)
@@ -60,13 +67,28 @@ def gqa_params(cfg: ModelConfig, generator: torch.Generator, dtype,
     }
 
 
+def seq_shard(plan, s: int = 0):
+    """(r, n): this rank's block ``r`` of a strip split over the recipe's
+    sequence axes into ``n`` blocks; (0, 1) unsharded.  A strip of ``s``
+    rows must split evenly: the reference cannot split it otherwise."""
+    if plan is None or plan.mesh is None or not plan.seq_axes:
+        return 0, 1
+    n = sh.axes_size(plan, plan.seq_axes)
+    if s % n:
+        raise ValueError(f"a strip of {s} rows does not split over the "
+                         f"sequence axes {plan.seq_axes} ({n} ranks)")
+    return sh.axis_index(plan, plan.seq_axes), n
+
+
 def init_gqa_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
-                   dtype, device):
+                   dtype, device, plan=None):
     """Dense decode strip of one layer: ``window`` rows for a
     sliding-window layer (a ring, slot = pos % window), ``max_len`` rows
-    otherwise, with a shared position track ``kpos`` (-1 = empty)."""
+    otherwise, with a shared position track ``kpos`` (-1 = empty).  Under a
+    sequence-sharded recipe, this rank's block of the rows."""
     window = cfg.attn.window if kind == "local" else None
     s = window if window else max_len
+    s //= seq_shard(plan, s)[1]
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
     return {
         "k": torch.zeros((batch, s, hkv, dh), dtype=dtype, device=device),
@@ -121,23 +143,46 @@ def _ring_slot(pos, s: int, ring: bool):
     return pos % s if ring else torch.clamp(pos, max=s - 1)
 
 
-def _ring_update(cache, k_new, v_new, pos, ring: bool):
+def _ring_update(cache, k_new, v_new, pos, ring: bool, shard=(0, 1)):
     """Uniform decode: write every slot's (1, hkv, dh) row at the shared
-    position ``pos`` (0-dim) and stamp the shared track, in place."""
-    slot = _ring_slot(pos, cache["k"].shape[1], ring).reshape(1).long()
-    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
-    cache["kpos"].index_copy_(0, slot, pos.reshape(1).to(torch.int32))
+    position ``pos`` (0-dim) and stamp the shared track, in place.  With
+    ``shard = (r, n)`` the cache is block ``r`` of ``n``: only the rank
+    owning the position's strip row writes (the others rewrite the row they
+    hold at the clamped index)."""
+    r, n = shard
+    s = cache["k"].shape[1]
+    slot = _ring_slot(pos, s * n, ring).reshape(1).long()
+    pos = pos.reshape(1).to(torch.int32)
+    k_new = k_new.to(cache["k"].dtype)
+    v_new = v_new.to(cache["v"].dtype)
+    if n > 1:
+        slot = slot - r * s
+        own = (slot >= 0) & (slot < s)
+        slot = torch.clamp(slot, 0, s - 1)
+        k_new = torch.where(own, k_new, cache["k"].index_select(1, slot))
+        v_new = torch.where(own, v_new, cache["v"].index_select(1, slot))
+        pos = torch.where(own, pos, cache["kpos"].index_select(0, slot))
+    cache["k"].index_copy_(1, slot, k_new)
+    cache["v"].index_copy_(1, slot, v_new)
+    cache["kpos"].index_copy_(0, slot, pos)
     return cache
 
 
-def _slot_update(cache, new_vals, posb, ring: bool, write_mask=None):
+def _slot_update(cache, new_vals, posb, ring: bool, write_mask=None,
+                 shard=(0, 1)):
     """Per-slot decode: write each slot's (1, ...) row at its own position
     and stamp its kpos track, in place.  ``write_mask`` (B,) keeps masked
     slots' rows and stamps untouched (slots that finished mid-way through a
-    K-step block)."""
+    K-step block); with ``shard = (r, n)`` so are the slots whose row lies
+    in another rank's block."""
+    r, n = shard
     s = cache["kpos"].shape[1]
-    slot = _ring_slot(posb, s, ring).long()
+    slot = _ring_slot(posb, s * n, ring).long()
+    if n > 1:
+        slot = slot - r * s
+        own = (slot >= 0) & (slot < s)
+        slot = torch.clamp(slot, 0, s - 1)
+        write_mask = own if write_mask is None else write_mask & own
     bidx = torch.arange(posb.shape[0], device=posb.device)
     for name, val in new_vals.items():
         row = val[:, 0].to(cache[name].dtype)
@@ -202,13 +247,26 @@ def _project(x, w):
         B, S, w.shape[1], w.shape[2])
 
 
+def _seq_block(cache, plan):
+    """This rank's block of the rows of a prefill cache (all of them
+    unsharded)."""
+    r, n = seq_shard(plan, cache["kpos"].shape[0])
+    if n == 1:
+        return cache
+    s = cache["kpos"].shape[0] // n
+    return {"k": cache["k"][:, r * s:(r + 1) * s],
+            "v": cache["v"][:, r * s:(r + 1) * s],
+            "kpos": cache["kpos"][r * s:(r + 1) * s]}
+
+
 def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
               cache: Optional[Dict] = None, mode: str = "prefill",
-              write_mask=None):
+              write_mask=None, plan=None):
     """x: (B, S, D); ``kind`` "full" or "local".  prefill: positions (S,);
     decode: per-slot (B,) positions against a per-slot cache (paged pool or
     kpos (B, S) strips), or one shared position (1,) against a kpos (S,)
-    strip.  ``write_mask`` (B,) bool gates per-slot cache writes.  Returns
+    strip.  ``write_mask`` (B,) bool gates per-slot cache writes.  ``plan``
+    (a ShardingRecipe) shards dense strips over its sequence axes.  Returns
     (out (B, S, D), new_cache)."""
     if mode not in ("prefill", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
@@ -230,18 +288,21 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
                 raise ValueError("paged KV applies to full-attention layers")
             new_cache = _paged_update(cache, k, v, posb, write_mask)
             out_h = paged_decode_attention(q[:, 0], cache["kp"], cache["vp"],
-                                           cache["pages"], posb, window=None)
+                                           cache["pages"], posb, window=None,
+                                           plan=plan)
         else:
             ring = window is not None
+            shard = seq_shard(plan)
             if per_slot:
                 new_cache = _slot_update(cache, {"k": k, "v": v}, posb, ring,
-                                         write_mask)
+                                         write_mask, shard)
                 pos = posb
             else:
                 pos = positions[0]
-                new_cache = _ring_update(cache, k, v, pos, ring)
+                new_cache = _ring_update(cache, k, v, pos, ring, shard)
             out_h = decode_attention(q[:, 0], new_cache["k"], new_cache["v"],
-                                     new_cache["kpos"], pos, window=window)
+                                     new_cache["kpos"], pos, window=window,
+                                     plan=plan)
         out_h = out_h[:, None]                                # (B,1,H,dh)
     else:
         out_h = kops.flash_attention(q, k, v, causal=True, window=window,
@@ -253,6 +314,7 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
             new_cache = {"k": k, "v": v,
                          "kpos": torch.arange(S, dtype=torch.int32,
                                               device=x.device)}
+        new_cache = _seq_block(new_cache, plan)
     H, dh, D = attn.wo.shape
     out = out_h.to(x.dtype).reshape(B * S, H * dh) @ attn.wo.reshape(H * dh, D)
     return out.reshape(B, S, D), new_cache

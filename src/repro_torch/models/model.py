@@ -3,8 +3,8 @@ for the serve path).
 
 Entry points:
   init_params      (cfg, generator, device) -> LM
-  prefill_fn       (model, batch, cfg) -> (next_token, caches)
-  decode_fn        (model, caches, token, pos, cfg) -> (next_token, caches)
+  prefill_fn       (model, batch, cfg, plan) -> (next_token, caches)
+  decode_fn        (model, caches, token, pos, cfg, plan) -> (next_token, caches)
   decode_block_fn  up to k fused greedy steps with on-device termination
   init_caches      decode caches: shared or per-slot strips, paged pools
 
@@ -12,6 +12,16 @@ Caches keep the reference's stacked layout: ``caches["b{j}"]`` holds the
 leaves of the j-th block of every layer group with a leading
 ``num_groups`` axis, so layer ``g * group_size + j`` reads index ``g``.
 Decode updates the pools in place.
+
+``plan`` is a ShardingRecipe (``repro_torch.sharding``) or None.  Under a
+recipe every rank of the mesh calls the entry point with the same global
+inputs; it computes its own batch rows (by its coordinate on the batch
+axes) against its caches, which hold its batch rows and, over the sequence
+axes, its block of each strip; the vocabulary lookups and the head go
+through the ISP paths of ``core/embedding.py``; and the (B,) next tokens
+are gathered back so that every rank returns the global result, as the
+reference's global arrays do.  An ``LM`` built with a recipe holds this
+rank's shard of the vocabulary tables.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.core import embedding as emb
 from repro_torch.core.kv_pages import pages_for
@@ -49,20 +60,28 @@ class _Table(nn.Module):
         self.register_parameter(name, empty_param((rows, cols), dtype, device))
 
 
+def _slice_len(s: slice, n: int) -> int:
+    return len(range(n)[s])
+
+
 class LM(nn.Module):
     """Module state: ``embed.table``, ``blocks.{i}.*``, ``final_norm`` and
-    (untied heads) ``head.w_head`` — the reference pytree, unstacked."""
+    (untied heads) ``head.w_head`` — the reference pytree, unstacked.  With
+    a sharding ``plan`` the two vocabulary tables are this rank's shard
+    (``sharding.vocab_slices``); every other weight is whole."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, plan=None):
         super().__init__()
         dtype = torch_dtype(cfg)
-        v = emb.padded_vocab(cfg.vocab_size)
-        self.embed = _Table("table", v, cfg.d_model, dtype, device)
+        rows, cols = sh.vocab_slices(plan, cfg)
+        v = _slice_len(rows, cfg.padded_vocab)
+        dv = _slice_len(cols, cfg.d_model)
+        self.embed = _Table("table", v, dv, dtype, device)
         self.blocks = nn.ModuleList(
             blk.Block(cfg, kind, dtype, device) for kind in cfg.layer_pattern)
         self.final_norm = empty_param((cfg.d_model,), dtype, device)
         if not cfg.tie_embeddings:
-            self.head = _Table("w_head", v, cfg.d_model, dtype, device)
+            self.head = _Table("w_head", v, dv, dtype, device)
 
     def head_table(self) -> torch.Tensor:
         return self.head.w_head if hasattr(self, "head") else self.embed.table
@@ -104,9 +123,13 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
-               mode: str = "prefill", write_mask=None):
+               mode: str = "prefill", write_mask=None, plan=None):
     """x: (B, S, D).  Returns (x, caches): prefill builds stacked K/V
     caches, decode updates ``caches`` in place."""
+    if blk.sp_enabled(cfg, plan, x.shape[1], mode):
+        raise NotImplementedError("the sequence-parallel residual stream "
+                                  "(tp > 1, >= 1 B parameters) is not "
+                                  "ported")
     gpat = group_pattern(cfg)
     gs = len(gpat)
     out: Dict[str, Dict[str, list]] = {}
@@ -117,7 +140,7 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
         if caches is not None:
             c = {k: t[g] for k, t in caches[name].items()}
         x, nc = blk.apply_block(block, x, positions, cfg, c, mode,
-                                write_mask=write_mask)
+                                write_mask=write_mask, plan=plan)
         if mode == "prefill":
             for k, t in nc.items():
                 out.setdefault(name, {}).setdefault(k, []).append(t)
@@ -127,7 +150,8 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
     return x, caches
 
 
-def prefill_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+def prefill_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               plan=None):
     """Full-sequence prefill.  Returns (next_token (B,) int32, caches).
 
     With ``batch["lengths"]`` (B,) the prompts are right-padded to a common
@@ -135,39 +159,49 @@ def prefill_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     attend forward, so the first ``lengths[i]`` cache rows are exact.
     """
     tokens = batch["tokens"]
-    x = emb.gather_baseline(model.embed.table, tokens)
-    B, S, _ = x.shape
+    B, S = tokens.shape
+    rows = sh.batch_rows(plan, B)
+    sp = blk.sp_enabled(cfg, plan, S, "prefill")
+    x = emb.embed_lookup(model.embed.table, tokens[rows], cfg, plan,
+                         seq_sharded=sp)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    x, caches = run_blocks(model, x, positions, cfg, None, "prefill")
+    x, caches = run_blocks(model, x, positions, cfg, None, "prefill",
+                           plan=plan)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if "lengths" in batch:
-        idx = batch["lengths"].long() - 1
-        last = x[torch.arange(B, device=x.device), idx]
+        idx = batch["lengths"][rows].long() - 1
+        last = x[torch.arange(x.shape[0], device=x.device), idx]
     else:
         last = x[:, -1]
-    nxt = emb.greedy_sample(last, model.head_table(), cfg)
-    return nxt, caches
+    nxt = emb.greedy_sample(last, model.head_table(), cfg, plan)
+    return sh.gather_batch(plan, nxt, B), caches
 
 
-def decode_fn(model: LM, caches, token, pos, cfg: ModelConfig,
+def decode_fn(model: LM, caches, token, pos, cfg: ModelConfig, plan=None,
               write_mask=None):
     """One decode step.  token: (B, 1) int32; pos: () int32, one position
     for the whole batch against shared-track caches, or (B,) int32
     per-slot positions against per-slot caches (the serve engine's).
     ``write_mask`` (B,) bool gates the per-slot cache writes.  Returns
     (next_token (B,), caches)."""
-    x = emb.gather_baseline(model.embed.table, token)
-    pos = torch.as_tensor(pos, device=x.device)
+    B = token.shape[0]
+    pos = torch.as_tensor(pos, device=token.device)
+    if plan is not None:
+        rows = sh.batch_rows(plan, B)
+        token = token[rows]
+        pos = pos[rows] if pos.dim() == 1 else pos
+        write_mask = None if write_mask is None else write_mask[rows]
+    x = emb.embed_lookup(model.embed.table, token, cfg, plan)
     positions = (pos[None] if pos.dim() == 0 else pos).to(torch.int32)
     x, caches = run_blocks(model, x, positions, cfg, caches, "decode",
-                           write_mask=write_mask)
+                           write_mask=write_mask, plan=plan)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    nxt = emb.greedy_sample(x[:, -1], model.head_table(), cfg)
-    return nxt, caches
+    nxt = emb.greedy_sample(x[:, -1], model.head_table(), cfg, plan)
+    return sh.gather_batch(plan, nxt, B), caches
 
 
 def decode_block_fn(model: LM, caches, tokens, positions, alive, remaining,
-                    cfg: ModelConfig, *, k_steps: int,
+                    cfg: ModelConfig, plan=None, *, k_steps: int,
                     eos_id: Optional[int], max_len: int):
     """Up to ``k_steps`` greedy decode steps with sampling, per-slot
     position increments, EOS / max-new / max-len termination masks and KV
@@ -189,7 +223,7 @@ def decode_block_fn(model: LM, caches, tokens, positions, alive, remaining,
     minus1 = torch.full((B,), -1, dtype=torch.int32, device=dev)
     i = 0
     while i < k_steps and bool(alive.any()):
-        nxt, caches = decode_fn(model, caches, tok[:, None], pos, cfg,
+        nxt, caches = decode_fn(model, caches, tok[:, None], pos, cfg, plan,
                                 write_mask=alive)
         nxt = nxt.to(torch.int32)
         out[i] = torch.where(alive, nxt, minus1)
@@ -207,7 +241,7 @@ def decode_block_fn(model: LM, caches, tokens, positions, alive, remaining,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 per_slot: bool = False, paged: bool = False,
                 page_size: int = 16, num_pages: Optional[int] = None,
-                device=None):
+                device=None, plan=None):
     """Stacked decode caches: per block of the group, leaves with a leading
     ``num_groups`` axis.
 
@@ -219,10 +253,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     (implies per-slot) gives full-attention layers paged pools instead:
     ``kp``/``vp`` (num_groups, num_pages + 1, page_size, Hkv, dh) and
     ``pages`` (num_groups, batch, maxp), all -1; ``num_pages`` defaults to
-    the dense worst case ``batch * pages_for(max_len, page_size)``."""
+    the dense worst case ``batch * pages_for(max_len, page_size)``.
+
+    Under a recipe (``plan``) the caches are this rank's: its batch rows
+    and, over the sequence axes, its block of each dense strip."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     ng = num_groups(cfg)
+    if plan is not None:
+        rows = sh.batch_rows(plan, batch)
+        batch = rows.stop - rows.start
+        if paged and plan.mesh is not None and plan.seq_axes:
+            raise NotImplementedError("paged KV under a sequence-sharded "
+                                      "plan is not ported")
     if paged:
         per_slot = True
         if num_pages is None:
@@ -231,7 +274,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     for j, kind in enumerate(group_pattern(cfg)):
         one = blk.init_block_cache(cfg, kind, batch, max_len, dtype, dev,
                                    paged=paged, num_pages=num_pages or 0,
-                                   page_size=page_size)
+                                   page_size=page_size, plan=plan)
         if per_slot and "kpos" in one:
             one["kpos"] = one["kpos"][None].repeat(batch, 1)
         out[f"b{j}"] = {k: t[None].repeat((ng,) + (1,) * t.dim())

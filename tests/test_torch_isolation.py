@@ -9,11 +9,16 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import repro_torch
-from repro_torch.config import reduced_config
+from repro_torch import sharding as sh
+from repro_torch.config import ShapeConfig, reduced_config
+from repro_torch.kernels import ops
+from repro_torch.launch import mesh as lm
+from repro_torch.launch import steps
 from repro_torch.models import model as TM
 from repro_torch.train.serve_loop import ServeEngine
 
@@ -40,7 +45,9 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for m in ("repro_torch.train.serve_loop", "repro_torch.kernels.isp_decode",
               "repro_torch.configs.gemma3_12b",
-              "repro_torch.core.decode_attention"):
+              "repro_torch.core.decode_attention",
+              "repro_torch.kernels.isp_gather", "repro_torch.sharding",
+              "repro_torch.launch.mesh", "repro_torch.launch.steps"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -85,6 +92,43 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(gemma, gparams, kv_layout="strip")
     ServeEngine(gemma, gparams, device="cpu")
+
+
+def test_mesh_and_step_builders_default_to_cuda():
+    """The mesh helpers and the step builders default to CUDA and raise
+    without it; asked for the CPU, a one-rank gloo mesh serves a prefill
+    through the sharded step (the ISP lookup on the plain gather) with the
+    unsharded path's tokens."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.make_local_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.make_debug_mesh(1, 1)
+    cfg = dataclasses.replace(reduced_config("yi-9b"), dtype="float32")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    mesh = lm.make_local_mesh("cpu")
+    try:
+        recipe = sh.make_recipe(sh.make_plan(mesh, cfg), cfg,
+                                ShapeConfig(8, 2))
+        assert recipe.batch_axes == ("data",) and recipe.seq_axes == ()
+        for build in (steps.build_prefill_step, steps.build_decode_step):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build(cfg, recipe)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            steps.build_decode_block_step(cfg, recipe, k_steps=2, eos_id=None,
+                                          max_len=16)
+        step = steps.build_prefill_step(cfg, recipe, device="cpu")
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            nxt, _ = step(params, {"tokens": tokens.astype(np.int32)})
+            want, _ = TM.prefill_fn(params, {"tokens": torch.from_numpy(
+                tokens)}, cfg)
+        assert nxt.tolist() == want.tolist()
+        assert sum(ops.launch_counts().values()) == 0
+    finally:
+        lm.teardown()
 
 
 def test_unported_options_raise(tmp_path):
