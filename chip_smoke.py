@@ -5,7 +5,7 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. device   — the card's name and power limit, torch/CUDA versions, and
                 the parallel nvcc build of every kernel in
-                src/repro_torch/kernels/csrc (four sources);
+                src/repro_torch/kernels/csrc (six sources);
   2. kernels  — each CUDA kernel against its plain PyTorch version at the
                 shapes its serve path gives it (yi-9b: dh 128; gemma3-12b:
                 dh 240, window 1024, and its 262144 x 3840 vocabulary table
@@ -17,21 +17,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 spin on the card before each so that the interval is device
                 time) beside its plain version, its bound and, where one
                 PyTorch call computes the same function, that call;
-  3. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
+  3. apps     — the paper's NLP-query path (benchmarks/apps.py's recommender
+                and sentiment batches, examples/isp_embedding_demo.py's
+                sharded pool) through ops.topk_similarity and
+                ops.isp_gather_pool: cosine top-10 over the 58,000 x 128
+                movie matrix at Q = 50 and 256 with an fp32 and a bf16
+                corpus, and an exact-tie case that must give identical ids;
+                40,000 reviews of 12 ids over a 4096 x 64 table pooled, then
+                a (64, 2) head and argmax, without and with per-id weights,
+                in fp32 and bf16; a 65,536 x 512 table pooled in 16 shards
+                of 4096 rows (8192 ids, 256 segments, -1 ids and segments
+                -1 and 256 dropped) summing to the dense pool; each kernel
+                launched exactly once per call, held to its plain version,
+                timed beside it, its bound and the library call, with items
+                per second per batch;
+  4. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
                 max_new=32 through ServeEngine(num_slots=8, max_len=1024,
                 page_size=16, k_block=8); every request must end ok, the
                 page free list must balance, and the launch counters must
                 show the flash kernel on every layer of every prefill call
                 and the paged-decode kernel on every layer of every step;
-  4. consistency — the same requests with k_block=1 give identical tokens;
+  5. consistency — the same requests with k_block=1 give identical tokens;
      then two engine ticks under torch.profiler (CUDA activity) show where
      the device time goes and how much of a decode step the card sits idle;
-  5. strip    — yi-9b at 8 layers in float32 on kv_layout="strip" against
+  6. strip    — yi-9b at 8 layers in float32 on kv_layout="strip" against
                 "paged", on the same 16 requests: the isp-decode kernel on
                 every layer of every strip step, and the same tokens (a
                 flip passes only at a printed top-2 logit margin < 1e-3);
-  6. gemma3   — full-width, full-depth gemma3-12b in bfloat16 (40 window
+  7. gemma3   — full-width, full-depth gemma3-12b in bfloat16 (40 window
                 layers on per-slot rings, 8 global layers on the paged
                 pool): 16 requests with prompt lengths in 16..1500, two of
                 them 1000-token prompts with max_new=64 so their rings wrap
@@ -42,7 +56,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 and the paged-decode kernel on the 8 global layers of every
                 step; k_block=1 gives identical tokens; one decode tick is
                 profiled;
-  7. plan     — the same gemma3-12b (before it is freed) through a sharding
+  8. plan     — the same gemma3-12b (before it is freed) through a sharding
                 plan on the one-rank (1, 1) ("data", "model") mesh (NCCL,
                 make_plan's FSDP heuristic on): prefill_fn with the recipe
                 on 8 prompts of 1024 random tokens, then 32 uniform decode_fn
@@ -94,6 +108,11 @@ SPIN_CYCLES = 10_000_000    # ~5 ms of GPU spin at the H100's ~1.98 GHz
 # plain version multiplies in bf16, so they may differ by one bf16 ulp.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# topk_similarity: a score is a dot product of two unit fp32 vectors (|s| <=
+# 1), summed in another order by the kernel (FMA chain) and cuBLAS; that
+# moves it by a few fp32 ulps of 1, far below 1e-5.  isp_gather_pool: see
+# check_pool (fp32 atomics sum in an order that changes from run to run).
+TOPK_ATOL = 1e-5
 
 
 def log(*a):
@@ -442,6 +461,272 @@ def kernel_phase(dev):
     return rows
 
 
+def dname(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def sign_rows(rng, n, d=128, nonzero=64):
+    """Rows with ``nonzero`` entries of +-1: norm 8, so normalising and
+    every dot product are exact in fp32 and equal scores are exactly
+    equal."""
+    x = np.zeros((n, d), np.float32)
+    for r in range(n):
+        cols = rng.choice(d, nonzero, replace=False)
+        x[r, cols] = rng.choice([-1.0, 1.0], nonzero)
+    return x
+
+
+def check_topk(got, qs, corpus, k, tag) -> float:
+    """The kernel's top-k against the plain version on the same inputs:
+    scores within TOPK_ATOL, ids equal wherever a score lies more than that
+    from its neighbours in the list and from the (k+1)-th score.  Returns
+    the max abs score error."""
+    from repro_torch.kernels import topk_similarity as tk
+    ws, wi = tk.topk_similarity_ref(qs, corpus, k + 1)
+    gs, gi = got
+    assert gs.shape == gi.shape == (qs.shape[0], k)
+    assert torch.isfinite(gs).all(), f"{tag}: non-finite scores"
+    err = float((gs - ws[:, :k]).abs().max())
+    assert err <= TOPK_ATOL, f"{tag}: score error {err}"
+    gap = (ws[:, 1:] - ws[:, :-1]).abs()
+    lo = torch.cat([torch.full_like(gap[:, :1], float("inf")),
+                    gap[:, :-1]], dim=1)
+    sep = (gap > TOPK_ATOL) & (lo > TOPK_ATOL)
+    assert bool((gi[sep] == wi[:, :k][sep]).all()), f"{tag}: ids differ"
+    log(f"[apps] {tag}: max abs score err {err:.3g}, ids equal at "
+        f"{int(sep.sum())}/{sep.numel()} separated places")
+    return err
+
+
+def check_pool(got, table, idx, seg, nseg, off=0, w=None, tag="") -> float:
+    """The kernel's pool against the plain version on the same inputs.
+    Each output is a sum of at most 64 terms, taken in another order (fp32
+    atomics): the two differ by at most 2 * 63 * 2**-24 of the pooled
+    absolute terms, held here within 2**-16 of them (+1e-6); with weights
+    in bf16 each term may also differ by one bf16 ulp (2**-7).  Returns
+    the max abs error."""
+    from repro_torch.kernels import isp_gather as ig
+    counts = torch.bincount(seg[(seg >= 0) & (seg < nseg)].long(),
+                            minlength=nseg)
+    assert int(counts.max()) <= 64
+    want = ig.isp_gather_pool_ref(table, idx, seg, nseg, shard_offset=off,
+                                  weights=w)
+    mag = ig.isp_gather_pool_ref(table.abs(), idx, seg, nseg,
+                                 shard_offset=off,
+                                 weights=None if w is None else w.abs())
+    rel = 2.0 ** -16 + (2.0 ** -7 if w is not None
+                        and table.dtype == torch.bfloat16 else 0.0)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.isfinite(got).all(), f"{tag}: non-finite pool"
+    diff = (got - want).abs()
+    assert bool((diff <= 1e-6 + rel * mag).all()), \
+        f"{tag}: pool error {float(diff.max())}"
+    return float(diff.max())
+
+
+def apps_phase(dev):
+    """The paper's NLP-query path (benchmarks/apps.py's two kernel apps and
+    examples/isp_embedding_demo.py's pool) through ops.topk_similarity and
+    ops.isp_gather_pool at the paper's batch sizes; the launch counters are
+    set to 0 just before the path and read just after.  Returns the kernel
+    rows and the path's launches."""
+    from repro_torch.kernels import isp_gather as ig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_similarity as tk
+    rng = np.random.default_rng(SEED + 3)
+    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    flush = lambda: flush_buf.zero_()  # noqa: E731
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+
+    # recommender: the 58,000 x 128 movie matrix, top 10, Q = 50 and 256
+    N, D, K = 58_000, 128, 10
+    corpus = {torch.float32: on(rng.normal(size=(N, D)).astype(np.float32))}
+    corpus[torch.bfloat16] = corpus[torch.float32].to(torch.bfloat16)
+    queries = {q: on(rng.normal(size=(q, D)).astype(np.float32))
+               for q in (50, 256)}
+    uniq = sign_rows(rng, 1000)
+    tie_c = on(np.concatenate([uniq, uniq[::-1], uniq, uniq[::-1]]))
+    tie_q = on(np.concatenate([sign_rows(rng, 25),
+                               uniq[rng.choice(1000, 25, replace=False)]]))
+    # sentiment: 40,000 reviews of 12 ids over a 4096 x 64 table, 2 classes
+    R, L, V, E = 40_000, 12, 4096, 64
+    s_idx = on(rng.integers(0, V, (R * L,)).astype(np.int32))
+    s_seg = on(np.repeat(np.arange(R), L).astype(np.int32))
+    s_tab = {torch.float32: on(rng.normal(size=(V, E)).astype(np.float32))}
+    s_tab[torch.bfloat16] = s_tab[torch.float32].to(torch.bfloat16)
+    s_w = on(rng.normal(size=(R * L,)).astype(np.float32))
+    head = on(rng.normal(size=(E, 2)).astype(np.float32))
+    sent_cases = {"fp32": (torch.float32, None),
+                  "fp32 weighted": (torch.float32, s_w),
+                  "bf16": (torch.bfloat16, None),
+                  "bf16 weighted": (torch.bfloat16, s_w)}
+    # sharded pool: 65,536 x 512 in 16 shards of 4096 rows, 8192 ids in 256
+    # segments, with -1 ids and segment ids -1 and 256 that are dropped
+    SV, SD, TP, SN, NSEG = 65_536, 512, 16, 8192, 256
+    p_tab = on(rng.normal(size=(SV, SD)).astype(np.float32))
+    p_idx = rng.integers(0, SV, (SN,)).astype(np.int32)
+    p_seg = rng.integers(0, NSEG, (SN,)).astype(np.int32)
+    p_idx[::31], p_seg[1::29], p_seg[2::37] = -1, -1, NSEG
+    p_idx, p_seg = on(p_idx), on(p_seg)
+    vloc = SV // TP
+    shards = [p_tab[i * vloc:(i + 1) * vloc] for i in range(TP)]
+
+    def sentiment(dtype, w, pool=ops.isp_gather_pool):
+        pooled = pool(s_tab[dtype], s_idx, s_seg, R, weights=w)
+        logits = pooled @ head
+        return pooled, logits, logits.argmax(-1)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rec = {(dt, q): ops.topk_similarity(queries[q], corpus[dt], K)
+           for dt in corpus for q in queries}
+    tie = ops.topk_similarity(tie_q, tie_c, K)
+    sent = {name: sentiment(*case) for name, case in sent_cases.items()}
+    parts = [ops.isp_gather_pool(shards[i], p_idx, p_seg, NSEG,
+                                 shard_offset=i * vloc) for i in range(TP)]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {n: 0 for n in launches}
+    want.update(topk_similarity=len(rec) + 1,
+                isp_gather_pool=len(sent) + TP)
+    assert launches == want, (launches, want)
+    log(f"[apps] launches {launches}")
+
+    errs = {}
+    for (dt, q), got in rec.items():
+        errs[dt, q] = check_topk(got, queries[q], corpus[dt], K,
+                                 f"recommender Q={q} corpus {dname(dt)}")
+    ws, wi = tk.topk_similarity_ref(tie_q, tie_c, K)
+    assert torch.equal(tie[1], wi) and torch.equal(tie[0], ws), \
+        "exact ties: the kernel's ids differ from the plain version's"
+    assert int((ws[:, 1:] == ws[:, :-1]).sum()) > 50, "too few ties"
+    log(f"[apps] exact ties (50 x 4000 rows, each repeated 4 times): "
+        f"identical scores and ids, lower id first")
+    for name, (dt, w) in sent_cases.items():
+        pooled, logits, preds = sent[name]
+        errs[name] = check_pool(pooled, s_tab[dt], s_idx, s_seg, R, w=w,
+                                tag=f"sentiment {name}")
+        w_pooled, w_logits, w_preds = sentiment(dt, w, ig.isp_gather_pool_ref)
+        # a prediction may flip only where the plain path's two logits lie
+        # closer than the pool's own error can move them
+        moved = ((pooled - w_pooled).abs() @ head.abs()).sum(-1) + 1e-6
+        near = (w_logits[:, 0] - w_logits[:, 1]).abs() <= moved
+        assert bool((preds == w_preds)[~near].all()), f"sentiment {name}"
+        log(f"[apps] sentiment {name}: max abs pool err {errs[name]:.3g}; "
+            f"{int((preds == w_preds).sum())}/{R} predictions equal, "
+            f"{int(near.sum())} near-ties excused, positive share "
+            f"{float(preds.float().mean()):.4f}")
+    errs["sharded"] = max(
+        check_pool(parts[i], shards[i], p_idx, p_seg, NSEG, i * vloc,
+                   tag=f"shard {i}") for i in range(TP))
+    keep = (p_idx >= 0) & (p_seg >= 0) & (p_seg < NSEG)
+    dense = torch.zeros(NSEG, SD, device=dev).index_add_(
+        0, p_seg[keep].long(), p_tab[p_idx[keep].long()])
+    torch.testing.assert_close(sum(parts), dense, atol=1e-4, rtol=0)
+    log(f"[apps] sharded pool: 16 shards sum to the dense pool (atol 1e-4), "
+        f"{int((~keep).sum())} dropped ids/segments; max abs err per shard "
+        f"{errs['sharded']:.3g}")
+    # edge shapes, off the counted path: a D that 4 does not divide (the
+    # wrapper pads it), two query blocks and k = 32; an odd D (scalar
+    # loads) in bf16 with weights, an offset and segments -1 and 40, 41
+    eq = on(rng.normal(size=(70, 37)).astype(np.float32))
+    ec = on(rng.normal(size=(1000, 37)).astype(np.float32))
+    check_topk(tk.topk_similarity(eq, ec, 32), eq, ec, 32,
+               "edge: D=37, Q=70, N=1000, k=32")
+    et = on(rng.normal(size=(300, 67)).astype(np.float32)).to(torch.bfloat16)
+    ei = on(rng.integers(-5, 420, (999,)).astype(np.int32))
+    es = on(rng.integers(-1, 42, (999,)).astype(np.int32))
+    ew = on(rng.normal(size=(999,)).astype(np.float32))
+    err = check_pool(ig.isp_gather_pool(et, ei, es, 40, shard_offset=100,
+                                        weights=ew), et, ei, es, 40, 100, ew,
+                     tag="edge pool")
+    log(f"[apps] edge pool: bf16 (300, 67) offset 100, 999 ids, weighted, "
+        f"segments -1..41 of 40: max abs err {err:.3g}")
+
+    rows = []
+    emb_bag = torch.nn.functional.embedding_bag
+    for (dt, q) in rec:
+        qs, c = queries[q], corpus[dt]
+        flops = 2 * q * N * D
+        nbytes = q * D * 4 + c.numel() * c.element_size() + q * K * 8
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        ms = time_ms(lambda: tk.topk_similarity(qs, c, K), flush)
+        qn = torch.nn.functional.normalize(qs, dim=-1, eps=1e-9)
+        cn = torch.nn.functional.normalize(c.float(), dim=-1, eps=1e-9)
+        rows.append(dict(
+            name="topk_similarity", kernel="topk_similarity", path="apps",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/topk_similarity.cu",
+            replaces="src/repro/kernels/topk_similarity.py:75",
+            dtype=dname(dt),
+            shape=f"recommender: Q={q} corpus ({N}, {D}) {dname(dt)} k={K}",
+            max_abs_err=errs[dt, q], ms=ms,
+            plain_ms=time_ms(lambda: tk.topk_similarity_ref(qs, c, K), flush),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            library_two_calls_ms=time_ms(
+                lambda: torch.topk(qn @ cn.mT, K), flush),
+            items_per_s=q / ms * 1e3))
+    s_ids = s_idx.long().view(R, L)
+    for name, (dt, w) in sent_cases.items():
+        table = s_tab[dt]
+        nbytes = (8 * R * L + (0 if w is None else 4 * R * L)
+                  + int(torch.unique(s_idx).numel()) * E * table.element_size()
+                  + R * E * 4)
+        bound_ms, bound_by = bound(nbytes, 2 * R * L * E, torch.float32)
+        lib = None
+        if dt == torch.float32:
+            pw = None if w is None else w.view(R, L)
+            lib = time_ms(lambda: emb_bag(s_ids, table, mode="sum",
+                                          per_sample_weights=pw), flush)
+        ms = time_ms(lambda: ig.isp_gather_pool(table, s_idx, s_seg, R,
+                                                weights=w), flush)
+        batch_ms = time_ms(lambda: sentiment(dt, w), flush)
+        log(f"[apps] sentiment {name}: batch (pool + head + argmax) "
+            f"{batch_ms:.4f} ms, {R / batch_ms * 1e3:.4g} reviews/s")
+        rows.append(dict(
+            name="isp_gather_pool", kernel="isp_gather_pool", path="apps",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/isp_gather_pool.cu",
+            replaces="src/repro/kernels/isp_gather.py:124",
+            dtype=dname(dt),
+            shape=f"sentiment {name}: table ({V}, {E}), {R} x {L} ids",
+            max_abs_err=errs[name], ms=ms,
+            plain_ms=time_ms(lambda: ig.isp_gather_pool_ref(
+                table, s_idx, s_seg, R, weights=w), flush),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+            bytes=nbytes, batch_ms=batch_ms, items_per_s=R / batch_ms * 1e3))
+    # one shard of the sharded pool (shard 5: rows [20480, 24576))
+    sh, off = shards[5], 5 * vloc
+    inside = (p_idx >= off) & (p_idx < off + vloc)
+    nbytes = (8 * SN + int(torch.unique(p_idx[inside]).numel()) * SD * 4
+              + NSEG * SD * 4)
+    bound_ms, bound_by = bound(nbytes, 2 * int(inside.sum()) * SD,
+                               torch.float32)
+    ms = time_ms(lambda: ig.isp_gather_pool(sh, p_idx, p_seg, NSEG,
+                                            shard_offset=off), flush)
+    rows.append(dict(
+        name="isp_gather_pool", kernel="isp_gather_pool", path="apps",
+        route="cuda", source="src/repro_torch/kernels/csrc/isp_gather_pool.cu",
+        replaces="src/repro/kernels/isp_gather.py:124", dtype="float32",
+        shape=f"sharded pool: shard ({vloc}, {SD}) offset {off} of {TP}, "
+        f"{SN} ids ({int(inside.sum())} in the shard), {NSEG} segments",
+        max_abs_err=errs["sharded"], ms=ms,
+        plain_ms=time_ms(lambda: ig.isp_gather_pool_ref(
+            sh, p_idx, p_seg, NSEG, shard_offset=off), flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes))
+    del flush_buf
+    for row in rows:
+        row["kernel_ms"] = row["ms"]
+        log(f"[kernels] {row['name']} ({row['shape']}): kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"{row['library_ms']}"
+            + (f", topk(q @ c.T) two calls {row['library_two_calls_ms']:.4f}"
+               f" ms, {row['items_per_s']:.4g} queries/s"
+               if row["kernel"] == "topk_similarity" else ""))
+    return rows, launches
+
+
 def serve(cfg, params, requests, k_block, dev, max_len=1024,
           kv_layout="paged"):
     """Serve ``requests`` through a fresh engine with the launch counters
@@ -733,8 +1018,9 @@ def plan_phase(cfg, params, dev):
             assert torch.equal(toks, d_p), "plan: decode tokens differ"
             gathers = 1 + STEPS if tag == "plan" else 0
             assert launches == {"flash_attention": L, "isp_decode": L * STEPS,
-                                "paged_decode": 0, "isp_gather": gathers}, \
-                (tag, launches)
+                                "paged_decode": 0, "isp_gather": gathers,
+                                "isp_gather_pool": 0,
+                                "topk_similarity": 0}, (tag, launches)
         assert all(0 <= t < cfg.vocab_size for t in d_p.flatten().tolist())
         for tag in ("plan", "no plan"):
             ms = [r[4] for r in runs if r[0] == tag]
@@ -782,6 +1068,9 @@ def main() -> int:
                 log(f"[device] ptxas {n}: {line.strip()}")
 
     rows = kernel_phase(dev)
+    app_rows, app_launches = apps_phase(dev)
+    rows += app_rows
+    free_device()
 
     # -- serve -------------------------------------------------------------
     cfg = get_config("yi-9b")
@@ -811,7 +1100,7 @@ def main() -> int:
         (launches, st.decode_steps)
     assert launches["isp_decode"] == 0, launches
     serve_report("serve", eng, results, wall, launches, prefill_calls)
-    path_launches = {"yi-9b serve": launches}
+    path_launches = {"yi-9b serve": launches, "apps": app_launches}
 
     # -- consistency ---------------------------------------------------------
     eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)

@@ -18,6 +18,7 @@ from repro_torch.kernels import isp_decode as isp
 from repro_torch.kernels import isp_gather as ig
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import ref
+from repro_torch.kernels import topk_similarity as tk
 
 
 def _on_cpu(t) -> bool:
@@ -77,6 +78,29 @@ def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
                                  weights=weights)
     return ig.isp_gather(table, indices, shard_offset=shard_offset,
                          weights=weights)
+
+
+def isp_gather_pool(table, indices, segment_ids, num_segments: int, *,
+                    shard_offset: int = 0, weights=None):
+    """Fused masked gather + weighted segment sum (the RecSSD embedding
+    bag): ids outside this shard's rows and segments outside
+    [0, num_segments) are dropped.  table (V_loc, D); indices, segment_ids
+    (N,) int; weights optional (N,).  Returns (num_segments, D) float32."""
+    if _on_cpu(table):
+        return ig.isp_gather_pool_ref(table, indices, segment_ids,
+                                      num_segments, shard_offset=shard_offset,
+                                      weights=weights)
+    return ig.isp_gather_pool(table, indices, segment_ids, num_segments,
+                              shard_offset=shard_offset, weights=weights)
+
+
+def topk_similarity(queries, corpus, k: int):
+    """Cosine top-k: queries (Q, D), corpus (N, D).  Returns (scores
+    float32 (Q, k), ids int32 (Q, k)), the lower id first on equal
+    scores."""
+    if _on_cpu(queries):
+        return tk.topk_similarity_ref(queries, corpus, k)
+    return tk.topk_similarity(queries, corpus, k)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -193,3 +193,44 @@ def isp_gather(table, indices, shard_offset: int = 0, weights=None):
     if weights is not None:
         rows = rows * weights[..., None].to(rows.dtype)
     return rows
+
+
+def isp_gather_pool(table, indices, segment_ids, num_segments: int,
+                    shard_offset: int = 0, weights=None):
+    """RecSSD-style fused gather + segment-sum pooling (on-shard
+    aggregation): the masked gather of ``isp_gather`` (weights applied in
+    the table's dtype), cast to fp32, summed per segment.  Ids outside the
+    shard give zero rows; segment ids outside [0, num_segments) are dropped,
+    as ``jax.ops.segment_sum`` drops them.
+
+    indices/segment_ids: (N,) int.  Returns (num_segments, D) float32.
+    """
+    rows = isp_gather(table, indices.reshape(-1), shard_offset,
+                      weights=None if weights is None
+                      else weights.reshape(-1)).float()
+    seg = segment_ids.reshape(-1).long()
+    keep = (seg >= 0) & (seg < num_segments)
+    out = torch.zeros((num_segments, table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    return out.index_add_(0, seg[keep], rows[keep])
+
+
+def topk_similarity(queries, corpus, k: int):
+    """Cosine top-k.  queries: (Q, D); corpus: (N, D).  Both are cast to
+    fp32 and L2-normalised (``x / max(|x|, 1e-9)``); the similarities are
+    one fp32 product (TF32 off).  On equal scores the lower corpus id comes
+    first, as ``jax.lax.top_k`` orders them.  Returns (scores f32 (Q, k),
+    ids int32 (Q, k)); raises for k > N."""
+    n = corpus.shape[0]
+    if not 0 <= k <= n:
+        raise ValueError(f"topk_similarity: k={k} must lie in [0, N={n}]")
+    qn = torch.nn.functional.normalize(queries.float(), dim=-1, eps=1e-9)
+    cn = torch.nn.functional.normalize(corpus.float(), dim=-1, eps=1e-9)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sims = qn @ cn.mT
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    scores, ids = torch.sort(sims, dim=-1, descending=True, stable=True)
+    return scores[:, :k], ids[:, :k].to(torch.int32)
