@@ -5,14 +5,19 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. device   — the card's name and power limit, torch/CUDA versions, and
                 the parallel nvcc build of every kernel in
-                src/repro_torch/kernels/csrc (six sources);
+                src/repro_torch/kernels/csrc (six sources), with ptxas's
+                register and spill lines for every instantiation;
   2. kernels  — each CUDA kernel against its plain PyTorch version at the
                 shapes its serve path gives it (yi-9b: dh 128; gemma3-12b:
                 dh 240, window 1024, and its 262144 x 3840 vocabulary table
                 for isp_gather: 8 ids of a decode step and 8 x 1024 of a
                 prefill at offset 0, a four-shard layout with weights and
                 -1 pads, an n no block size divides at a D the vector width
-                does not divide), in bfloat16 and float32, then timed with
+                does not divide), in bfloat16 and float32; paged decode's
+                split-K edges (slots that fill whole split spans, a window
+                edge inside a span) and flash's (Sq not a multiple of the
+                q tile, q_offset > 0 with and without a window, one query
+                row over a long cache) at both head dims; then timed with
                 CUDA events (median of 25 runs, L2 flushed between runs, a
                 spin on the card before each so that the interval is device
                 time) beside its plain version, its bound and, where one
@@ -82,6 +87,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -294,6 +300,71 @@ def strip_case(layout, dtype, dev, gen):
     return (q, k, v, kpos, cur), window, valid
 
 
+def paged_edges(dev, gen):
+    """Split-K edges of paged_decode at both serve shapes, in both dtypes,
+    against the plain version: slots whose lengths fill whole split spans
+    (and one key more or less), an empty slot, a one-key slot, a full
+    table; then a window whose edge falls inside a span."""
+    from repro_torch.kernels import paged_decode as pd
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for H, Hkv, dh, maxp, window in ((32, 4, 128, 64, 100),
+                                     (16, 8, 240, 128, 300)):
+        span, n_split = pd.split_plan(8, Hkv, maxp, n_sms)
+        keys = span * 16
+        lengths = tuple(min(n, maxp * 16) for n in (
+            keys, 2 * keys, keys + 1, keys - 1, 0, 1, maxp * 16,
+            3 * keys + 5))
+        edges = sorted({n - window for n in lengths if n > window})
+        assert any(e % keys for e in edges), "no window edge inside a span"
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            args, _ = decode_case(dtype, dev, gen, H=H, Hkv=Hkv, dh=dh,
+                                  maxp=maxp, lengths=lengths)
+            for w in (None, window):
+                got = pd.paged_decode_partial(*args, window=w)
+                want = pd.paged_decode_partial_ref(*args, window=w)
+                torch.cuda.synchronize()
+                errs[dtype, w] = max_err(got, want, dtype)
+                assert float(got[0][4].abs().max()) == 0.0, \
+                    "empty slot: acc != 0"
+                assert float(got[1][4].abs().max()) == 0.0, \
+                    "empty slot: l != 0"
+                assert bool((got[2][4] == -1e30).all()), \
+                    "empty slot: m != -1e30"
+        log(f"[kernels] paged_decode edges dh={dh}: {n_split} splits of "
+            f"{span} pages, lengths {list(lengths)}, window {window} (first "
+            f"visible keys {edges}): max abs err " + ", ".join(
+                f"{dname(d)} w={w} {e:.3g}" for (d, w), e in errs.items()))
+
+
+def flash_edges(dev, gen):
+    """flash_attention edges at both head dims, in both dtypes, against
+    the plain version: Sq not a multiple of the 64-row q tile, q_offset > 0
+    with and without a window whose edge crosses the key tiles, and one
+    query row over a long cache."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    cases = ((100, 100, 0), (65, 200, 135), (1, 300, 299))
+    for H, Hkv, dh, windows in ((32, 4, 128, (None, 48)),
+                                (16, 8, 240, (1024, 48))):
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
+            for (Sq, Skv, qoff), w in ((c, w) for c in cases
+                                       for w in windows):
+                q, k, v = r(2, Sq, H, dh), r(2, Skv, Hkv, dh), \
+                    r(2, Skv, Hkv, dh)
+                got = fa.flash_attention(q, k, v, window=w, q_offset=qoff)
+                want = ref.chunked_attention(q, k, v, window=w,
+                                             q_offset=qoff)
+                torch.cuda.synchronize()
+                errs[dtype] = max(errs.get(dtype, 0.0),
+                                  max_err([got], [want], dtype))
+        log(f"[kernels] flash_attention edges dh={dh} windows {windows} "
+            f"(Sq, Skv, q_offset) in {cases}: max abs err fp32 "
+            f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
+
+
 def kernel_phase(dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import isp_decode as isp
@@ -344,6 +415,8 @@ def kernel_phase(dev):
             plain_ms=time_ms(lambda: pd.paged_decode_partial_ref(
                 q, kp, vp, pages, cur), flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+
+    paged_edges(dev, gen)
 
     # -- dense-strip decode: the Pallas layout (yi-9b's shapes, the strip
     # phase) and gemma3-12b's per-slot window rings
@@ -430,6 +503,8 @@ def kernel_phase(dev):
                 q, k, v, window=window), flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(lib,
                                                                      flush)))
+    flash_edges(dev, gen)
+
     # -- isp gather: gemma3-12b's vocabulary table under the plan (offset 0:
     # the whole table is this rank's shard on the one-rank mesh)
     from repro_torch.kernels import isp_gather as ig
@@ -794,8 +869,24 @@ def profile_window(eng, label, step_ms=None):
     for e in kern:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
-    for name, (t, n) in sorted(by_name.items(), key=lambda x: -x[1][0])[:8]:
+    ranked = sorted(by_name.items(), key=lambda x: -x[1][0])
+    for name, (t, n) in ranked[:8]:
         log(f"[profile] {label}:   {t / 1e3:9.3f} ms x{n:<5d} {name[:80]}")
+    # the port's own kernels (the __global__ functions of csrc/*.cu),
+    # ranked or not
+    for name, (t, n) in ranked:
+        fn = re.search(r"\(anonymous namespace\)::(\w+)", name)
+        if fn and fn.group(1) in port_kernels():
+            log(f"[profile] {label}: port kernel {t / 1e3:9.3f} ms x{n:<5d} "
+                f"{name[fn.start(1):][:60]}")
+
+
+def port_kernels() -> set:
+    """Names of the __global__ functions in the port's CUDA sources."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                     r"(\w+)\s*\(")
+    return {m for f in (ROOT / "src/repro_torch/kernels/csrc").glob("*.cu")
+            for m in pat.findall(f.read_text())}
 
 
 def free_device() -> None:
@@ -1040,6 +1131,25 @@ def plan_phase(cfg, params, dev):
     return l_p
 
 
+def build_kernels() -> None:
+    """Build every kernel (one nvcc per source, in parallel) and print
+    ptxas's register and spill lines for every instantiation."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build_s = build.build()
+    log(f"[device] kernel build {build_s:.2f} s (wall "
+        f"{time.perf_counter() - t0:.2f} s), libraries in {build.BUILD_DIR}")
+    for n, out in build.BUILD_LOGS.items():
+        fn = "?"
+        for line in out.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("Function properties for")[-1].strip()
+            elif "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            if "registers" in line or "spill" in line:
+                log(f"[device] ptxas {n} {fn}: {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -1048,7 +1158,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.config import get_config
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import build
     from repro_torch.models import model as M
 
     t_start = time.perf_counter()
@@ -1058,14 +1167,7 @@ def main() -> int:
     log(smi)
     log(f"[device] {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    build_s = build.build()
-    log(f"[device] kernel build {build_s:.2f} s (wall "
-        f"{time.perf_counter() - t0:.2f} s), libraries in {build.BUILD_DIR}")
-    for n, out in build.BUILD_LOGS.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[device] ptxas {n}: {line.strip()}")
+    build_kernels()
 
     rows = kernel_phase(dev)
     app_rows, app_launches = apps_phase(dev)

@@ -36,7 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 KERNELS = {
     "paged_decode": ("paged_decode.cu", "repro_paged_decode",
-                     [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+                     [_P] * 11 + [_I] * 9 + [_F, _I, _P]),
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
     "isp_decode": ("isp_decode.cu", "repro_isp_decode",

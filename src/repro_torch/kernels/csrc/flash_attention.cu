@@ -6,28 +6,38 @@
 // across the kv axis).
 //
 // What bounds it on an H100: operations.  At the prefill shapes (S = 704,
-// dh = 128 for yi-9b; S up to 1500, dh = 240, window 1024 for gemma3-12b)
+// dh = 128 for yi-9b; S up to 1536, dh = 240, window 1024 for gemma3-12b)
 // a causal call does ~S/2 * 4 * dh flops per query row against
-// 4 * dh bytes of q/out per row, thousands of flops per byte.  This first
-// version runs on the fp32 CUDA cores (67 TFLOP/s peak), not the tensor
-// cores (989 TFLOP/s bf16), so it sits far from the operations bound; a
-// wgmma/TMA version is later work.
+// 4 * dh bytes of q/out per row, thousands of flops per byte.
 //
-// Design:
-//   * one thread block per (64-row q tile, q head, batch row); four threads
-//     per query row, each owning a quarter of the head dims (interleaved in
-//     float4 groups so the four read neighbouring shared-memory words);
-//     the row's score is a 4-lane shuffle reduction;
-//   * K/V tiles of BK keys (32, or 16 above dh 128, so two fp32 tiles of
-//     dh 240 stay within the 48 KB of static shared memory) are staged in
-//     shared memory as fp32 and shared by the block's 64 rows; the kv loop
-//     visits only tiles that the causal and window masks can reach, so the
-//     work follows the triangle (or the window's band);
-//   * GQA maps q head h to kv head h / G (the (Hkv, G) reshape of the TPU
-//     wrapper), so no KV head is repeated in memory;
-//   * masking uses -1e30 and masked keys contribute p = 0; the TPU kernel
-//     leaves p unmasked, which agrees whenever a row sees at least one key,
-//     as every causal prefill row sees key 0.  The l == 0 -> 1 guard stays.
+// Two kernels, picked by dtype (both hand-written; neither falls back to
+// the other):
+//
+// bf16: flash_fwd_tc, FlashAttention-2 on the tensor cores.
+//   * one block of 4 warps per (64-row q tile, q head, batch row); each
+//     warp owns 16 q rows; heavy (late causal) q tiles are launched first;
+//   * Q.K^T and P.V run on mma.sync.m16n8k16 with bf16 inputs and fp32
+//     accumulation, the operands fed by ldmatrix (V by ldmatrix.trans);
+//   * K/V tiles of BK keys (64, or 32 at dh 240) are staged in bf16 by
+//     16-byte cp.async, double buffered; rows are padded by 8 elements so
+//     ldmatrix's eight 16-byte rows fall in distinct banks;
+//   * Q stays in registers up to dh 128; at dh 240 its fragments are read
+//     from shared memory at every k-step (the O accumulator alone is 120
+//     registers a thread there);
+//   * the online softmax runs on the accumulator fragments (row max and
+//     sum over the quad's shuffles); P is rounded to bf16 in registers and
+//     becomes the A operand of P.V with no trip through shared memory;
+//   * tiles wholly outside the causal / window band are never visited, and
+//     element masks apply only on the tiles that a band edge or Skv crosses.
+// fp32: flash_fwd_fma, the CUDA-core kernel (TF32 products would not stay
+//   within the fp32 tolerance the port holds its kernels to):
+//   * one block per (64-row q tile, q head, batch row); four threads per
+//     query row, each owning a quarter of the head dims (float4 groups);
+//   * K/V tiles of 32 keys (16 above dh 128) staged in shared memory and
+//     shared by the block's 64 rows.
+// Both: GQA maps q head h to kv head h / G, so no KV head is repeated in
+// memory; masked keys contribute p = 0 (scores of -1e30); the l == 0 -> 1
+// guard stays.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,25 +46,304 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int BQ = 64;   // query rows per block
+
+// ---------------------------------------------------------------- bf16 ---
+
+constexpr int TC_WARPS = 4;
+constexpr int TC_THREADS = TC_WARPS * 32;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = fill ? 16 : 0;    // 0: zero-fill, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <int DH>
+struct TcShape {
+  static constexpr int BK = DH > 128 ? 32 : 64;   // keys per K/V tile
+  static constexpr int LD = DH + 8;               // padded smem row
+  static constexpr bool QREG = DH <= 128;         // Q fragments in regs
+  static constexpr int KSTEPS = DH / 16;          // k-steps of Q.K^T
+  static constexpr int NT_O = DH / 8;             // n-tiles of O
+  static constexpr int NT_S = BK / 8;             // n-tiles of S
+  static constexpr int CPR = DH / 8;              // 16-byte copies a row
+  static constexpr size_t SMEM =
+      (size_t)(BQ + 4 * BK) * LD * sizeof(__nv_bfloat16);
+};
+
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
+    const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, DH)
+    const __nv_bfloat16* __restrict__ k,   // (B, Skv, Hkv, DH)
+    const __nv_bfloat16* __restrict__ v,
+    __nv_bfloat16* __restrict__ out,       // (B, Sq, H, DH)
+    int Sq, int Skv, int H, int Hkv, int causal, int window, int q_offset,
+    float scale_log2) {
+  using S = TcShape<DH>;
+  constexpr int BK = S::BK, LD = S::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sq = smem;                       // [BQ][LD]
+  __nv_bfloat16* skv = smem + BQ * LD;            // [2][K, V][BK][LD]
+
+  const int h = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;      // heavy tiles first
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int q0 = qt * BQ;
+
+  // keys any row of this tile may see
+  const int q_lo = q_offset + q0;
+  const int q_hi = q_offset + min(q0 + BQ, Sq) - 1;
+  int kv_end = Skv;
+  if (causal && q_hi + 1 < kv_end) kv_end = q_hi + 1;
+  int kv_begin = 0;
+  if (window > 0 && q_lo - window + 1 > 0) kv_begin = q_lo - window + 1;
+  kv_begin = (kv_begin / BK) * BK;
+
+  const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
+  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * DH;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_row + (size_t)hk * DH;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_row + (size_t)hk * DH;
+
+  // Q tile; rows past Sq are zero-filled
+  for (int i = tid; i < BQ * S::CPR; i += TC_THREADS) {
+    const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
+    const bool in = q0 + r < Sq;
+    cp_async16(sq + r * LD + c, qb + (in ? (size_t)(q0 + r) * q_row + c : 0),
+               in);
+  }
+  auto load_kv = [&](int k0, int st) {
+    __nv_bfloat16* ks = skv + st * 2 * BK * LD;
+    __nv_bfloat16* vs = ks + BK * LD;
+    for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
+      const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
+      const bool in = k0 + r < Skv;
+      const size_t off = in ? (size_t)(k0 + r) * kv_row + c : 0;
+      cp_async16(ks + r * LD + c, kb + off, in);
+      cp_async16(vs + r * LD + c, vb + off, in);
+    }
+  };
+  if (kv_begin < kv_end) load_kv(kv_begin, 0);
+  cp_async_commit();
+
+  const int g = lane >> 2, tg = lane & 3;   // mma fragment coordinates
+  const int wrow = warp * 16;               // this warp's first q row
+  uint32_t qf[S::QREG ? S::KSTEPS : 1][4];
+  float o[S::NT_O][4];
+#pragma unroll
+  for (int n = 0; n < S::NT_O; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // rows g, g + 8
+  // absolute positions of this thread's two rows
+  const int qpos0 = q_lo + wrow + g, qpos1 = qpos0 + 8;
+
+  int it = 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK, ++it) {
+    if (k0 + BK < kv_end) load_kv(k0 + BK, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if constexpr (S::QREG) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < S::KSTEPS; ++kk)
+          ldmatrix_x4(qf[kk], sq + (wrow + (lane & 15)) * LD + kk * 16 +
+                                  (lane >> 4) * 8);
+      }
+    }
+    const __nv_bfloat16* ks = skv + (it & 1) * 2 * BK * LD;
+    const __nv_bfloat16* vs = ks + BK * LD;
+
+    // S = Q K^T (16 x BK per warp)
+    float s[S::NT_S][4];
+#pragma unroll
+    for (int n = 0; n < S::NT_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < S::KSTEPS; ++kk) {
+      uint32_t a[4];
+      if constexpr (S::QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(a, sq + (wrow + (lane & 15)) * LD + kk * 16 +
+                           (lane >> 4) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < S::NT_S / 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], a, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+      }
+    }
+
+    // scale into the log2 domain; element masks only where a band edge or
+    // Skv crosses the tile
+    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > q_lo) ||
+                      (window > 0 && k0 <= q_hi - window);
+#pragma unroll
+    for (int n = 0; n < S::NT_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int kp = k0 + n * 8 + 2 * tg + (e & 1);
+          const int qp = e < 2 ? qpos0 : qpos1;
+          const bool ok = kp < Skv && (!causal || kp <= qp) &&
+                          (window <= 0 || kp > qp - window);
+          if (!ok) x = kNegInf;
+        }
+        s[n][e] = x;
+      }
+
+    // online softmax on the fragments: row max over the quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < S::NT_S; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < S::NT_O; ++n) {
+        o[n][2 * r] *= alpha;
+        o[n][2 * r + 1] *= alpha;
+      }
+#pragma unroll
+      for (int n = 0; n < S::NT_S; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = s[n][e] == kNegInf ? 0.f : exp2f(s[n][e] - m_new);
+          l[r] += p;
+          s[n][e] = p;
+        }
+    }
+
+    // O += P V: P's fragments become the A operand in registers
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < S::NT_O / 2; ++dp) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vs + (kk * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], a, bf[0], bf[1]);
+        mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();              // this stage consumed before reuse
+  }
+  cp_async_wait<0>();             // no copy outlives the block
+
+  // row sums over the quad, normalise, store bf16 pairs
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wrow + g + 8 * r;
+    if (qi >= Sq) continue;
+    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    __nv_bfloat16* ob = out + ((size_t)b * Sq + qi) * q_row + (size_t)h * DH;
+#pragma unroll
+    for (int n = 0; n < S::NT_O; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(ob + n * 8 + 2 * tg) =
+          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+  }
+}
+
+template <int DH>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      int B, int Sq, int Skv, int H, int Hkv, int causal,
+                      int window, int q_offset, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = TcShape<DH>::SMEM;
+  auto kern = flash_fwd_tc<DH>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H, (Sq + BQ - 1) / BQ, B);
+  kern<<<grid, TC_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Sq, Skv, H, Hkv, causal,
+      window, q_offset, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- fp32 ---
+
 constexpr int TPR = 4;   // threads per query row
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(BQ * TPR)
-flash_fwd_kernel(const T* __restrict__ q,   // (B, Sq, H, DH)
-                 const T* __restrict__ k,   // (B, Skv, Hkv, DH)
-                 const T* __restrict__ v,
-                 T* __restrict__ out,       // (B, Sq, H, DH)
-                 int Sq, int Skv, int H, int Hkv, int causal, int window,
-                 int q_offset, float scale) {
+flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DH)
+              const float* __restrict__ k,   // (B, Skv, Hkv, DH)
+              const float* __restrict__ v,
+              float* __restrict__ out,       // (B, Sq, H, DH)
+              int Sq, int Skv, int H, int Hkv, int causal, int window,
+              int q_offset, float scale) {
   constexpr int NG = DH / 16;      // float4 groups per thread
   constexpr int BK = DH > 128 ? 16 : 32;   // keys per shared-memory tile
   __shared__ __align__(16) float ks[BK * DH];
@@ -75,7 +364,7 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Sq, H, DH)
   for (int g = 0; g < NG; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      qr[g * 4 + e] = live ? to_f(q[qbase + 16 * g + 4 * part + e]) : 0.f;
+      qr[g * 4 + e] = live ? q[qbase + 16 * g + 4 * part + e] : 0.f;
       acc[g * 4 + e] = 0.f;
     }
   float m = kNegInf, l = 0.f;
@@ -98,8 +387,8 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Sq, H, DH)
       float kv = 0.f, vv = 0.f;
       if (kp < Skv) {
         const size_t off = ((size_t)b * Skv + kp) * kv_row + (size_t)hk * DH + d;
-        kv = to_f(k[off]);
-        vv = to_f(v[off]);
+        kv = k[off];
+        vv = v[off];
       }
       ks[e] = kv;
       vs[e] = vv;
@@ -156,45 +445,46 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Sq, H, DH)
   for (int g = 0; g < NG; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      from_f(out + obase + 16 * g + 4 * part + e, acc[g * 4 + e] * inv);
+      out[obase + 16 * g + 4 * part + e] = acc[g * 4 + e] * inv;
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int Hkv, int dh, int causal,
-                   int window, int q_offset, float scale,
-                   cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       void* out, int B, int Sq, int Skv, int H, int Hkv,
+                       int causal, int window, int q_offset, float scale,
+                       cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  const dim3 block(BQ * TPR);
-#define REPRO_FA_LAUNCH(DH)                                                   \
-  flash_fwd_kernel<T, DH><<<grid, block, 0, stream>>>(                        \
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Skv, H, Hkv,        \
-      causal, window, q_offset, scale)
-  switch (dh) {
-    case 64: REPRO_FA_LAUNCH(64); break;
-    case 128: REPRO_FA_LAUNCH(128); break;
-    case 240: REPRO_FA_LAUNCH(240); break;
-    default: return cudaErrorInvalidValue;
-  }
-#undef REPRO_FA_LAUNCH
+  flash_fwd_fma<DH><<<grid, BQ * TPR, 0, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
+      Skv, H, Hkv, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.
-// Returns cudaGetLastError() after the launch (0 = success).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  window <= 0
+// means no window.  Returns cudaGetLastError() after the launch (0 =
+// success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Skv, int H, int Hkv, int dh,
                                      int causal, int window, int q_offset,
                                      float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, out, B, Sq, Skv, H, Hkv, dh, causal,
-                              window, q_offset, scale, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, Hkv, dh,
-                                      causal, window, q_offset, scale, s);
-  return (int)cudaErrorInvalidValue;
+#define REPRO_FA_LAUNCH(DH)                                                  \
+  case DH:                                                                   \
+    return (int)(dtype == 0 ? launch_fma<DH>(q, k, v, out, B, Sq, Skv, H,    \
+                                             Hkv, causal, window, q_offset,  \
+                                             scale, s)                       \
+                            : launch_tc<DH>(q, k, v, out, B, Sq, Skv, H,     \
+                                            Hkv, causal, window, q_offset,   \
+                                            scale, s));
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    REPRO_FA_LAUNCH(64)
+    REPRO_FA_LAUNCH(128)
+    REPRO_FA_LAUNCH(240)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FA_LAUNCH
 }

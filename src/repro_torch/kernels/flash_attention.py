@@ -5,7 +5,9 @@ Port of ``repro/kernels/flash_attention.py``: causal attention with an
 optional sliding window, ``q_offset`` and GQA (q head ``h`` reads kv head
 ``h // g``), online softmax with fp32 accumulation, output in q's dtype.
 The plain version is ``ref.chunked_attention`` (the forward of the
-reference's chunked path).
+reference's chunked path).  The kernel runs bfloat16 on the tensor cores
+(``mma.sync``) and float32 on the CUDA cores, so that fp32 keeps fp32
+products.
 
 ``flash_attention`` launches the kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to the plain version.
@@ -49,6 +51,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be contiguous on "
                              f"{q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must start on a "
+                             f"16-byte boundary (the kernel copies 16-byte "
+                             f"vectors)")
     scale = dh ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -6,12 +6,18 @@ table mapping logical pages to physical pool pages, and slots sit at
 different positions; the kernel walks each slot's table and computes its
 masked single-query GQA attention as combinable fp32 partials.
 
+The kernel is split-K flash-decoding: ``split_plan`` cuts the logical
+page axis into ``n_split`` spans from the shapes alone, one block per
+(slot, kv head, span) computes a partial, and a second pass merges them.
+``paged_decode_partial_split_ref`` is the plain version of that plan and
+merge; the tests hold it against the unsplit plain version.
+
 ``paged_decode_partial`` launches the kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to ``paged_decode_partial_ref``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,6 +26,25 @@ from repro_torch.kernels import build, ref
 
 NEG_INF = ref.NEG_INF
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The split grid aims at BLOCKS_PER_SM blocks on each SM as if every slot
+# were full.  Slots are ragged: most spans hold no valid key and exit at
+# once, and the longest slot's span sets the time, so the spans are kept
+# short; the floor keeps a block's two-stage page pipeline busy.
+SPAN_FLOOR = 4            # logical pages a split covers at least
+BLOCKS_PER_SM = 8
+SMEM_MAX = 232448         # shared memory one block may use on sm_90
+
+
+def split_plan(batch: int, kv_heads: int, max_pages: int,
+               num_sms: int) -> Tuple[int, int]:
+    """``(span, n_split)`` of the split-K launch: spans of ``span``
+    logical pages (at least ``SPAN_FLOOR``), as many as the floor allows
+    up to a grid (batch, kv_heads, n_split) of ``BLOCKS_PER_SM`` blocks on
+    each of ``num_sms`` SMs.  Shapes only: nothing is read from the
+    device."""
+    target = -(-BLOCKS_PER_SM * num_sms // max(1, batch * kv_heads))
+    span = min(max(SPAN_FLOOR, max_pages // target), max(1, max_pages))
+    return span, max(1, -(-max_pages // span))
 
 
 def paged_decode_partial_ref(q, kpool, vpool, pages, cur_pos, *,
@@ -39,6 +64,26 @@ def paged_decode_partial_ref(q, kpool, vpool, pages, cur_pos, *,
         cur = cur.expand(q.shape[0])
     return ref.decode_partial_masked(q, k, v, kpos, cur, window=window,
                                      scale=scale)
+
+
+def paged_decode_partial_split_ref(q, kpool, vpool, pages, cur_pos, *,
+                                   span: int,
+                                   window: Optional[int] = None,
+                                   scale: Optional[float] = None):
+    """Plain version of the kernel's split plan: the plain partial over
+    each span of ``span`` logical pages, merged by ``ref.merge_partials``
+    (the kernel's second pass).  Same arguments and results as
+    ``paged_decode_partial_ref``."""
+    ps, maxp = kpool.shape[1], pages.shape[1]
+    k, v, kpos = kv_pages.pages_to_strips((kpool, vpool), pages, ps)
+    cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=q.device)
+    if cur.dim() == 0:
+        cur = cur.expand(q.shape[0])
+    parts = [ref.decode_partial_masked(q, k[:, sl], v[:, sl], kpos[:, sl],
+                                       cur, window=window, scale=scale)
+             for sl in (slice(lp * ps, min(lp + span, maxp) * ps)
+                        for lp in range(0, maxp, span))]
+    return ref.merge_partials(*(torch.stack(x) for x in zip(*parts)))
 
 
 def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
@@ -62,9 +107,9 @@ def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
     if dh not in (32, 64, 128, 240, 256) or H // Hkv > 32:
         raise ValueError(f"paged_decode: head dim {dh} / group "
                          f"{H // Hkv} not supported by the kernel")
-    if 2 * ps * dh * 4 > 48 * 1024:
+    if 4 * ps * dh * q.element_size() > SMEM_MAX:
         raise ValueError(f"paged_decode: page_size {ps} too large for the "
-                         f"kernel's shared-memory page buffer")
+                         f"kernel's shared-memory page buffers")
     cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=q.device)
     if cur.dim() == 0:
         cur = cur.expand(B)
@@ -80,16 +125,26 @@ def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError(f"paged_decode: {name} must be contiguous on "
                              f"{q.device}")
+        if name != "pages" and t.data_ptr() % 16:
+            raise ValueError(f"paged_decode: {name} must start on a 16-byte "
+                             f"boundary (the kernel copies 16-byte vectors)")
     scale = dh ** -0.5 if scale is None else scale
-    acc = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    maxp = pages.shape[1]
+    span, n_split = split_plan(
+        B, Hkv, maxp,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc, l, m = (torch.empty(s, **f32) for s in ((B, H, dh), (B, H), (B, H)))
+    # fp32 split partials, merged by the kernel's second pass
+    scratch = (torch.empty((B, H, n_split, dh), **f32),
+               torch.empty((B, H, n_split), **f32),
+               torch.empty((B, H, n_split), **f32))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = build.entry("paged_decode")(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), pages.data_ptr(),
         cur.data_ptr(), acc.data_ptr(), l.data_ptr(), m.data_ptr(),
-        B, H, Hkv, dh, ps, pages.shape[1],
-        -1 if window is None else int(window), float(scale),
+        *(t.data_ptr() for t in scratch), B, H, Hkv, dh, ps, maxp,
+        -1 if window is None else int(window), span, n_split, float(scale),
         _DTYPES[q.dtype], stream)
     build.check_status("paged_decode", status)
     return acc, l, m

@@ -163,12 +163,20 @@ def decode_partial_masked(q, k, v, kpos, cur_pos, *,
     return acc.reshape(B, H, dhv), l.reshape(B, H), m.reshape(B, H)
 
 
-def combine_partials(acc, l, m, axis: int = 0):
-    """Merge flash-decoding partials along ``axis`` (stacked shards)."""
+def merge_partials(acc, l, m, axis: int = 0):
+    """Merge flash-decoding partials along ``axis`` into one unnormalised
+    ``(acc, l, m)``: m = max m_i, l = sum l_i e^(m_i - m), acc = sum
+    acc_i e^(m_i - m).  An all-empty set (every m_i = -1e30, l_i = 0)
+    stays empty: its weights are e^0 = 1 times zeros."""
     m_glob = m.amax(dim=axis, keepdim=True)
     w = torch.exp(m - m_glob)
-    acc = (acc * w[..., None]).sum(dim=axis)
-    l = (l * w).sum(dim=axis)
+    return ((acc * w[..., None]).sum(dim=axis), (l * w).sum(dim=axis),
+            m_glob.squeeze(axis))
+
+
+def combine_partials(acc, l, m, axis: int = 0):
+    """Merge flash-decoding partials along ``axis`` (stacked shards)."""
+    acc, l, _ = merge_partials(acc, l, m, axis)
     l = torch.where(l == 0, torch.ones_like(l), l)
     return acc / l[..., None]
 
