@@ -15,9 +15,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 -1 pads, an n no block size divides at a D the vector width
                 does not divide), in bfloat16 and float32; paged decode's
                 split-K edges (slots that fill whole split spans, a window
-                edge inside a span) and flash's (Sq not a multiple of the
-                q tile, q_offset > 0 with and without a window, one query
-                row over a long cache) at both head dims; then timed with
+                edge inside a span), isp decode's (valid rows filling whole
+                spans and one row more or less, empty spans and an empty
+                slot, a ring wrapped inside a span, rows that are not
+                16-byte aligned, the shared track) and flash's (Sq not a
+                multiple of the q tile, q_offset > 0 with and without a
+                window, one query row over a long cache) at both head dims;
+                then timed with
                 CUDA events (median of 25 runs, L2 flushed between runs, a
                 spin on the card before each so that the interval is device
                 time) beside its plain version, its bound and, where one
@@ -27,7 +31,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 sharded pool) through ops.topk_similarity and
                 ops.isp_gather_pool: cosine top-10 over the 58,000 x 128
                 movie matrix at Q = 50 and 256 with an fp32 and a bf16
-                corpus, and an exact-tie case that must give identical ids;
+                corpus, and an exact-tie case that must give identical ids
+                (plus D = 37, k = 32 edges in fp32 and bf16, off the path;
+                one Q = 50 call split by the profiler into pass 1, the merge
+                pass and the wrapper's ops; the library yardstick timed with
+                the normalisation outside and inside the window);
                 40,000 reviews of 12 ids over a 4096 x 64 table pooled, then
                 a (64, 2) head and argmax, without and with per-id weights,
                 in fp32 and bf16; a 65,536 x 512 table pooled in 16 shards
@@ -99,7 +107,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# dense peaks (H100 SXM data sheet): bf16 and TF32 on the tensor cores,
+# fp32 on the CUDA cores
+PEAK_FLOPS = {torch.bfloat16: 989e12, "tf32": 495e12, torch.float32: 67e12}
 N_TIMED = 25
 SPIN_CYCLES = 10_000_000    # ~5 ms of GPU spin at the H100's ~1.98 GHz
 
@@ -114,10 +124,12 @@ SPIN_CYCLES = 10_000_000    # ~5 ms of GPU spin at the H100's ~1.98 GHz
 # plain version multiplies in bf16, so they may differ by one bf16 ulp.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
-# topk_similarity: a score is a dot product of two unit fp32 vectors (|s| <=
-# 1), summed in another order by the kernel (FMA chain) and cuBLAS; that
-# moves it by a few fp32 ulps of 1, far below 1e-5.  isp_gather_pool: see
-# check_pool (fp32 atomics sum in an order that changes from run to run).
+# topk_similarity: a score is a cosine (|s| <= 1), summed in another order by
+# the kernel (three tensor-core products, 3xTF32 or bf16x3, each within
+# ~2e-7 of fp64 at D = 128: tests/test_torch_topk_numerics.py) and cuBLAS;
+# that moves it by a few fp32 ulps of 1, far below 1e-5.  isp_gather_pool:
+# see check_pool (fp32 atomics sum in an order that changes from run to
+# run).
 TOPK_ATOL = 1e-5
 
 
@@ -337,6 +349,67 @@ def paged_edges(dev, gen):
                 f"{dname(d)} w={w} {e:.3g}" for (d, w), e in errs.items()))
 
 
+def isp_edges(dev, gen):
+    """Split-K edges of isp_decode at both strip shapes, in both dtypes,
+    with and without a window, against the plain version.  Per-slot tracks
+    kpos (8, 1024): slots whose valid rows fill whole spans (and one row
+    more or less), an empty slot, a one-row slot (its later spans empty), a
+    full strip, a ring whose valid rows wrap across a span edge; the same
+    tracks on k/v views whose rows are not 16-byte aligned (the kernel's
+    element-load branch); and the shared track kpos (1024,) with its first
+    span empty and its valid rows ending inside a span."""
+    from repro_torch.kernels import isp_decode as isp
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B, S = 8, 1024
+    for H, Hkv, dh in ((32, 4, 128), (16, 8, 240)):
+        span, n_split = isp.split_plan(B, Hkv, S, n_sms)
+        lengths = (span, 2 * span, span + 1, span - 1, 0, 1, S)
+        kpos = torch.full((B, S), -1, dtype=torch.int32)
+        cur = torch.zeros(B, dtype=torch.int32)
+        for b, n in enumerate(lengths):
+            kpos[b, :n] = torch.arange(n, dtype=torch.int32)
+            cur[b] = max(n - 1, 0)
+        wrap = S + span + span // 2          # row wrap % S lies in a span
+        kpos[7] = ring_tracks([wrap], S)[0]
+        cur[7] = wrap
+        assert 0 < (wrap % S) % span and kpos[7, wrap % S + 1] == wrap - S + 1
+        shared = torch.full((S,), -1, dtype=torch.int32)
+        lo, hi = span + 3, 3 * span + span // 2
+        shared[lo:hi] = torch.arange(lo, hi, dtype=torch.int32)
+        kpos, cur, shared = kpos.to(dev), cur.to(dev), shared.to(dev)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
+            q = r(B, H, dh)
+            k, v = r(B, S, Hkv, dh), r(B, S, Hkv, dh)
+            # rows dh + 1 elements apart, one element off: not 16-byte aligned
+            ku, vu = (r(B, S, Hkv, dh + 1)[..., 1:] for _ in range(2))
+            cases = {"rings": (q, k, v, kpos, cur),
+                     "unaligned": (q, ku, vu, kpos, cur),
+                     "shared": (q, k, v, shared,
+                                torch.tensor(hi - 1, dtype=torch.int32,
+                                             device=dev))}
+            for (name, args), w in ((c, w) for c in cases.items()
+                                    for w in (None, 300)):
+                got = isp.decode_partial(*args, window=w)
+                want = isp.decode_partial_ref(*args, window=w)
+                torch.cuda.synchronize()
+                errs[name, dtype, w] = max_err(got, want, dtype)
+                if name != "shared":
+                    assert float(got[0][4].abs().max()) == 0.0, \
+                        "empty slot: acc != 0"
+                    assert float(got[1][4].abs().max()) == 0.0, \
+                        "empty slot: l != 0"
+                    assert bool((got[2][4] == -1e30).all()), \
+                        "empty slot: m != -1e30"
+        log(f"[kernels] isp_decode edges dh={dh}: {n_split} splits of {span} "
+            f"rows, per-slot valid rows {list(lengths)} and a ring wrapped "
+            f"at row {wrap % S}, shared rows [{lo}, {hi}), windows None and "
+            f"300: max abs err " + ", ".join(
+                f"{n} {dname(d)} w={w} {e:.3g}" for (n, d, w), e in
+                errs.items()))
+
+
 def flash_edges(dev, gen):
     """flash_attention edges at both head dims, in both dtypes, against
     the plain version: Sq not a multiple of the 64-row q tile, q_offset > 0
@@ -458,6 +531,7 @@ def kernel_phase(dev):
             plain_ms=time_ms(lambda: isp.decode_partial_ref(
                 *args, window=window), flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    isp_edges(dev, gen)
 
     # -- flash attention: yi-9b's prefill (dh 128, causal) and gemma3-12b's
     # window layers (dh 240, window 1024)
@@ -571,6 +645,40 @@ def check_topk(got, qs, corpus, k, tag) -> float:
     log(f"[apps] {tag}: max abs score err {err:.3g}, ids equal at "
         f"{int(sep.sum())}/{sep.numel()} separated places")
     return err
+
+
+def topk_breakdown(qs, corpus, k, flush, reps=25):
+    """Device time of one topk_similarity call, kernel by kernel, from
+    torch.profiler over ``reps`` calls (L2 flushed before each; the flush
+    is left out): pass 1, the merge pass, and the PyTorch ops of the
+    wrapper (the queries' normalisation)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import topk_similarity as tk
+    tk.topk_similarity(qs, corpus, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            tk.topk_similarity(qs, corpus, k)
+        torch.cuda.synchronize()
+    us = {"pass 1": 0.0, "merge": 0.0, "wrapper ops": 0.0}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or "FillFunctor<unsigned char>" \
+                in e.name or e.name == "Command Buffer Full":
+            continue
+        part = "pass 1" if "topk_partial_kernel" in e.name else "merge" \
+            if "topk_merge_kernel" in e.name else "wrapper ops"
+        us[part] += (e.time_range.end - e.time_range.start) / reps
+    if not us["pass 1"]:
+        log("[apps] top-k breakdown: not measured (the profiler recorded no "
+            "device events)")
+        return
+    total = sum(us.values())
+    log(f"[apps] top-k breakdown, Q={qs.shape[0]} corpus "
+        f"{dname(corpus.dtype)}: " + ", ".join(
+            f"{n} {t / 1e3:.4f} ms ({t / total:.1%})" for n, t in us.items())
+        + f" of {total / 1e3:.4f} ms device time a call")
 
 
 def check_pool(got, table, idx, seg, nseg, off=0, w=None, tag="") -> float:
@@ -701,13 +809,31 @@ def apps_phase(dev):
     log(f"[apps] sharded pool: 16 shards sum to the dense pool (atol 1e-4), "
         f"{int((~keep).sum())} dropped ids/segments; max abs err per shard "
         f"{errs['sharded']:.3g}")
-    # edge shapes, off the counted path: a D that 4 does not divide (the
-    # wrapper pads it), two query blocks and k = 32; an odd D (scalar
-    # loads) in bf16 with weights, an offset and segments -1 and 40, 41
+    # edge shapes, off the counted path: D = 37 (rows not 16-byte aligned:
+    # element loads, columns past D zero), two query blocks and k = 32, in
+    # fp32 and bf16; an odd D (scalar loads) in bf16 with weights, an
+    # offset and segments -1 and 40, 41
     eq = on(rng.normal(size=(70, 37)).astype(np.float32))
     ec = on(rng.normal(size=(1000, 37)).astype(np.float32))
-    check_topk(tk.topk_similarity(eq, ec, 32), eq, ec, 32,
-               "edge: D=37, Q=70, N=1000, k=32")
+    for c in (ec, ec.to(torch.bfloat16)):
+        check_topk(tk.topk_similarity(eq, c, 32), eq, c, 32,
+                   f"edge: D=37, Q=70, N=1000, k=32, {dname(c.dtype)}")
+    # the widest D the kernel's shared-memory tiles take runs; one more is
+    # refused by the C entry and raised as a ValueError
+    for dt, dmax in ((torch.float32, 640), (torch.bfloat16, 496)):
+        wq = on(rng.normal(size=(70, dmax + 1)).astype(np.float32))
+        wc = on(rng.normal(size=(1000, dmax + 1)).astype(np.float32)).to(dt)
+        check_topk(tk.topk_similarity(wq[:, :dmax], wc[:, :dmax], 10),
+                   wq[:, :dmax], wc[:, :dmax], 10,
+                   f"edge: D={dmax}, Q=70, N=1000, k=10, {dname(dt)}")
+        try:
+            tk.topk_similarity(wq, wc, 10)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"topk_similarity took D={dmax + 1} "
+                                 f"({dname(dt)}) past its tiles")
+    log("[apps] top-k D limit: 640 fp32 / 496 bf16 run, 641 / 497 raise")
     et = on(rng.normal(size=(300, 67)).astype(np.float32)).to(torch.bfloat16)
     ei = on(rng.integers(-5, 420, (999,)).astype(np.int32))
     es = on(rng.integers(-1, 42, (999,)).astype(np.int32))
@@ -720,14 +846,22 @@ def apps_phase(dev):
 
     rows = []
     emb_bag = torch.nn.functional.embedding_bag
+    norm = torch.nn.functional.normalize
     for (dt, q) in rec:
         qs, c = queries[q], corpus[dt]
         flops = 2 * q * N * D
         nbytes = q * D * 4 + c.numel() * c.element_size() + q * K * 8
-        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        # the function's bound: its one product at the tensor cores' peak
+        # for the corpus type (TF32 for fp32, bf16); beside it the route's
+        # three products (3xTF32 or bf16x3) and the first design's one
+        # fp32 product on the CUDA cores
+        tc = torch.bfloat16 if dt == torch.bfloat16 else "tf32"
+        bound_ms, bound_by = bound(nbytes, flops, tc)
+        route_ms, _ = bound(nbytes, 3 * flops, tc)
+        cuda_core_ms, _ = bound(nbytes, flops, torch.float32)
         ms = time_ms(lambda: tk.topk_similarity(qs, c, K), flush)
-        qn = torch.nn.functional.normalize(qs, dim=-1, eps=1e-9)
-        cn = torch.nn.functional.normalize(c.float(), dim=-1, eps=1e-9)
+        qn = norm(qs, dim=-1, eps=1e-9)
+        cn = norm(c.float(), dim=-1, eps=1e-9)
         rows.append(dict(
             name="topk_similarity", kernel="topk_similarity", path="apps",
             route="cuda",
@@ -738,9 +872,15 @@ def apps_phase(dev):
             max_abs_err=errs[dt, q], ms=ms,
             plain_ms=time_ms(lambda: tk.topk_similarity_ref(qs, c, K), flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bound_route_ms=route_ms, bound_cuda_core_ms=cuda_core_ms,
             library_two_calls_ms=time_ms(
                 lambda: torch.topk(qn @ cn.mT, K), flush),
+            library_with_norm_ms=time_ms(lambda: torch.topk(
+                norm(qs, dim=-1, eps=1e-9)
+                @ norm(c.float(), dim=-1, eps=1e-9).mT, K), flush),
             items_per_s=q / ms * 1e3))
+    for dt in corpus:
+        topk_breakdown(queries[50], corpus[dt], K, flush)
     s_ids = s_idx.long().view(R, L)
     for name, (dt, w) in sent_cases.items():
         table = s_tab[dt]
@@ -797,7 +937,11 @@ def apps_phase(dev):
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
             f"{row['library_ms']}"
             + (f", topk(q @ c.T) two calls {row['library_two_calls_ms']:.4f}"
-               f" ms, {row['items_per_s']:.4g} queries/s"
+               f" ms, with the normalisation "
+               f"{row['library_with_norm_ms']:.4f} ms, route bound "
+               f"{row['bound_route_ms']:.4f} ms, CUDA-core bound "
+               f"{row['bound_cuda_core_ms']:.4f} ms, "
+               f"{row['items_per_s']:.4g} queries/s"
                if row["kernel"] == "topk_similarity" else ""))
     return rows, launches
 
@@ -872,20 +1016,23 @@ def profile_window(eng, label, step_ms=None):
     ranked = sorted(by_name.items(), key=lambda x: -x[1][0])
     for name, (t, n) in ranked[:8]:
         log(f"[profile] {label}:   {t / 1e3:9.3f} ms x{n:<5d} {name[:80]}")
-    # the port's own kernels (the __global__ functions of csrc/*.cu),
-    # ranked or not
+    # the port's own kernels (the __global__ functions of csrc/*.cu and
+    # of the shared header's namespace), ranked or not
     for name, (t, n) in ranked:
-        fn = re.search(r"\(anonymous namespace\)::(\w+)", name)
+        fn = re.search(r"(?:\(anonymous namespace\)|split_decode)::(\w+)",
+                       name)
         if fn and fn.group(1) in port_kernels():
             log(f"[profile] {label}: port kernel {t / 1e3:9.3f} ms x{n:<5d} "
                 f"{name[fn.start(1):][:60]}")
 
 
 def port_kernels() -> set:
-    """Names of the __global__ functions in the port's CUDA sources."""
+    """Names of the __global__ functions in the port's CUDA sources and
+    their shared headers."""
     pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
                      r"(\w+)\s*\(")
-    return {m for f in (ROOT / "src/repro_torch/kernels/csrc").glob("*.cu")
+    return {m for f in (ROOT / "src/repro_torch/kernels/csrc").iterdir()
+            if f.suffix in (".cu", ".cuh")
             for m in pat.findall(f.read_text())}
 
 

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  Builds happen at
 first use, from the sources in this package only, into
 ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``), keyed by a hash of the source and the flags, so a fresh
-checkout builds everything on its first call and a warm one builds nothing.
+``.gitignore``), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a fresh checkout builds everything on
+its first call and a warm one builds nothing.
 All missing libraries are compiled in parallel, one ``nvcc`` per source.
 
 Nothing here runs at import time: the CPU tests import every module, and
@@ -40,13 +41,14 @@ KERNELS = {
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
                         [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
     "isp_decode": ("isp_decode.cu", "repro_isp_decode",
-                   [_P] * 8 + [_I] * 5 + [_L] * 6 + [_I] * 4 + [_F, _I, _P]),
+                   [_P] * 11 + [_I] * 5 + [_L] * 6 + [_I] * 6
+                   + [_F, _I, _P]),
     "isp_gather": ("isp_gather.cu", "repro_isp_gather",
                    [_P] * 4 + [_L, _L, _I, _L, _I, _P]),
     "isp_gather_pool": ("isp_gather_pool.cu", "repro_isp_gather_pool",
                         [_P] * 5 + [_L, _L, _I, _L, _I, _I, _P]),
     "topk_similarity": ("topk_similarity.cu", "repro_topk_similarity",
-                        [_P] * 6 + [_I] * 6 + [_P]),
+                        [_P] * 6 + [_I] * 9 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -73,8 +75,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # device code shared by sources
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -37,44 +37,16 @@
 // A slot with no valid key comes out as m = -1e30, l = 0, acc = 0: masked
 // scores are -1e30 and get p = 0, and every merge weight of an all-empty
 // set is e^0 = 1 times zeros, so no NaN enters the merge.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+//
+// The loaders, the per-batch online softmax, the merge of the (warp, key
+// group) partials and pass 2 are split_decode.cuh's, shared with
+// isp_decode.cu; this file keeps what is paged: the page walk and its
+// position mask.
+#include "split_decode.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int NW = 4;             // warps per block of pass 1
-constexpr int NT = NW * 32;
-
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+using namespace split_decode;
 
 // LPK: lanes per key (dh / 8 rounded up to a power of two); GC: query heads
 // per block (2 or 8; a block with fewer heads leaves the rest idle).
@@ -90,9 +62,6 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
     float* __restrict__ pm,
     int H, int Hkv, int dh, int ps, int maxp, int window, int span,
     int n_split, float scale) {
-  constexpr int KPI = 32 / LPK;             // keys a warp holds at once
-  constexpr int ROUND = NW * KPI;           // keys the block holds at once
-  constexpr int MAXK = GC >= 8 ? 2 : 4;     // rounds of keys per batch
   constexpr int EPC = 16 / sizeof(T);       // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -116,14 +85,7 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   }
   lp_hi = min(lp_hi, c >= 0 ? c / ps : -1);
   if (lp_lo > lp_hi) {            // nothing to see: the empty partial
-    for (int i = threadIdx.x; i < ng * dh; i += NT) {
-      const int g = i / dh;
-      pacc[((out_row + g) * n_split + split) * dh + i - g * dh] = 0.f;
-    }
-    if (threadIdx.x < ng) {
-      pl[(out_row + threadIdx.x) * n_split + split] = 0.f;
-      pm[(out_row + threadIdx.x) * n_split + split] = kNegInf;
-    }
+    write_empty(pacc, pl, pm, out_row, ng, dh, split, n_split);
     return;
   }
 
@@ -176,135 +138,20 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
     if (table[lp] >= 0) {
       const T* ks = stage + (size_t)(it & 1) * 2 * ps * dh;
       const T* vs = ks + ps * dh;
-      for (int j0 = 0; j0 < ps; j0 += ROUND * MAXK) {
-        // scores of up to MAXK keys of this key group, for all heads
-        float s[GC][MAXK], bmax[GC];
-#pragma unroll
-        for (int g = 0; g < GC; ++g) bmax[g] = kNegInf;
-#pragma unroll
-        for (int t = 0; t < MAXK; ++t) {
-#pragma unroll
-          for (int g = 0; g < GC; ++g) s[g][t] = kNegInf;
-          if (j0 + t * ROUND >= ps) continue;       // block-uniform
-          const int j = j0 + t * ROUND + warp * KPI + grp;
-          const int pos = lp * ps + j;
-          const bool ok = j < ps && pos <= c && (window <= 0 ||
-                                                 pos > c - window);
-          float kf[8];
-          if (j < ps && has_d) {
-            load8(ks + j * dh + d0, kf);
-          } else {
-#pragma unroll
-            for (int e = 0; e < 8; ++e) kf[e] = 0.f;
-          }
-#pragma unroll
-          for (int g = 0; g < GC; ++g) {
-            float part = 0.f;
-#pragma unroll
-            for (int e = 0; e < 8; ++e) part += qr[g][e] * kf[e];
-#pragma unroll
-            for (int off = LPK / 2; off > 0; off >>= 1)
-              part += __shfl_xor_sync(0xffffffffu, part, off);
-            if (ok) {
-              s[g][t] = part * scale;
-              bmax[g] = fmaxf(bmax[g], s[g][t]);
-            }
-          }
-        }
-        // one rescale per batch, then p and p.V
-#pragma unroll
-        for (int g = 0; g < GC; ++g) {
-          const float m_new = fmaxf(m[g], bmax[g]);
-          const float alpha = __expf(m[g] - m_new);
-          l[g] *= alpha;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[g][e] *= alpha;
-          m[g] = m_new;
-        }
-#pragma unroll
-        for (int t = 0; t < MAXK; ++t) {
-          if (j0 + t * ROUND >= ps) continue;
-          const int j = j0 + t * ROUND + warp * KPI + grp;
-          if (j >= ps || !has_d) continue;
-          float vf[8];
-          load8(vs + j * dh + d0, vf);
-#pragma unroll
-          for (int g = 0; g < GC; ++g) {
-            const float p = s[g][t] == kNegInf ? 0.f
-                                               : __expf(s[g][t] - m[g]);
-            l[g] += p;
-#pragma unroll
-            for (int e = 0; e < 8; ++e) acc[g][e] += p * vf[e];
-          }
-        }
-      }
+      attend_stage<T, LPK, GC>(
+          ks, vs, dh, ps, warp, grp, d0, has_d, qr, acc, m, l, scale,
+          [&](int j) {
+            const int pos = lp * ps + j;
+            return pos <= c && (window <= 0 || pos > c - window);
+          });
     }
     __syncthreads();              // stage fully consumed before reuse
   }
 
-  // merge the NW * KPI (warp, key group) partials of this split; the
-  // stage buffers are free now (the loop ended on a barrier)
-  constexpr int NSLOT = NW * KPI;
-  float* red_acc = reinterpret_cast<float*>(smem);  // [NSLOT][GC][dh]
-  float* red_m = red_acc + NSLOT * GC * dh;         // [NSLOT][GC]
-  float* red_l = red_m + NSLOT * GC;
-  const int slot = warp * KPI + grp;
-#pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (has_d) {
-      float* dst = red_acc + (slot * GC + g) * dh + d0;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = acc[g][e];
-    }
-    if (d0 == 0) {
-      red_m[slot * GC + g] = m[g];
-      red_l[slot * GC + g] = l[g];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < ng * dh; i += NT) {
-    const int g = i / dh, d = i - g * dh;
-    float mx = kNegInf;
-    for (int s = 0; s < NSLOT; ++s) mx = fmaxf(mx, red_m[s * GC + g]);
-    float a = 0.f;
-    for (int s = 0; s < NSLOT; ++s)
-      a += red_acc[(s * GC + g) * dh + d] * __expf(red_m[s * GC + g] - mx);
-    pacc[((out_row + g) * n_split + split) * dh + d] = a;
-    if (d == 0) {
-      float ls = 0.f;
-      for (int s = 0; s < NSLOT; ++s)
-        ls += red_l[s * GC + g] * __expf(red_m[s * GC + g] - mx);
-      pl[(out_row + g) * n_split + split] = ls;
-      pm[(out_row + g) * n_split + split] = mx;
-    }
-  }
-}
-
-// pass 2: one block per (b, h) merges its n_split partials
-__global__ void __launch_bounds__(128) merge_splits_kernel(
-    const float* __restrict__ pacc, const float* __restrict__ pl,
-    const float* __restrict__ pm, float* __restrict__ acc,
-    float* __restrict__ l, float* __restrict__ m, int n_split, int dh) {
-  extern __shared__ float w[];    // [n_split] merge weights
-  const size_t bh = blockIdx.x;
-  const float* ms = pm + bh * n_split;
-  float mx = kNegInf;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, ms[s]);
-  for (int s = threadIdx.x; s < n_split; s += blockDim.x)
-    w[s] = __expf(ms[s] - mx);
-  __syncthreads();
-  for (int d = threadIdx.x; d < dh; d += blockDim.x) {
-    float a = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      a += pacc[(bh * n_split + s) * dh + d] * w[s];
-    acc[bh * dh + d] = a;
-  }
-  if (threadIdx.x == 0) {
-    float ls = 0.f;
-    for (int s = 0; s < n_split; ++s) ls += pl[bh * n_split + s] * w[s];
-    l[bh] = ls;
-    m[bh] = mx;
-  }
+  // merge the (warp, key group) partials of this split; the stage
+  // buffers are free now (the loop ended on a barrier)
+  merge_slots<LPK, GC>(smem, dh, acc, m, l, warp, grp, d0, has_d, ng, dh,
+                       out_row, split, n_split, pacc, pl, pm);
 }
 
 template <typename T, int LPK, int GC>
@@ -313,9 +160,8 @@ cudaError_t launch_split(const void* q, const void* kp, const void* vp,
                          float* pl, float* pm, int B, int H, int Hkv, int dh,
                          int ps, int maxp, int window, int span, int n_split,
                          float scale, cudaStream_t stream) {
-  constexpr int NSLOT = NW * (32 / LPK);
   const size_t stage = 4 * (size_t)ps * dh * sizeof(T);
-  const size_t red = (size_t)NSLOT * GC * (dh + 2) * sizeof(float);
+  const size_t red = merge_smem<LPK, GC>(dh);
   const size_t smem = stage > red ? stage : red;
   auto kern = paged_split_kernel<T, LPK, GC>;
   if (smem > 48 * 1024) {
@@ -385,8 +231,5 @@ extern "C" int repro_paged_decode(const void* q, const void* kpool,
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
-  merge_splits_kernel<<<B * H, 128, n_split * sizeof(float), s>>>(
-      (const float*)pacc, (const float*)pl, (const float*)pm, (float*)acc,
-      (float*)l, (float*)m, n_split, dh);
-  return (int)cudaGetLastError();
+  return (int)merge_splits(pacc, pl, pm, acc, l, m, B * H, n_split, dh, s);
 }

@@ -9,11 +9,18 @@ layouts of the reference: one shared track ``kpos (S,)`` with a scalar
 with ``cur_pos (B,)`` (the serve engine's strips and window rings, which
 the reference sends to its jnp path).
 
+The kernel is split-K flash-decoding: ``split_plan`` cuts the strip's rows
+into ``n_split`` spans from the shapes alone, one block per (slot, kv
+head, span) computes a partial over its span's valid rows, and a second
+pass merges them.  ``decode_partial_split_ref`` is the plain version of
+that plan and merge; the tests hold it against the unsplit plain version.
+
 ``decode_partial`` launches the kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to ``decode_partial_ref``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -21,16 +28,34 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The split grid aims at BLOCKS_PER_SM blocks on each SM.  Ring rows are not
+# sorted by position, so every span reads its positions and may find few
+# valid rows; the floor keeps a block's two-stage row pipeline busy, and the
+# cap bounds the block's list of valid rows in shared memory.
+ROW_FLOOR = 64            # strip rows a span covers at least
+SPAN_MAX = 1024           # strip rows a span covers at most
+BLOCKS_PER_SM = ref.SPLIT_BLOCKS_PER_SM
 
 decode_partial_ref = ref.decode_partial_masked
 
 
-def _heads_per_block(group: int, dh: int) -> int:
-    """Query heads one block keeps in registers: the largest of 8, 4, 2, 1
-    that divides the GQA group and fits 32 values per lane."""
-    dpl = 2 if dh <= 64 else 4 if dh <= 128 else 8
-    return next(gc for gc in (8, 4, 2, 1)
-                if gc * dpl <= 32 and group % gc == 0)
+# (span, n_split) over the strip's rows: ref.split_plan, shared with
+# paged_decode; shapes only, nothing is read from the device
+split_plan = functools.partial(ref.split_plan, floor=ROW_FLOOR, cap=SPAN_MAX)
+
+
+def decode_partial_split_ref(q, k, v, kpos, cur_pos, *, span: int,
+                             window: Optional[int] = None,
+                             scale: Optional[float] = None):
+    """Plain version of the kernel's split plan: the plain partial over
+    each span of ``span`` strip rows, merged by ``ref.merge_partials`` (the
+    kernel's second pass).  Same arguments and results as
+    ``decode_partial_ref``."""
+    parts = [decode_partial_ref(q, k[:, s0:s0 + span], v[:, s0:s0 + span],
+                                kpos[..., s0:s0 + span], cur_pos,
+                                window=window, scale=scale)
+             for s0 in range(0, k.shape[1], span)]
+    return ref.merge_partials(*(torch.stack(x) for x in zip(*parts)))
 
 
 def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
@@ -72,16 +97,27 @@ def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
         if t.device != q.device:
             raise ValueError(f"isp_decode: {name} must be on {q.device}")
     scale = dh ** -0.5 if scale is None else scale
-    acc = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
-    l = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    epc = 16 // q.element_size()    # elements in a 16-byte copy
+    vec = int(dh % epc == 0 and all(
+        st % epc == 0 for st in (*k.stride()[:3], *v.stride()[:3]))
+        and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0)
+    span, n_split = split_plan(
+        B, Hkv, S,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    acc, l, m = (torch.empty(s, **f32) for s in ((B, H, dh), (B, H), (B, H)))
+    # fp32 split partials, merged by the kernel's second pass
+    scratch = (torch.empty((B, H, n_split, dh), **f32),
+               torch.empty((B, H, n_split), **f32),
+               torch.empty((B, H, n_split), **f32))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = build.entry("isp_decode")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
         cur.data_ptr(), acc.data_ptr(), l.data_ptr(), m.data_ptr(),
-        B, H, Hkv, dh, S, *k.stride()[:3], *v.stride()[:3],
+        *(t.data_ptr() for t in scratch), B, H, Hkv, dh, S,
+        *k.stride()[:3], *v.stride()[:3],
         S if kpos.dim() == 2 else 0, 1 if cur.dim() == 1 else 0,
-        -1 if window is None else int(window), _heads_per_block(H // Hkv, dh),
+        -1 if window is None else int(window), span, n_split, vec,
         float(scale), _DTYPES[q.dtype], stream)
     build.check_status("isp_decode", status)
     return acc, l, m

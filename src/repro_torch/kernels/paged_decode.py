@@ -17,7 +17,8 @@ merge; the tests hold it against the unsplit plain version.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Optional
 
 import torch
 
@@ -31,20 +32,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # once, and the longest slot's span sets the time, so the spans are kept
 # short; the floor keeps a block's two-stage page pipeline busy.
 SPAN_FLOOR = 4            # logical pages a split covers at least
-BLOCKS_PER_SM = 8
+BLOCKS_PER_SM = ref.SPLIT_BLOCKS_PER_SM
 SMEM_MAX = 232448         # shared memory one block may use on sm_90
 
 
-def split_plan(batch: int, kv_heads: int, max_pages: int,
-               num_sms: int) -> Tuple[int, int]:
-    """``(span, n_split)`` of the split-K launch: spans of ``span``
-    logical pages (at least ``SPAN_FLOOR``), as many as the floor allows
-    up to a grid (batch, kv_heads, n_split) of ``BLOCKS_PER_SM`` blocks on
-    each of ``num_sms`` SMs.  Shapes only: nothing is read from the
-    device."""
-    target = -(-BLOCKS_PER_SM * num_sms // max(1, batch * kv_heads))
-    span = min(max(SPAN_FLOOR, max_pages // target), max(1, max_pages))
-    return span, max(1, -(-max_pages // span))
+# (span, n_split) over the logical pages: ref.split_plan, shared with
+# isp_decode; shapes only, nothing is read from the device
+split_plan = functools.partial(ref.split_plan, floor=SPAN_FLOOR)
 
 
 def paged_decode_partial_ref(q, kpool, vpool, pages, cur_pos, *,

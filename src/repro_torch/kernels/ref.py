@@ -12,11 +12,12 @@ Layout conventions:
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
+SPLIT_BLOCKS_PER_SM = 8   # split-K decode grids aim at this many blocks an SM
 
 
 def naive_attention(q, k, v, *, causal: bool = True,
@@ -172,6 +173,22 @@ def merge_partials(acc, l, m, axis: int = 0):
     w = torch.exp(m - m_glob)
     return ((acc * w[..., None]).sum(dim=axis), (l * w).sum(dim=axis),
             m_glob.squeeze(axis))
+
+
+def split_plan(batch: int, kv_heads: int, units: int, num_sms: int, *,
+               floor: int, cap: Optional[int] = None) -> Tuple[int, int]:
+    """``(span, n_split)`` of a split-K decode launch, cutting ``units``
+    (paged decode's logical pages, isp decode's strip rows) into spans of
+    ``span``: at least ``floor`` (or every unit), at most ``cap``, as many
+    as the floor allows up to a grid (batch, kv_heads, n_split) of
+    ``SPLIT_BLOCKS_PER_SM`` blocks on each of ``num_sms`` SMs.  Shapes
+    only: nothing is read from the device."""
+    target = -(-SPLIT_BLOCKS_PER_SM * num_sms // max(1, batch * kv_heads))
+    span = max(floor, units // target)
+    if cap is not None:
+        span = min(span, cap)
+    span = min(span, max(1, units))
+    return span, max(1, -(-units // span))
 
 
 def combine_partials(acc, l, m, axis: int = 0):

@@ -2,11 +2,14 @@
 (``csrc/topk_similarity.cu``) and its plain PyTorch version.
 
 Port of ``repro/kernels/topk_similarity.py::topk_similarity``, the
-recommender's hot spot (paper §IV-B2): both operands are L2-normalised in
-fp32 (eps 1e-9) outside the kernel, as the Pallas wrapper does, and the
-kernel forms the fp32 dot products and keeps each query's k best
-(score, id) pairs, the lower id first on equal scores (``jax.lax.top_k``'s
-order).  Only (Q, k) scores and ids leave the kernel.
+recommender's hot spot (paper §IV-B2): the kernel L2-normalises the
+queries in fp32 (eps 1e-9), as the Pallas wrapper does, and reads the
+corpus once, in its own dtype, taking each row's norm from its staged tile;
+it forms ``(q^ . c) / max(|c|, 1e-9)`` on the tensor cores
+at fp32 accuracy (3xTF32 for an fp32 corpus, three bf16 parts of q^ for a
+bf16 one), keeping each query's k best (score, id) pairs, the lower id
+first on equal scores (``jax.lax.top_k``'s order).  Only (Q, k) scores and
+ids leave the kernel.
 
 ``topk_similarity`` launches the kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to ``topk_similarity_ref``.  The two
@@ -22,16 +25,10 @@ from repro_torch.kernels import build, ref
 
 topk_similarity_ref = ref.topk_similarity
 
-K_MAX = 32       # the kernel's per-thread lists hold at most 32 entries
-_QB, _CT = 64, 64        # queries per block, corpus rows per tile (the .cu)
+K_MAX = 32       # the kernel's per-warp lists hold at most 32 entries
+_QB, _CT = 64, 64     # queries a block, corpus rows a tile
 _MERGE_ENTRIES = 6144    # splits * k the merge pass stages (48 KB)
-_SMEM_MAX = 232448       # shared memory one block may use on an H100
-
-
-def _row_stride(dp: int) -> int:
-    """Shared-memory row stride in floats (``row_stride`` in the .cu)."""
-    g = dp // 4
-    return 4 * (g + 1 + (g & 1))
+_TOO_WIDE = -1           # the C entry's status: D does not fit its tiles
 
 
 def _splits(nq: int, n: int, k: int, sms: int):
@@ -47,7 +44,9 @@ def _splits(nq: int, n: int, k: int, sms: int):
 
 def topk_similarity(queries, corpus, k: int):
     """Launch the CUDA kernel.  queries: (Q, D), corpus: (N, D), float32
-    or bfloat16 on one sm_90 device; 0 < k <= min(N, 32).  Returns
+    or bfloat16 on one sm_90 device; 0 < k <= min(N, 32); D at most 640
+    for a float32 corpus, 496 for bfloat16 (the kernel refuses a wider
+    one, and the wrapper raises ValueError).  Returns
     (scores float32 (Q, k), ids int32 (Q, k))."""
     build.check_device(queries)
     if queries.dim() != 2 or corpus.dim() != 2 or \
@@ -66,28 +65,30 @@ def topk_similarity(queries, corpus, k: int):
     if not 0 < k <= min(n, K_MAX):
         raise ValueError(f"topk_similarity: k={k} must lie in [1, "
                          f"min(N={n}, {K_MAX})]")
-    dp = -(-d // 4) * 4
-    if (_QB + _CT) * _row_stride(dp) * 4 > _SMEM_MAX:
-        raise ValueError(f"topk_similarity: D={d} does not fit the kernel's "
-                         f"shared-memory tiles")
-    qn = torch.nn.functional.normalize(queries.float(), dim=-1, eps=1e-9)
-    cn = torch.nn.functional.normalize(corpus.float(), dim=-1, eps=1e-9)
-    if dp != d:       # zero columns leave every dot product as it was
-        qn = torch.nn.functional.pad(qn, (0, dp - d))
-        cn = torch.nn.functional.pad(cn, (0, dp - d))
-    qn, cn = qn.contiguous(), cn.contiguous()
+    bf16 = corpus.dtype == torch.bfloat16
+    if corpus.stride(1) != 1 or corpus.stride(0) < d:
+        corpus = corpus.contiguous()      # the kernel reads rows in place
+    qf = queries.float().contiguous()     # the kernel normalises them
     dev = queries.device
     scores = torch.empty((nq, k), dtype=torch.float32, device=dev)
     ids = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return scores, ids
+    ldc, esz = corpus.stride(0), corpus.element_size()
+    vec = int((d * esz) % 16 == 0 and (ldc * esz) % 16 == 0
+              and corpus.data_ptr() % 16 == 0)
     splits, rows = _splits(nq, n, k, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     ps = torch.empty((splits, nq, k), dtype=torch.float32, device=dev)
     pi = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = build.entry("topk_similarity")(
-        qn.data_ptr(), cn.data_ptr(), ps.data_ptr(), pi.data_ptr(),
-        scores.data_ptr(), ids.data_ptr(), nq, n, dp, k, splits, rows, stream)
+        qf.data_ptr(), corpus.data_ptr(), ps.data_ptr(), pi.data_ptr(),
+        scores.data_ptr(), ids.data_ptr(), nq, n, d, ldc, k, splits, rows,
+        vec, int(bf16), stream)
+    if status == _TOO_WIDE:
+        raise ValueError(f"topk_similarity: D={d} does not fit the kernel's "
+                         f"shared-memory tiles (D <= 640 for a float32 "
+                         f"corpus, 496 for bfloat16)")
     build.check_status("topk_similarity", status)
     return scores, ids

@@ -148,12 +148,3 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_counts_nothing(rng):
     assert "isp_decode" in t_build.KERNELS
     with pytest.raises(ValueError):
         t_isp.decode_partial(q, k, k, kpos, torch.tensor(9))
-
-
-@pytest.mark.parametrize("group,dh,want", [
-    (8, 128, 8), (2, 240, 2), (16, 128, 8), (8, 240, 4), (3, 64, 1),
-    (1, 16, 1)])
-def test_heads_per_block_fit_the_lane_registers(group, dh, want):
-    """The kernel keeps GC heads x ceil-to-lane-width(dh / 32) values per
-    lane in registers: at most 32, and GC divides the GQA group."""
-    assert t_isp._heads_per_block(group, dh) == want
