@@ -12,7 +12,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 dh 240, window 1024, and its 262144 x 3840 vocabulary table
                 for isp_gather: 8 ids of a decode step and 8 x 1024 of a
                 prefill at offset 0, a four-shard layout with weights and
-                -1 pads, an n no block size divides at a D the vector width
+                -1 pads, one id, a D = 1048 whose 131 vectors no tile
+                divides, an n no block size divides at a D the vector width
                 does not divide), in bfloat16 and float32; paged decode's
                 split-K edges (slots that fill whole split spans, a window
                 edge inside a span), isp decode's (valid rows filling whole
@@ -25,7 +26,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 CUDA events (median of 25 runs, L2 flushed between runs, a
                 spin on the card before each so that the interval is device
                 time) beside its plain version, its bound and, where one
-                PyTorch call computes the same function, that call;
+                PyTorch call computes the same function, that call; the
+                gather, the pool and isp decode on the rings also after a
+                flush that leaves the L2 clean (ms_clean_l2), beside the
+                time of one empty launch and, for the prefill gather, one
+                contiguous copy of the same bytes;
   3. apps     — the paper's NLP-query path (benchmarks/apps.py's recommender
                 and sentiment batches, examples/isp_embedding_demo.py's
                 sharded pool) through ops.topk_similarity and
@@ -43,7 +48,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 -1 and 256 dropped) summing to the dense pool; each kernel
                 launched exactly once per call, held to its plain version,
                 timed beside it, its bound and the library call, with items
-                per second per batch;
+                per second per batch; one sentiment and one shard pool call
+                split by the profiler (one device operation each); off the
+                counted path, pools with shuffled segments, a shard no id
+                reaches and a call whose untouched segments lie in the
+                freed block of a full one (exactly 0);
   4. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
                 max_new=32 through ServeEngine(num_slots=8, max_len=1024,
@@ -89,9 +98,19 @@ count.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
+
+    python3 chip_smoke.py --times
+
+times only isp_gather and isp_gather_pool at their path shapes (and isp
+decode on the rings) under both flushes, after holding each to its plain
+version, and prints them as one JSON line.  The wrappers' contracts are
+those of every tree since the kernels were ported, so a copy of this
+script in another checkout times that tree's kernels: two trees can run
+in turns in one call.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -100,6 +119,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -167,6 +187,34 @@ def time_ms(fn, flush) -> float:
     return float(np.median(ts))
 
 
+def l2_flushes(dev):
+    """The two L2 flushes a timed run may follow: ``dirty`` writes a 256 MB
+    buffer (the flush every ``ms`` is taken after) and leaves the 50 MB L2
+    full of dirty lines, which a timed kernel may have to write back before
+    its own lines fit; ``clean`` writes the same and then reads a second
+    256 MB buffer, so that the L2 holds clean lines only (``ms_clean_l2``)."""
+    wbuf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rbuf = torch.zeros(64 * 2**20, dtype=torch.int32, device=dev)
+
+    def dirty():
+        wbuf.zero_()
+
+    def clean():
+        wbuf.zero_()
+        rbuf.sum()
+    return dirty, clean
+
+
+def launch_floor(flushes) -> tuple:
+    """The time of one empty launch under the timing harness, after each
+    flush: the yardstick of a call whose byte bound lies far below it."""
+    ms = tuple(time_ms(lambda: torch.cuda._sleep(0), f) for f in flushes)
+    log(f"[kernels] launch floor (one empty launch, torch.cuda._sleep(0)): "
+        f"{ms[0]:.4f} ms after the dirty flush, {ms[1]:.4f} ms after the "
+        f"clean one")
+    return ms
+
+
 def max_err(got, want, dtype) -> float:
     err = 0.0
     for a, b in zip(got, want):
@@ -229,6 +277,28 @@ def gather_cases(dev):
             assert torch.equal(got, want), "isp_gather fp32 weighted"
         else:
             assert bf16_ulps(got, want) <= 1, "isp_gather bf16 weighted"
+        # n = 1 (one row over a few blocks), with and without weights
+        idx = ids(1, off, off + v_loc)
+        assert torch.equal(ig.isp_gather(shard, idx, shard_offset=off),
+                           ig.isp_gather_ref(shard, idx, shard_offset=off))
+        w1 = torch.randn(1, generator=gen, device=dev)
+        got = ig.isp_gather(shard, idx, shard_offset=off, weights=w1)
+        want = ig.isp_gather_ref(shard, idx, shard_offset=off, weights=w1)
+        assert (torch.equal(got, want) if dtype == torch.float32
+                else bf16_ulps(got, want) <= 1), "isp_gather n=1"
+        # D = 1048: 131 16-byte vectors a row in bf16, 262 in fp32, which no
+        # tile of the plan divides, at the plan's 1, 2 and 4 vectors a
+        # thread (n = 1, 100, 8192), weighted and -1 pads
+        mid = torch.randn(4096, 1048, generator=gen, device=dev).to(dtype)
+        for n in (1, 100, 8192):
+            idx = ids(n, -1, 4200)
+            assert torch.equal(ig.isp_gather(mid, idx, shard_offset=100),
+                               ig.isp_gather_ref(mid, idx, shard_offset=100))
+            wn = torch.randn(n, generator=gen, device=dev)
+            got = ig.isp_gather(mid, idx, shard_offset=100, weights=wn)
+            want = ig.isp_gather_ref(mid, idx, shard_offset=100, weights=wn)
+            assert (torch.equal(got, want) if dtype == torch.float32
+                    else bf16_ulps(got, want) <= 1), f"isp_gather D=1048 {n}"
         # n = 1001 (no block of 8 ids divides it), D = 3841 (rows not
         # 16-byte aligned take the scalar path)
         odd = torch.randn(4096, 3841, generator=gen, device=dev).to(dtype)
@@ -237,11 +307,12 @@ def gather_cases(dev):
         assert torch.equal(got, ig.isp_gather_ref(odd, idx,
                                                   shard_offset=100))
         torch.cuda.synchronize()
+        exact = 'exact' if dtype == torch.float32 else '<= 1 bf16 ulp'
         log(f"[kernels] isp_gather {dtype}: exact at gemma3's table (8 and "
-            f"8192 ids), four-shard weighted "
-            f"{'exact' if dtype == torch.float32 else '<= 1 bf16 ulp'}, "
-            f"n=1001 D=3841 exact")
-        del table, shard, odd
+            f"8192 ids), four-shard weighted {exact}, n=1 exact and "
+            f"weighted {exact}, D=1048 at n=1, 100, 8192 exact and weighted "
+            f"{exact}, n=1001 D=3841 exact")
+        del table, shard, odd, mid
     return {n: (t, i, errs[torch.bfloat16, n], errs[torch.float32, n])
             for n, (t, i) in timed.items()}
 
@@ -438,14 +509,56 @@ def flash_edges(dev, gen):
             f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
 
 
+def gather_rows(dev, flushes):
+    """isp_gather at gemma3-12b's vocabulary table under the plan (offset
+    0: the whole table is this rank's shard on the one-rank mesh), held to
+    its plain version by gather_cases, then timed beside F.embedding under
+    both flushes."""
+    from repro_torch.kernels import isp_gather as ig
+    rows = []
+    for n, (table, idx, err, err32) in gather_cases(dev).items():
+        V, D = table.shape
+        idx64 = idx.long()
+        nbytes = 2 * n * D * 2 + 4 * n          # rows read + written, ids
+        bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+        kern = lambda: ig.isp_gather(table, idx)   # noqa: E731
+        lib = lambda: torch.nn.functional.embedding(idx64, table)  # noqa
+        rows.append(dict(
+            name="isp_gather", kernel="isp_gather", path="gemma3-12b plan",
+            route="cuda", source="src/repro_torch/kernels/csrc/isp_gather.cu",
+            replaces="src/repro/kernels/isp_gather.py:50",
+            dtype="bfloat16", shape=f"table ({V}, {D}) offset 0, {n} ids "
+            f"({'decode step' if n == 8 else 'prefill'})",
+            max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
+            ms=time_ms(kern, flushes[0]),
+            ms_clean_l2=time_ms(kern, flushes[1]),
+            plain_ms=time_ms(lambda: ig.isp_gather_ref(table, idx),
+                             flushes[0]),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(lib, flushes[0]),
+            library_ms_clean_l2=time_ms(lib, flushes[1])))
+        if n > 8:     # the same bytes as one contiguous device copy
+            src, dst = table[:n], torch.empty_like(table[:n])
+            copy = lambda: dst.copy_(src)   # noqa: E731
+            rows[-1].update(copy_ms=time_ms(copy, flushes[0]),
+                            copy_ms_clean_l2=time_ms(copy, flushes[1]))
+            log(f"[kernels] isp_gather prefill: the same bytes as one "
+                f"contiguous copy_ {rows[-1]['copy_ms']:.4f} ms, clean L2 "
+                f"{rows[-1]['copy_ms_clean_l2']:.4f} ms")
+            del src, dst
+        del table
+    return rows
+
+
 def kernel_phase(dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import isp_decode as isp
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ref
     gen = torch.Generator().manual_seed(SEED)
-    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    flush = lambda: flush_buf.zero_()
+    flushes = l2_flushes(dev)
+    flush = flushes[0]
+    launch_floor(flushes)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
 
@@ -531,6 +644,9 @@ def kernel_phase(dev):
             plain_ms=time_ms(lambda: isp.decode_partial_ref(
                 *args, window=window), flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        if layout == "ring":      # a bytes-bound row under the clean flush
+            rows[-1]["ms_clean_l2"] = time_ms(
+                lambda: isp.decode_partial(*args, window=window), flushes[1])
     isp_edges(dev, gen)
 
     # -- flash attention: yi-9b's prefill (dh 128, causal) and gemma3-12b's
@@ -579,28 +695,8 @@ def kernel_phase(dev):
                                                                      flush)))
     flash_edges(dev, gen)
 
-    # -- isp gather: gemma3-12b's vocabulary table under the plan (offset 0:
-    # the whole table is this rank's shard on the one-rank mesh)
-    from repro_torch.kernels import isp_gather as ig
-    for n, (table, idx, err, err32) in gather_cases(dev).items():
-        V, D = table.shape
-        idx64 = idx.long()
-        nbytes = 2 * n * D * 2 + 4 * n          # rows read + written, ids
-        bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
-        rows.append(dict(
-            name="isp_gather", kernel="isp_gather", path="gemma3-12b plan",
-            route="cuda", source="src/repro_torch/kernels/csrc/isp_gather.cu",
-            replaces="src/repro/kernels/isp_gather.py:50",
-            dtype="bfloat16", shape=f"table ({V}, {D}) offset 0, {n} ids "
-            f"({'decode step' if n == 8 else 'prefill'})",
-            max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
-            ms=time_ms(lambda: ig.isp_gather(table, idx), flush),
-            plain_ms=time_ms(lambda: ig.isp_gather_ref(table, idx), flush),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(lambda: torch.nn.functional.embedding(
-                idx64, table), flush)))
-        del table
-    del flush_buf
+    rows += gather_rows(dev, flushes)
+    del flushes
     for row in rows:
         row["kernel_ms"] = row["ms"]
         log(f"[kernels] {row['name']} ({row['path']}): kernel "
@@ -707,6 +803,204 @@ def check_pool(got, table, idx, seg, nseg, off=0, w=None, tag="") -> float:
     return float(diff.max())
 
 
+def apps_data(dev):
+    """The apps phase's inputs, drawn from one generator (seed SEED + 3) in
+    a fixed order: the recommender's corpus and queries, the exact-tie
+    case, the sentiment batch, the sharded pool.  The generator goes on to
+    draw the edge cases."""
+    rng = np.random.default_rng(SEED + 3)
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    a = SimpleNamespace(rng=rng, on=on)
+    # recommender: the 58,000 x 128 movie matrix, top 10, Q = 50 and 256
+    a.N, a.D, a.K = N, D, _ = 58_000, 128, 10
+    a.corpus = {torch.float32: on(rng.normal(size=(N, D)).astype(np.float32))}
+    a.corpus[torch.bfloat16] = a.corpus[torch.float32].to(torch.bfloat16)
+    a.queries = {q: on(rng.normal(size=(q, D)).astype(np.float32))
+                 for q in (50, 256)}
+    uniq = sign_rows(rng, 1000)
+    a.tie_c = on(np.concatenate([uniq, uniq[::-1], uniq, uniq[::-1]]))
+    a.tie_q = on(np.concatenate([sign_rows(rng, 25),
+                                 uniq[rng.choice(1000, 25, replace=False)]]))
+    # sentiment: 40,000 reviews of 12 ids over a 4096 x 64 table, 2 classes
+    a.R, a.L, a.V, a.E = R, L, V, E = 40_000, 12, 4096, 64
+    a.s_idx = on(rng.integers(0, V, (R * L,)).astype(np.int32))
+    a.s_seg = on(np.repeat(np.arange(R), L).astype(np.int32))
+    a.s_tab = {torch.float32: on(rng.normal(size=(V, E)).astype(np.float32))}
+    a.s_tab[torch.bfloat16] = a.s_tab[torch.float32].to(torch.bfloat16)
+    a.s_w = on(rng.normal(size=(R * L,)).astype(np.float32))
+    a.head = on(rng.normal(size=(E, 2)).astype(np.float32))
+    a.sent_cases = {"fp32": (torch.float32, None),
+                    "fp32 weighted": (torch.float32, a.s_w),
+                    "bf16": (torch.bfloat16, None),
+                    "bf16 weighted": (torch.bfloat16, a.s_w)}
+    # sharded pool: 65,536 x 512 in 16 shards of 4096 rows, 8192 ids in 256
+    # segments, with -1 ids and segment ids -1 and 256 that are dropped
+    a.SV, a.SD, a.TP, a.SN, a.NSEG = SV, SD, TP, SN, NSEG = \
+        65_536, 512, 16, 8192, 256
+    a.p_tab = on(rng.normal(size=(SV, SD)).astype(np.float32))
+    p_idx = rng.integers(0, SV, (SN,)).astype(np.int32)
+    p_seg = rng.integers(0, NSEG, (SN,)).astype(np.int32)
+    p_idx[::31], p_seg[1::29], p_seg[2::37] = -1, -1, NSEG
+    a.p_idx, a.p_seg = on(p_idx), on(p_seg)
+    a.vloc = vloc = SV // TP
+    a.shards = [a.p_tab[i * vloc:(i + 1) * vloc] for i in range(TP)]
+    return a
+
+
+def pool_breakdown(label, call, flush, reps=25, want_ops=None):
+    """Every device operation of one isp_gather_pool call by name and µs,
+    from torch.profiler over ``reps`` calls (L2 flushed before each; the
+    flush is left out).  With ``want_ops`` the call must make exactly that
+    many a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    flush()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+            torch.cuda.synchronize()
+            flush()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or "FillFunctor<unsigned char>" \
+                in e.name or e.name == "Command Buffer Full":
+            continue
+        t, k = ops.get(e.name, (0.0, 0))
+        ops[e.name] = (t + e.time_range.end - e.time_range.start, k + 1)
+    if not ops:
+        log(f"[apps] pool breakdown, {label}: not measured (the profiler "
+            f"recorded no device events)")
+        return None
+    n_ops = sum(k for _, k in ops.values()) / reps
+    log(f"[apps] pool breakdown, {label}: {n_ops:g} device operations a "
+        f"call: " + ", ".join(f"{name[:70]} {t / reps:.2f} us x{k // reps}"
+                              for name, (t, k) in ops.items()))
+    if want_ops is not None:
+        assert n_ops == want_ops, f"{label}: {n_ops} device operations a call"
+    return n_ops
+
+
+def pool_rows(a, errs, flushes, want_ops=None):
+    """isp_gather_pool at the apps' five path shapes (the sentiment batch
+    four ways, one shard of the sharded pool), timed under both flushes
+    beside its plain version, its bound and F.embedding_bag where one call
+    computes the same function; one sentiment fp32 call and one shard call
+    split by the profiler."""
+    from repro_torch.kernels import isp_gather as ig
+    emb_bag = torch.nn.functional.embedding_bag
+    R, L, E = a.R, a.L, a.E
+    s_ids = a.s_idx.long().view(R, L)
+    rows = []
+    for name, (dt, w) in a.sent_cases.items():
+        table = a.s_tab[dt]
+        nbytes = (8 * R * L + (0 if w is None else 4 * R * L)
+                  + int(torch.unique(a.s_idx).numel()) * E
+                  * table.element_size() + R * E * 4)
+        bound_ms, bound_by = bound(nbytes, 2 * R * L * E, torch.float32)
+        kern = lambda: ig.isp_gather_pool(   # noqa: E731
+            table, a.s_idx, a.s_seg, R, weights=w)
+        lib = lib_clean = None
+        if dt == torch.float32:
+            pw = None if w is None else w.view(R, L)
+            bag = lambda: emb_bag(s_ids, table, mode="sum",  # noqa: E731
+                                  per_sample_weights=pw)
+            lib, lib_clean = (time_ms(bag, f) for f in flushes)
+        rows.append(dict(
+            name="isp_gather_pool", kernel="isp_gather_pool", path="apps",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/isp_gather_pool.cu",
+            replaces="src/repro/kernels/isp_gather.py:124",
+            dtype=dname(dt),
+            shape=f"sentiment {name}: table ({a.V}, {E}), {R} x {L} ids",
+            max_abs_err=errs[name], ms=time_ms(kern, flushes[0]),
+            ms_clean_l2=time_ms(kern, flushes[1]),
+            plain_ms=time_ms(lambda: ig.isp_gather_pool_ref(
+                table, a.s_idx, a.s_seg, R, weights=w), flushes[0]),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
+            library_ms_clean_l2=lib_clean, bytes=nbytes))
+    # one shard of the sharded pool (shard 5: rows [20480, 24576))
+    sh, off = a.shards[5], 5 * a.vloc
+    inside = (a.p_idx >= off) & (a.p_idx < off + a.vloc)
+    nbytes = (8 * a.SN + int(torch.unique(a.p_idx[inside]).numel()) * a.SD * 4
+              + a.NSEG * a.SD * 4)
+    bound_ms, bound_by = bound(nbytes, 2 * int(inside.sum()) * a.SD,
+                               torch.float32)
+    kern = lambda: ig.isp_gather_pool(sh, a.p_idx, a.p_seg,  # noqa: E731
+                                      a.NSEG, shard_offset=off)
+    rows.append(dict(
+        name="isp_gather_pool", kernel="isp_gather_pool", path="apps",
+        route="cuda", source="src/repro_torch/kernels/csrc/isp_gather_pool.cu",
+        replaces="src/repro/kernels/isp_gather.py:124", dtype="float32",
+        shape=f"sharded pool: shard ({a.vloc}, {a.SD}) offset {off} of "
+        f"{a.TP}, {a.SN} ids ({int(inside.sum())} in the shard), {a.NSEG} "
+        f"segments",
+        max_abs_err=errs["sharded"], ms=time_ms(kern, flushes[0]),
+        ms_clean_l2=time_ms(kern, flushes[1]),
+        plain_ms=time_ms(lambda: ig.isp_gather_pool_ref(
+            sh, a.p_idx, a.p_seg, a.NSEG, shard_offset=off), flushes[0]),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes))
+    pool_breakdown("sentiment fp32", lambda: ig.isp_gather_pool(
+        a.s_tab[torch.float32], a.s_idx, a.s_seg, R), flushes[0],
+        want_ops=want_ops)
+    pool_breakdown("one shard", kern, flushes[0], want_ops=want_ops)
+    return rows
+
+
+def pool_edges(a):
+    """isp_gather_pool off the counted path: an odd D (scalar loads) in
+    bf16 with weights, an offset and segments -1 and 40, 41; the sentiment
+    batch with its segments shuffled, so that every review's ids lie in
+    many ranges; a shard that no id reaches (all zeros); and a call whose
+    ids reach 100 of 40,000 segments, right after a call of the same size
+    that leaves its non-zero output in the allocator's freed block: the
+    other 39,900 segments must read exactly 0."""
+    from repro_torch.kernels import isp_gather as ig
+    rng, on = a.rng, a.on
+    et = on(rng.normal(size=(300, 67)).astype(np.float32)).to(torch.bfloat16)
+    ei = on(rng.integers(-5, 420, (999,)).astype(np.int32))
+    es = on(rng.integers(-1, 42, (999,)).astype(np.int32))
+    ew = on(rng.normal(size=(999,)).astype(np.float32))
+    err = check_pool(ig.isp_gather_pool(et, ei, es, 40, shard_offset=100,
+                                        weights=ew), et, ei, es, 40, 100, ew,
+                     tag="edge pool")
+    log(f"[apps] edge pool: bf16 (300, 67) offset 100, 999 ids, weighted, "
+        f"segments -1..41 of 40: max abs err {err:.3g}")
+    R = a.R
+    shuffled = a.s_seg[torch.from_numpy(
+        rng.permutation(R * a.L)).to(a.s_seg.device)].contiguous()
+    for dt in (torch.float32, torch.bfloat16):
+        t = a.s_tab[dt]
+        err = check_pool(ig.isp_gather_pool(t, a.s_idx, shuffled, R,
+                                            weights=a.s_w), t, a.s_idx,
+                         shuffled, R, w=a.s_w, tag=f"unsorted {dname(dt)}")
+        log(f"[apps] edge pool: sentiment {dname(dt)} weighted with its "
+            f"segments shuffled across ranges: max abs err {err:.3g}")
+    far = ig.isp_gather_pool(a.shards[0], a.p_idx, a.p_seg, a.NSEG,
+                             shard_offset=a.SV)
+    assert far.shape == (a.NSEG, a.SD) and not bool(far.any()), \
+        "a shard no id reaches must pool to zeros"
+    t = a.s_tab[torch.float32]
+    few = (a.s_seg < 100).nonzero().flatten()
+    idx, seg = a.s_idx[few].contiguous(), a.s_seg[few].contiguous()
+    full = ig.isp_gather_pool(t, a.s_idx, a.s_seg, R)
+    torch.cuda.synchronize()
+    assert bool(full.any())
+    block = full.data_ptr()
+    del full
+    got = ig.isp_gather_pool(t, idx, seg, R)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == block, "the allocator did not reuse the block"
+    assert not bool(got[100:].any()), "untouched segments must read 0"
+    err = check_pool(got, t, idx, seg, R, tag="100 of 40000 segments")
+    log(f"[apps] edge pool: a shard no id reaches pools to exact zeros; "
+        f"ids in 100 of {R} segments, in the freed block of a full call: "
+        f"the other {R - 100} segments exactly 0, max abs err {err:.3g}")
+
+
 def apps_phase(dev):
     """The paper's NLP-query path (benchmarks/apps.py's two kernel apps and
     examples/isp_embedding_demo.py's pool) through ops.topk_similarity and
@@ -716,46 +1010,15 @@ def apps_phase(dev):
     from repro_torch.kernels import isp_gather as ig
     from repro_torch.kernels import ops
     from repro_torch.kernels import topk_similarity as tk
-    rng = np.random.default_rng(SEED + 3)
-    flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    flush = lambda: flush_buf.zero_()  # noqa: E731
-    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
-
-    # recommender: the 58,000 x 128 movie matrix, top 10, Q = 50 and 256
-    N, D, K = 58_000, 128, 10
-    corpus = {torch.float32: on(rng.normal(size=(N, D)).astype(np.float32))}
-    corpus[torch.bfloat16] = corpus[torch.float32].to(torch.bfloat16)
-    queries = {q: on(rng.normal(size=(q, D)).astype(np.float32))
-               for q in (50, 256)}
-    uniq = sign_rows(rng, 1000)
-    tie_c = on(np.concatenate([uniq, uniq[::-1], uniq, uniq[::-1]]))
-    tie_q = on(np.concatenate([sign_rows(rng, 25),
-                               uniq[rng.choice(1000, 25, replace=False)]]))
-    # sentiment: 40,000 reviews of 12 ids over a 4096 x 64 table, 2 classes
-    R, L, V, E = 40_000, 12, 4096, 64
-    s_idx = on(rng.integers(0, V, (R * L,)).astype(np.int32))
-    s_seg = on(np.repeat(np.arange(R), L).astype(np.int32))
-    s_tab = {torch.float32: on(rng.normal(size=(V, E)).astype(np.float32))}
-    s_tab[torch.bfloat16] = s_tab[torch.float32].to(torch.bfloat16)
-    s_w = on(rng.normal(size=(R * L,)).astype(np.float32))
-    head = on(rng.normal(size=(E, 2)).astype(np.float32))
-    sent_cases = {"fp32": (torch.float32, None),
-                  "fp32 weighted": (torch.float32, s_w),
-                  "bf16": (torch.bfloat16, None),
-                  "bf16 weighted": (torch.bfloat16, s_w)}
-    # sharded pool: 65,536 x 512 in 16 shards of 4096 rows, 8192 ids in 256
-    # segments, with -1 ids and segment ids -1 and 256 that are dropped
-    SV, SD, TP, SN, NSEG = 65_536, 512, 16, 8192, 256
-    p_tab = on(rng.normal(size=(SV, SD)).astype(np.float32))
-    p_idx = rng.integers(0, SV, (SN,)).astype(np.int32)
-    p_seg = rng.integers(0, NSEG, (SN,)).astype(np.int32)
-    p_idx[::31], p_seg[1::29], p_seg[2::37] = -1, -1, NSEG
-    p_idx, p_seg = on(p_idx), on(p_seg)
-    vloc = SV // TP
-    shards = [p_tab[i * vloc:(i + 1) * vloc] for i in range(TP)]
+    flushes = l2_flushes(dev)
+    flush = flushes[0]
+    a = apps_data(dev)
+    rng, on = a.rng, a.on
+    N, D, K, corpus, queries = a.N, a.D, a.K, a.corpus, a.queries
+    R, head = a.R, a.head
 
     def sentiment(dtype, w, pool=ops.isp_gather_pool):
-        pooled = pool(s_tab[dtype], s_idx, s_seg, R, weights=w)
+        pooled = pool(a.s_tab[dtype], a.s_idx, a.s_seg, R, weights=w)
         logits = pooled @ head
         return pooled, logits, logits.argmax(-1)
 
@@ -763,15 +1026,16 @@ def apps_phase(dev):
     ops.reset_launch_counts()
     rec = {(dt, q): ops.topk_similarity(queries[q], corpus[dt], K)
            for dt in corpus for q in queries}
-    tie = ops.topk_similarity(tie_q, tie_c, K)
-    sent = {name: sentiment(*case) for name, case in sent_cases.items()}
-    parts = [ops.isp_gather_pool(shards[i], p_idx, p_seg, NSEG,
-                                 shard_offset=i * vloc) for i in range(TP)]
+    tie = ops.topk_similarity(a.tie_q, a.tie_c, K)
+    sent = {name: sentiment(*case) for name, case in a.sent_cases.items()}
+    parts = [ops.isp_gather_pool(a.shards[i], a.p_idx, a.p_seg, a.NSEG,
+                                 shard_offset=i * a.vloc)
+             for i in range(a.TP)]
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     want = {n: 0 for n in launches}
     want.update(topk_similarity=len(rec) + 1,
-                isp_gather_pool=len(sent) + TP)
+                isp_gather_pool=len(sent) + a.TP)
     assert launches == want, (launches, want)
     log(f"[apps] launches {launches}")
 
@@ -779,16 +1043,16 @@ def apps_phase(dev):
     for (dt, q), got in rec.items():
         errs[dt, q] = check_topk(got, queries[q], corpus[dt], K,
                                  f"recommender Q={q} corpus {dname(dt)}")
-    ws, wi = tk.topk_similarity_ref(tie_q, tie_c, K)
+    ws, wi = tk.topk_similarity_ref(a.tie_q, a.tie_c, K)
     assert torch.equal(tie[1], wi) and torch.equal(tie[0], ws), \
         "exact ties: the kernel's ids differ from the plain version's"
     assert int((ws[:, 1:] == ws[:, :-1]).sum()) > 50, "too few ties"
     log(f"[apps] exact ties (50 x 4000 rows, each repeated 4 times): "
         f"identical scores and ids, lower id first")
-    for name, (dt, w) in sent_cases.items():
+    for name, (dt, w) in a.sent_cases.items():
         pooled, logits, preds = sent[name]
-        errs[name] = check_pool(pooled, s_tab[dt], s_idx, s_seg, R, w=w,
-                                tag=f"sentiment {name}")
+        errs[name] = check_pool(pooled, a.s_tab[dt], a.s_idx, a.s_seg, R,
+                                w=w, tag=f"sentiment {name}")
         w_pooled, w_logits, w_preds = sentiment(dt, w, ig.isp_gather_pool_ref)
         # a prediction may flip only where the plain path's two logits lie
         # closer than the pool's own error can move them
@@ -800,19 +1064,18 @@ def apps_phase(dev):
             f"{int(near.sum())} near-ties excused, positive share "
             f"{float(preds.float().mean()):.4f}")
     errs["sharded"] = max(
-        check_pool(parts[i], shards[i], p_idx, p_seg, NSEG, i * vloc,
-                   tag=f"shard {i}") for i in range(TP))
-    keep = (p_idx >= 0) & (p_seg >= 0) & (p_seg < NSEG)
-    dense = torch.zeros(NSEG, SD, device=dev).index_add_(
-        0, p_seg[keep].long(), p_tab[p_idx[keep].long()])
+        check_pool(parts[i], a.shards[i], a.p_idx, a.p_seg, a.NSEG,
+                   i * a.vloc, tag=f"shard {i}") for i in range(a.TP))
+    keep = (a.p_idx >= 0) & (a.p_seg >= 0) & (a.p_seg < a.NSEG)
+    dense = torch.zeros(a.NSEG, a.SD, device=dev).index_add_(
+        0, a.p_seg[keep].long(), a.p_tab[a.p_idx[keep].long()])
     torch.testing.assert_close(sum(parts), dense, atol=1e-4, rtol=0)
     log(f"[apps] sharded pool: 16 shards sum to the dense pool (atol 1e-4), "
         f"{int((~keep).sum())} dropped ids/segments; max abs err per shard "
         f"{errs['sharded']:.3g}")
     # edge shapes, off the counted path: D = 37 (rows not 16-byte aligned:
     # element loads, columns past D zero), two query blocks and k = 32, in
-    # fp32 and bf16; an odd D (scalar loads) in bf16 with weights, an
-    # offset and segments -1 and 40, 41
+    # fp32 and bf16
     eq = on(rng.normal(size=(70, 37)).astype(np.float32))
     ec = on(rng.normal(size=(1000, 37)).astype(np.float32))
     for c in (ec, ec.to(torch.bfloat16)):
@@ -834,18 +1097,9 @@ def apps_phase(dev):
             raise AssertionError(f"topk_similarity took D={dmax + 1} "
                                  f"({dname(dt)}) past its tiles")
     log("[apps] top-k D limit: 640 fp32 / 496 bf16 run, 641 / 497 raise")
-    et = on(rng.normal(size=(300, 67)).astype(np.float32)).to(torch.bfloat16)
-    ei = on(rng.integers(-5, 420, (999,)).astype(np.int32))
-    es = on(rng.integers(-1, 42, (999,)).astype(np.int32))
-    ew = on(rng.normal(size=(999,)).astype(np.float32))
-    err = check_pool(ig.isp_gather_pool(et, ei, es, 40, shard_offset=100,
-                                        weights=ew), et, ei, es, 40, 100, ew,
-                     tag="edge pool")
-    log(f"[apps] edge pool: bf16 (300, 67) offset 100, 999 ids, weighted, "
-        f"segments -1..41 of 40: max abs err {err:.3g}")
+    pool_edges(a)
 
     rows = []
-    emb_bag = torch.nn.functional.embedding_bag
     norm = torch.nn.functional.normalize
     for (dt, q) in rec:
         qs, c = queries[q], corpus[dt]
@@ -881,55 +1135,14 @@ def apps_phase(dev):
             items_per_s=q / ms * 1e3))
     for dt in corpus:
         topk_breakdown(queries[50], corpus[dt], K, flush)
-    s_ids = s_idx.long().view(R, L)
-    for name, (dt, w) in sent_cases.items():
-        table = s_tab[dt]
-        nbytes = (8 * R * L + (0 if w is None else 4 * R * L)
-                  + int(torch.unique(s_idx).numel()) * E * table.element_size()
-                  + R * E * 4)
-        bound_ms, bound_by = bound(nbytes, 2 * R * L * E, torch.float32)
-        lib = None
-        if dt == torch.float32:
-            pw = None if w is None else w.view(R, L)
-            lib = time_ms(lambda: emb_bag(s_ids, table, mode="sum",
-                                          per_sample_weights=pw), flush)
-        ms = time_ms(lambda: ig.isp_gather_pool(table, s_idx, s_seg, R,
-                                                weights=w), flush)
+    p_rows = pool_rows(a, errs, flushes, want_ops=1)
+    for row, (name, (dt, w)) in zip(p_rows, a.sent_cases.items()):
         batch_ms = time_ms(lambda: sentiment(dt, w), flush)
         log(f"[apps] sentiment {name}: batch (pool + head + argmax) "
             f"{batch_ms:.4f} ms, {R / batch_ms * 1e3:.4g} reviews/s")
-        rows.append(dict(
-            name="isp_gather_pool", kernel="isp_gather_pool", path="apps",
-            route="cuda",
-            source="src/repro_torch/kernels/csrc/isp_gather_pool.cu",
-            replaces="src/repro/kernels/isp_gather.py:124",
-            dtype=dname(dt),
-            shape=f"sentiment {name}: table ({V}, {E}), {R} x {L} ids",
-            max_abs_err=errs[name], ms=ms,
-            plain_ms=time_ms(lambda: ig.isp_gather_pool_ref(
-                table, s_idx, s_seg, R, weights=w), flush),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib,
-            bytes=nbytes, batch_ms=batch_ms, items_per_s=R / batch_ms * 1e3))
-    # one shard of the sharded pool (shard 5: rows [20480, 24576))
-    sh, off = shards[5], 5 * vloc
-    inside = (p_idx >= off) & (p_idx < off + vloc)
-    nbytes = (8 * SN + int(torch.unique(p_idx[inside]).numel()) * SD * 4
-              + NSEG * SD * 4)
-    bound_ms, bound_by = bound(nbytes, 2 * int(inside.sum()) * SD,
-                               torch.float32)
-    ms = time_ms(lambda: ig.isp_gather_pool(sh, p_idx, p_seg, NSEG,
-                                            shard_offset=off), flush)
-    rows.append(dict(
-        name="isp_gather_pool", kernel="isp_gather_pool", path="apps",
-        route="cuda", source="src/repro_torch/kernels/csrc/isp_gather_pool.cu",
-        replaces="src/repro/kernels/isp_gather.py:124", dtype="float32",
-        shape=f"sharded pool: shard ({vloc}, {SD}) offset {off} of {TP}, "
-        f"{SN} ids ({int(inside.sum())} in the shard), {NSEG} segments",
-        max_abs_err=errs["sharded"], ms=ms,
-        plain_ms=time_ms(lambda: ig.isp_gather_pool_ref(
-            sh, p_idx, p_seg, NSEG, shard_offset=off), flush),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None, bytes=nbytes))
-    del flush_buf
+        row.update(batch_ms=batch_ms, items_per_s=R / batch_ms * 1e3)
+    rows += p_rows
+    del flushes, flush
     for row in rows:
         row["kernel_ms"] = row["ms"]
         log(f"[kernels] {row['name']} ({row['shape']}): kernel "
@@ -942,7 +1155,10 @@ def apps_phase(dev):
                f"{row['bound_route_ms']:.4f} ms, CUDA-core bound "
                f"{row['bound_cuda_core_ms']:.4f} ms, "
                f"{row['items_per_s']:.4g} queries/s"
-               if row["kernel"] == "topk_similarity" else ""))
+               if row["kernel"] == "topk_similarity" else "")
+            + (f", clean L2: kernel {row['ms_clean_l2']:.4f} ms, library "
+               f"{row.get('library_ms_clean_l2')}" if "ms_clean_l2" in row
+               else ""))
     return rows, launches
 
 
@@ -1278,6 +1494,66 @@ def plan_phase(cfg, params, dev):
     return l_p
 
 
+def times_phase(dev) -> dict:
+    """The timing of the two gather kernels alone, for comparing trees in
+    turns (``--times``): the launch floor; isp_gather at the decode step
+    and the prefill beside F.embedding; isp_gather_pool at its five path
+    shapes beside F.embedding_bag, and the profiler split of one sentiment
+    fp32 and one shard call; isp decode on gemma3-12b's rings as a
+    bytes-bound row of a kernel this comparison leaves alone.  Each under
+    both flushes; every kernel is held to its plain version first."""
+    from repro_torch.kernels import isp_decode as isp
+    from repro_torch.kernels import isp_gather as ig
+    flushes = l2_flushes(dev)
+    floor = launch_floor(flushes)
+    rows = gather_rows(dev, flushes)
+    args, window, _ = strip_case("ring", torch.bfloat16, dev,
+                                 torch.Generator().manual_seed(SEED))
+    max_err(isp.decode_partial(*args, window=window),
+            isp.decode_partial_ref(*args, window=window), torch.bfloat16)
+    ring = [time_ms(lambda: isp.decode_partial(*args, window=window), f)
+            for f in flushes]
+    a = apps_data(dev)
+    errs = {}
+    for name, (dt, w) in a.sent_cases.items():
+        t = a.s_tab[dt]
+        errs[name] = check_pool(ig.isp_gather_pool(t, a.s_idx, a.s_seg, a.R,
+                                                   weights=w),
+                                t, a.s_idx, a.s_seg, a.R, w=w, tag=name)
+    off = 5 * a.vloc
+    errs["sharded"] = check_pool(
+        ig.isp_gather_pool(a.shards[5], a.p_idx, a.p_seg, a.NSEG,
+                           shard_offset=off),
+        a.shards[5], a.p_idx, a.p_seg, a.NSEG, off, tag="shard 5")
+    rows += pool_rows(a, errs, flushes)
+    # the pool with no ids: what a call costs before its first id (the
+    # launch, the zero-fill and, in a cooperative launch, the grid sync)
+    calls = (lambda: ig.isp_gather_pool(a.s_tab[torch.float32], a.s_idx[:0],
+                                        a.s_seg[:0], a.R),
+             lambda: ig.isp_gather_pool(a.shards[5], a.p_idx[:0],
+                                        a.p_seg[:0], a.NSEG,
+                                        shard_offset=off))
+    empty = [time_ms(call, flushes[0]) for call in calls]
+    log(f"[times] isp_gather_pool with no ids: {empty[0]:.4f} ms at the "
+        f"sentiment output ({a.R}, {a.E}), {empty[1]:.4f} ms at a shard's "
+        f"({a.NSEG}, {a.SD})")
+    out = {"launch_floor_ms": floor, "isp_decode_rings_ms": ring,
+           "pool_no_ids_ms": empty,
+           "rows": [{k: r.get(k) for k in (
+               "name", "shape", "ms", "ms_clean_l2", "library_ms",
+               "library_ms_clean_l2", "plain_ms", "bound_ms", "copy_ms",
+               "copy_ms_clean_l2")}
+               for r in rows]}
+    for r in out["rows"]:
+        log(f"[times] {r['name']} ({r['shape']}): kernel {r['ms']:.4f} ms, "
+            f"clean L2 {r['ms_clean_l2']:.4f} ms; library "
+            f"{r['library_ms']} / {r['library_ms_clean_l2']}; bound "
+            f"{r['bound_ms']:.4f} ms")
+    log(f"[times] isp decode rings: {ring[0]:.4f} ms, clean L2 "
+        f"{ring[1]:.4f} ms")
+    return out
+
+
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and print
     ptxas's register and spill lines for every instantiation."""
@@ -1298,6 +1574,12 @@ def build_kernels() -> None:
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--times", action="store_true", help=(
+        "only time isp_gather and isp_gather_pool at their path shapes "
+        "under both L2 flushes (and isp decode on the rings), and print "
+        "them as one JSON line; for running two trees' kernels in turns"))
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
               file=sys.stderr)
@@ -1314,6 +1596,12 @@ def main() -> int:
     log(smi)
     log(f"[device] {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
+    if args.times:
+        from repro_torch.kernels import build
+        secs = build.build(["isp_gather", "isp_gather_pool", "isp_decode"])
+        log(f"[device] kernel build {secs:.2f} s")
+        log(json.dumps({"times": times_phase(dev), "device": smi}))
+        return 0
     build_kernels()
 
     rows = kernel_phase(dev)

@@ -44,9 +44,9 @@ KERNELS = {
                    [_P] * 11 + [_I] * 5 + [_L] * 6 + [_I] * 6
                    + [_F, _I, _P]),
     "isp_gather": ("isp_gather.cu", "repro_isp_gather",
-                   [_P] * 4 + [_L, _L, _I, _L, _I, _P]),
+                   [_P] * 4 + [_L, _L, _I, _L] + [_I] * 5 + [_P]),
     "isp_gather_pool": ("isp_gather_pool.cu", "repro_isp_gather_pool",
-                        [_P] * 5 + [_L, _L, _I, _L, _I, _I, _P]),
+                        [_P] * 5 + [_L, _L, _I, _L] + [_I] * 5 + [_P]),
     "topk_similarity": ("topk_similarity.cu", "repro_topk_similarity",
                         [_P] * 6 + [_I] * 9 + [_P]),
 }

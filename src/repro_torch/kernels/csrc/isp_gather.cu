@@ -10,20 +10,29 @@
 // the -1 pads); with weights the row is multiplied by w_i in fp32 and
 // rounded once to the table's dtype, as the Pallas kernel does.
 //
-// What bounds it on an H100: bytes.  The function reads each in-range row
-// once and writes every output row: n_in * D * b + n * D * b + 4n bytes
-// (+ 4n for weights), with no arithmetic worth counting.
+// What bounds it on an H100: bytes at a prefill (8192 rows of 7,680 bytes
+// read and written), the latency of one round trip to device memory at a
+// decode step (8 rows, 61 KB).  The function reads each in-range row once
+// and writes every output row: n_in * D * b + n * D * b + 4n bytes (+ 4n
+// for weights), with no arithmetic worth counting.
 //
 // Design:
 //   * no panel: a (V_loc, 512) slice of the table does not fit in shared
 //     memory and is not needed — a gather reads each wanted row once from
 //     device memory;
-//   * one warp per index; the block loads its ids and the shard offset
-//     itself (plain kernel arguments, no scalar prefetch);
-//   * in-range rows are copied with 16-byte vector loads and stores (8 bf16
-//     or 4 fp32 per lane per step) when the source and destination rows are
-//     16-byte aligned, with a scalar tail for the rest of the row; rows that
-//     are not aligned (a D the vector width does not divide) go scalar;
+//   * a row is cut into units — 16-byte vectors (8 bf16 or 4 fp32) where
+//     the table, the output and D allow it, single elements otherwise (the
+//     scalar path, e.g. D = 3841) — and a work item is one (row, tile of
+//     THREADS * U units); thread t of a tile takes units t, t + THREADS,
+//     ..., so neighbouring threads touch neighbouring addresses;
+//   * a thread issues all U loads of its item before any store and holds
+//     them in registers, so a call's loads go out together in one round
+//     trip: at a decode step U = 1 spreads 8 rows over 32 blocks on as many
+//     SMs (the first design ran them on one block, four round trips one
+//     after another); at a prefill U = 4 keeps 64 bytes a thread in flight;
+//   * blocks walk the items grid-stride, at most GATHER_BLOCKS_PER_SM
+//     blocks on each SM (the plan is `isp_gather.gather_plan`: shapes and
+//     the SM count only);
 //   * an out-of-range id stores zeros without loading anything;
 //   * row offsets are 64-bit: gemma3-12b's 262,144 x 3,840 bf16 table is
 //     2.01 GB, past 2^31 bytes.
@@ -34,7 +43,8 @@
 
 namespace {
 
-constexpr int NW = 8;  // warps (= ids) per block
+constexpr int THREADS = 128;   // threads per block (GATHER_THREADS)
+constexpr int MIN_BLOCKS = 8;  // resident blocks an SM (GATHER_BLOCKS_PER_SM)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -49,98 +59,142 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// scale the elements packed in one 16-byte vector, rounding each once
-__device__ __forceinline__ uint4 scale_vec(uint4 v, float w, float*) {
-  float4 f = *reinterpret_cast<float4*>(&v);
-  f.x *= w;
-  f.y *= w;
-  f.z *= w;
-  f.w *= w;
-  return *reinterpret_cast<uint4*>(&f);
-}
-__device__ __forceinline__ uint4 scale_vec(uint4 v, float w, __nv_bfloat16*) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float2 f = __bfloat1622float2(h[j]);
-    h[j] = __floats2bfloat162_rn(f.x * w, f.y * w);
+// one unit: a 16-byte vector of T, or one T (the scalar path)
+template <typename T, bool VEC>
+struct Unit {
+  using type = T;
+  static __device__ __forceinline__ T load(const T* p) { return *p; }
+  static __device__ __forceinline__ T zero() { return from_f<T>(0.f); }
+  static __device__ __forceinline__ T scale(T x, float w) {
+    return from_f<T>(to_f(x) * w);
   }
-  return v;
-}
+};
+template <typename T>
+struct Unit<T, true> {
+  using type = uint4;
+  static __device__ __forceinline__ uint4 load(const uint4* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ uint4 zero() {
+    return make_uint4(0, 0, 0, 0);
+  }
+  // scale the elements packed in one vector, rounding each once
+  static __device__ __forceinline__ uint4 scale(uint4 v, float w) {
+    if constexpr (sizeof(T) == 4) {
+      float4 f = *reinterpret_cast<float4*>(&v);
+      f.x *= w;
+      f.y *= w;
+      f.z *= w;
+      f.w *= w;
+      return *reinterpret_cast<uint4*>(&f);
+    } else {
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 f = __bfloat1622float2(h[j]);
+        h[j] = __floats2bfloat162_rn(f.x * w, f.y * w);
+      }
+      return v;
+    }
+  }
+};
 
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-template <typename T, bool WEIGHTED>
-__global__ void __launch_bounds__(NW * 32) isp_gather_kernel(
+template <typename T, bool VEC, int U, bool WEIGHTED>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) isp_gather_kernel(
     const T* __restrict__ table,      // (V_loc, D)
     const int32_t* __restrict__ ids,  // (n,) global ids
     const float* __restrict__ w,      // (n,) or null
     T* __restrict__ out,              // (n, D)
-    long long n, long long v_loc, int d, long long off) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int lane = threadIdx.x & 31;
-  const long long i = (long long)blockIdx.x * NW + (threadIdx.x >> 5);
-  if (i >= n) return;
-  const long long row = (long long)ids[i] - off;
-  T* dst = out + i * (long long)d;
-  if (row < 0 || row >= v_loc) {
-    const int nv = aligned16(dst) ? d / VEC : 0;
-    uint4* dv = reinterpret_cast<uint4*>(dst);
-    for (int j = lane; j < nv; j += 32) dv[j] = make_uint4(0, 0, 0, 0);
-    for (int e = nv * VEC + lane; e < d; e += 32) dst[e] = from_f<T>(0.f);
-    return;
+    long long n, long long v_loc, int d, long long off, int tiles) {
+  using Un = Unit<T, VEC>;
+  using V = typename Un::type;
+  constexpr int PER = sizeof(V) / sizeof(T);  // elements a unit
+  const int units = d / PER;
+  const long long items = n * tiles;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const long long i = it / tiles;
+    const int base = (int)(it % tiles) * (THREADS * U) + threadIdx.x;
+    const long long row = (long long)__ldg(ids + i) - off;
+    V* dst = reinterpret_cast<V*>(out + i * (long long)d);
+    if (row < 0 || row >= v_loc) {
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+        const int j = base + k * THREADS;
+        if (j < units) dst[j] = Un::zero();
+      }
+      continue;
+    }
+    const V* src = reinterpret_cast<const V*>(table + row * (long long)d);
+    const float scale = WEIGHTED ? __ldg(w + i) : 1.f;
+    V v[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int j = base + k * THREADS;
+      if (j < units) v[k] = Un::load(src + j);
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int j = base + k * THREADS;
+      if (j < units) dst[j] = WEIGHTED ? Un::scale(v[k], scale) : v[k];
+    }
   }
-  const T* src = table + row * (long long)d;
-  const float scale = WEIGHTED ? w[i] : 1.f;
-  const int nv = (aligned16(src) && aligned16(dst)) ? d / VEC : 0;
-  const uint4* sv = reinterpret_cast<const uint4*>(src);
-  uint4* dv = reinterpret_cast<uint4*>(dst);
-#pragma unroll 4
-  for (int j = lane; j < nv; j += 32) {
-    uint4 v = __ldg(sv + j);
-    if (WEIGHTED) v = scale_vec(v, scale, (T*)nullptr);
-    dv[j] = v;
-  }
-  for (int e = nv * VEC + lane; e < d; e += 32) {
-    const T x = src[e];
-    dst[e] = WEIGHTED ? from_f<T>(to_f(x) * scale) : x;
-  }
+}
+
+template <typename T, bool VEC, int U>
+void launch_u(const void* table, const void* ids, const void* w, void* out,
+              long long n, long long v_loc, int d, long long off, int tiles,
+              int grid, cudaStream_t s) {
+  if (w != nullptr)
+    isp_gather_kernel<T, VEC, U, true><<<grid, THREADS, 0, s>>>(
+        (const T*)table, (const int32_t*)ids, (const float*)w, (T*)out, n,
+        v_loc, d, off, tiles);
+  else
+    isp_gather_kernel<T, VEC, U, false><<<grid, THREADS, 0, s>>>(
+        (const T*)table, (const int32_t*)ids, nullptr, (T*)out, n, v_loc, d,
+        off, tiles);
 }
 
 template <typename T>
 cudaError_t launch(const void* table, const void* ids, const void* w,
                    void* out, long long n, long long v_loc, int d,
-                   long long off, cudaStream_t s) {
-  const dim3 grid((unsigned)((n + NW - 1) / NW));
-  const dim3 block(NW * 32);
-  if (w != nullptr)
-    isp_gather_kernel<T, true><<<grid, block, 0, s>>>(
-        (const T*)table, (const int32_t*)ids, (const float*)w, (T*)out, n,
-        v_loc, d, off);
-  else
-    isp_gather_kernel<T, false><<<grid, block, 0, s>>>(
-        (const T*)table, (const int32_t*)ids, nullptr, (T*)out, n, v_loc, d,
-        off);
-  return cudaGetLastError();
+                   long long off, int vec, int u, int tiles, int grid,
+                   cudaStream_t s) {
+  const int per = vec ? 16 / (int)sizeof(T) : 1;
+  if (vec && (d % per || (uintptr_t)table % 16 || (uintptr_t)out % 16))
+    return cudaErrorInvalidValue;
+  // the tiles must reach the end of a row
+  if ((long long)tiles * THREADS * u < d / per) return cudaErrorInvalidValue;
+#define GATHER_CASE(V, UU)                                                 \
+  if (vec == V && u == UU) {                                               \
+    launch_u<T, V, UU>(table, ids, w, out, n, v_loc, d, off, tiles, grid, \
+                       s);                                                 \
+    return cudaGetLastError();                                             \
+  }
+  GATHER_CASE(1, 1) GATHER_CASE(1, 2) GATHER_CASE(1, 4)
+  GATHER_CASE(0, 1) GATHER_CASE(0, 2) GATHER_CASE(0, 4)
+#undef GATHER_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  weights may be null.  Returns the
-// cudaError_t of the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16.  weights may be null.  vec: 16-byte
+// units (1) or elements (0); u: units a thread per item (1, 2 or 4);
+// tiles: items a row; grid: blocks.  Returns the cudaError_t of the launch
+// (0 = success).
 extern "C" int repro_isp_gather(const void* table, const void* ids,
                                 const void* weights, void* out, long long n,
                                 long long v_loc, int d, long long off,
+                                int vec, int u, int tiles, int grid,
                                 int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n <= 0 || d <= 0 || (n + NW - 1) / NW > 0x7fffffffLL)
+  if (n <= 0 || d <= 0 || tiles <= 0 || grid <= 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch<float>(table, ids, weights, out, n, v_loc, d, off, s);
+    return (int)launch<float>(table, ids, weights, out, n, v_loc, d, off,
+                              vec, u, tiles, grid, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(table, ids, weights, out, n, v_loc, d,
-                                      off, s);
+                                      off, vec, u, tiles, grid, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -106,3 +106,36 @@ def test_ops_takes_the_plain_version_on_cpu(rng):
     assert "isp_gather" in t_build.KERNELS
     with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
         t_ig.isp_gather(table, ids)
+
+
+@pytest.mark.parametrize("n,d,itemsize,vec,num_sms", [
+    (8, 3840, 2, True, 132),      # gemma3-12b decode step: 8 rows spread
+    (8192, 3840, 2, True, 132),   # gemma3-12b prefill: 4 units a thread
+    (1, 3840, 2, True, 132),
+    (100, 1048, 2, True, 132),    # 131 units a row: no tile divides it
+    (1001, 3841, 2, False, 132),  # unaligned rows: the scalar path
+    (37, 72, 4, True, 4),
+])
+def test_gather_plan_covers_every_unit_once(n, d, itemsize, vec, num_sms):
+    """The kernel's grid-stride walk over (row, tile) items, emulated:
+    every 16-byte vector (or element, on the scalar path) of every row is
+    written by exactly one thread; every SM gets an item unless a thread
+    already takes a single unit; the grid stays within
+    GATHER_BLOCKS_PER_SM blocks an SM."""
+    plan = t_ig.gather_plan(n, d, itemsize, vec, num_sms)
+    assert plan.per * plan.units == d
+    assert n * plan.tiles >= num_sms or plan.u == 1
+    assert plan.grid <= t_ig.GATHER_BLOCKS_PER_SM * num_sms
+    threads = t_ig.GATHER_THREADS
+    hits = np.zeros((n, plan.units), np.int64)
+    items = n * plan.tiles
+    lanes = np.arange(threads)
+    for b in range(plan.grid):
+        it = np.arange(b, items, plan.grid)
+        base = (it % plan.tiles) * threads * plan.u
+        for k in range(plan.u):
+            j = base[:, None] + lanes[None, :] + k * threads
+            rows = np.broadcast_to((it // plan.tiles)[:, None], j.shape)
+            keep = j < plan.units
+            np.add.at(hits, (rows[keep], j[keep]), 1)
+    assert (hits == 1).all()
