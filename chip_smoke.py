@@ -63,11 +63,37 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   5. consistency — the same requests with k_block=1 give identical tokens;
      then two engine ticks under torch.profiler (CUDA activity) show where
      the device time goes and how much of a decode step the card sits idle;
-  6. strip    — yi-9b at 8 layers in float32 on kv_layout="strip" against
+  6. chunked  — the same yi-9b and requests with chunk_prefill=256 at chunk
+                budgets 1 and 2: all ok, a balanced free list, the kernels
+                on every layer of every one-shot prefill call and step, the
+                chunk calls (the plain masked attention) counted from the
+                telemetry hub, prefill ms a call and a chunk, TTFT; the
+                one-shot tokens (a flip only below BF16_FLIP_MARGIN); one
+                chunk call profiled;
+  7. cluster  — four drives (ClusterEngine, 8 slots each, 256-row chunks)
+                over the one yi-9b: 32 requests (prompts 16..700, max_new
+                32) served serially give one engine's tokens with balanced
+                free lists, a merged ledger equal to the drives' plus the
+                spill ledger, and peak memory under the weights plus four
+                pools plus CLUSTER_MEM_MARGIN; data_local over 4 shards with
+                drive 1 crashed at tick 3 (16 requests of 16 tokens):
+                conservation and the fault-free tokens; 8 requests of 8
+                tokens serially and on worker threads (dispatch timeout and
+                watchdog sized from the serial run's longest tick): the same
+                tokens, no SUSPECT drive, workers joined, with the host cost
+                of one small CUDA op from one and from four threads; then
+                32 requests of open-loop bursty traffic at 1.2x the serial
+                run's service rate, FIFO and EDF: TTFT, TPOT, SLO
+                attainment, conservation.  Requests/s and the Table I
+                energy per query of the paper's server model are printed;
+  8. strip    — yi-9b at 8 layers in float32 on kv_layout="strip" against
                 "paged", on the same 16 requests: the isp-decode kernel on
                 every layer of every strip step, and the same tokens (a
                 flip passes only at a printed top-2 logit margin < 1e-3);
-  7. gemma3   — full-width, full-depth gemma3-12b in bfloat16 (40 window
+                then chunk_prefill=128 on the paged layout, cold and
+                prewarmed: the same tokens, and the prewarmed engine books
+                its first launches before the first request;
+  9. gemma3   — full-width, full-depth gemma3-12b in bfloat16 (40 window
                 layers on per-slot rings, 8 global layers on the paged
                 pool): 16 requests with prompt lengths in 16..1500, two of
                 them 1000-token prompts with max_new=64 so their rings wrap
@@ -78,7 +104,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 and the paged-decode kernel on the 8 global layers of every
                 step; k_block=1 gives identical tokens; one decode tick is
                 profiled;
-  8. plan     — the same gemma3-12b (before it is freed) through a sharding
+  10. plan    — the same gemma3-12b (before it is freed) through a sharding
                 plan on the one-rank (1, 1) ("data", "model") mesh (NCCL,
                 make_plan's FSDP heuristic on): prefill_fn with the recipe
                 on 8 prompts of 1024 random tokens, then 32 uniform decode_fn
@@ -115,8 +141,10 @@ import dataclasses
 import gc
 import json
 import re
+import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -151,6 +179,14 @@ TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
 # see check_pool (fp32 atomics sum in an order that changes from run to
 # run).
 TOPK_ATOL = 1e-5
+# chunked against one-shot prefill in bf16: the one-shot path runs the
+# flash kernel (bf16 probabilities into the value product), the chunked
+# path the fp32 plain masked attention, each rounding to bf16 into a
+# residual stream of 48 layers.  One bf16 rounding of a unit-scale value
+# is up to 2**-8; 48 layers of independent roundings walk sqrt(48) ~ 7
+# times that, ~0.03 on a logit of this unit-scale random model, so a token
+# may flip only where the two best logits lie closer than 4x that.
+BF16_FLIP_MARGIN = 0.125
 
 
 def log(*a):
@@ -1163,16 +1199,19 @@ def apps_phase(dev):
 
 
 def serve(cfg, params, requests, k_block, dev, max_len=1024,
-          kv_layout="paged"):
-    """Serve ``requests`` through a fresh engine with the launch counters
-    set to 0 just before and read just after."""
+          kv_layout="paged", engine=None, **engine_kw):
+    """Serve ``requests`` through a fresh engine (or ``engine``, built with
+    a telemetry hub) with the launch counters set to 0 just before and
+    read just after."""
     from repro_torch.core.telemetry import TelemetryHub
     from repro_torch.kernels import ops
     from repro_torch.train.serve_loop import ServeEngine
-    hub = TelemetryHub()
-    eng = ServeEngine(cfg, params, num_slots=8, max_len=max_len,
-                      page_size=16, k_block=k_block, kv_layout=kv_layout,
-                      telemetry=hub, device=dev)
+    eng = engine
+    if eng is None:
+        eng = ServeEngine(cfg, params, num_slots=8, max_len=max_len,
+                          page_size=16, k_block=k_block, kv_layout=kv_layout,
+                          telemetry=TelemetryHub(), device=dev, **engine_kw)
+    hub = eng.tele
     for prompt, max_new in requests:
         eng.submit(prompt, max_new=max_new)
     torch.cuda.synchronize()
@@ -1184,24 +1223,56 @@ def serve(cfg, params, requests, k_block, dev, max_len=1024,
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     assert hub.events_dropped == 0
-    prefill_calls = sum(1 for e in hub.events()
-                        if e["ev"] == "phase" and e["name"] == "prefill")
-    return eng, results, wall, launches, prefill_calls
+    return eng, results, wall, launches, len(phases(hub, "prefill"))
 
 
-def profile_window(eng, label, step_ms=None):
-    """One engine tick under torch.profiler: the union of the tick's
-    device kernel intervals against its wall time, and the kernels that
-    took the most device time.  The profiler slows the host, so the idle
-    share inside the window is an upper bound; with ``step_ms`` (a decode
-    step's unprofiled host-clock time) the kernel time per step is also
-    set against it."""
+def phases(hub, name) -> list:
+    """The hub's phases named ``name`` (on every track)."""
+    return [e for e in hub.events()
+            if e["ev"] == "phase" and e["name"] == name]
+
+
+def warm_ms(events) -> float:
+    """Mean serving ms of the phases that booked serving time (a site's
+    first call is booked as compile and records 0)."""
+    d = [e["dur"] for e in events if e["dur"] > 0]
+    return sum(d) / max(len(d), 1) * 1e3
+
+
+def check_flips(tag, requests, got, want, params, cfg, dev, margin_max):
+    """Token lists ``got`` against ``want``: at the first token where they
+    part, the top-2 logit margin of the one-shot prefill must lie below
+    ``margin_max``.  Returns the number of requests that parted."""
+    flips = 0
+    for (prompt, _), a, b in zip(requests, got, want):
+        if a == b:
+            continue
+        t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        margin = top2_margin(params, cfg, prompt + b[:t], dev)
+        log(f"[{tag}] token flip at step {t}: {a[t:t + 1]} vs {b[t:t + 1]}, "
+            f"top-2 logit margin {margin:.3g}")
+        assert margin < margin_max, f"{tag}: tokens part at a clear margin"
+        flips += 1
+    log(f"[{tag}] identical tokens on {len(got) - flips}/{len(got)} requests "
+        f"({flips} flips at near-ties, margin < {margin_max:g})")
+    return flips
+
+
+def profile_window(eng, label, step_ms=None, fn=None):
+    """One engine tick (or ``fn()``) under torch.profiler: the union of the
+    window's device kernel intervals against its wall time, and the
+    kernels that took the most device time.  The profiler slows the host,
+    so the idle share inside the window is an upper bound; with ``step_ms``
+    (a decode step's unprofiled host-clock time) the kernel time per step
+    is also set against it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
+        with torch.no_grad():
+            (fn or eng.step)()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -1216,7 +1287,7 @@ def profile_window(eng, label, step_ms=None):
         if s1 > end:
             busy_us += s1 - max(s0, end)
             end = s1
-    steps = eng.last_tick.steps
+    steps = 0 if fn else eng.last_tick.steps
     log(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms (profiled), "
         f"device kernels {busy_us / 1e3:.2f} ms, idle share in window "
         f"{1 - busy_us / wall_us:.1%}, decode steps {steps}")
@@ -1325,21 +1396,61 @@ def strip_phase(dev, requests):
             f"{wall:.2f} s wall; launches {launches}")
         out[layout] = ([r.tokens for r in results], launches)
         del eng
-    flips = 0
-    for (prompt, _), a, b in zip(requests, out["strip"][0], out["paged"][0]):
-        if a == b:
-            continue
-        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-        margin = top2_margin(params, cfg, prompt + b[:t], dev)
-        log(f"[strip] token flip at step {t}: strip {a[t]} vs paged {b[t]}, "
-            f"top-2 logit margin {margin:.3g}")
-        assert margin < 1e-3, "strip and paged disagree at a clear margin"
-        flips += 1
-    log(f"[strip] strip and paged give identical tokens on "
-        f"{16 - flips}/16 requests ({flips} flips at near-ties)")
+    check_flips("strip", requests, out["strip"][0], out["paged"][0], params,
+                cfg, dev, 1e-3)
+    chunk_fp32_phase(cfg, params, dev, requests, out["paged"][0])
     del params
     free_device()
     return out["strip"][1]
+
+
+def chunk_fp32_phase(cfg, params, dev, requests, want):
+    """The 8-layer float32 yi-9b with chunked prefill (128-row chunks, up
+    to 6 a prompt) against its one-shot paged tokens ``want``, cold and
+    prewarmed: the same tokens (a flip only at a top-2 margin < 1e-3),
+    the flash kernel on every layer of every one-shot prefill call, the
+    paged-decode kernel on every layer of every step, the chunk calls
+    (the plain masked attention, no kernel) counted from the hub; the
+    prewarmed engine books its first launches before the first request and
+    none in any tick."""
+    from repro_torch.core.telemetry import TelemetryHub
+    from repro_torch.train.serve_loop import ServeEngine
+    C, L = 128, cfg.num_layers
+    n_chunks = sum(-(-len(p) // C) for p, _ in requests if len(p) > C)
+    n_oneshot = sum(len(p) <= C for p, _ in requests)
+    for prewarm in (False, True):
+        tag = "chunk fp32" + (" prewarm" if prewarm else "")
+        eng = ServeEngine(cfg, params, num_slots=8, max_len=1024,
+                          page_size=16, k_block=8, chunk_prefill=C,
+                          prewarm=prewarm, telemetry=TelemetryHub(),
+                          device=dev)
+        compile0 = eng.stats.compile_s
+        if prewarm:
+            assert compile0 > 0 and eng._warm_keys == {
+                ("prefill",), ("decode_block",), ("chunk",)}, eng._warm_keys
+        eng, results, wall, launches, prefill_calls = serve(
+            cfg, params, requests, 8, dev, engine=eng)
+        steps = eng.stats.decode_steps
+        chunks = phases(eng.tele, "prefill_chunk")
+        assert all(r.status == "ok" for r in results) and len(results) == 16
+        eng.pager.check_balanced()
+        assert len(chunks) == n_chunks > 0, (len(chunks), n_chunks)
+        assert (0 < prefill_calls <= n_oneshot) == (n_oneshot > 0), \
+            (prefill_calls, n_oneshot)
+        assert launches["flash_attention"] == L * prefill_calls, launches
+        assert launches["paged_decode"] == L * steps > 0, (launches, steps)
+        if prewarm:
+            assert eng.stats.compile_s == compile0, \
+                "a tick of the prewarmed engine booked compile time"
+        log(f"[{tag}] {prefill_calls} one-shot prefill calls, "
+            f"{len(chunks)} chunk calls ({warm_ms(chunks):.2f} ms a chunk), "
+            f"{steps} decode steps, compile {eng.stats.compile_s:.2f} s "
+            f"(before the first request: {compile0:.2f} s); launches "
+            f"{launches}")
+        check_flips(tag, requests, [r.tokens for r in results], want,
+                    params, cfg, dev, 1e-3)
+        del eng
+        free_device()
 
 
 def gemma_phase(dev):
@@ -1554,6 +1665,333 @@ def times_phase(dev) -> dict:
     return out
 
 
+def chunk_bf16_phase(cfg, params, dev, requests, want):
+    """Full yi-9b in bf16 serving the serve phase's 16 requests with
+    256-row chunks at chunk budgets 1 and 2: every request ok, a balanced
+    free list, the kernels on every layer of every one-shot prefill call
+    and decode step, and the one-shot run's tokens ``want`` (a flip only
+    below BF16_FLIP_MARGIN)."""
+    C, L = 256, cfg.num_layers
+    n_chunks = sum(-(-len(p) // C) for p, _ in requests if len(p) > C)
+    for budget in (1, 2):
+        tag = f"chunk bf16 budget {budget}"
+        eng, results, wall, launches, prefill_calls = serve(
+            cfg, params, requests, 8, dev, chunk_prefill=C,
+            chunk_budget=budget)
+        st, lat = eng.stats, eng.stats.latency
+        assert len(results) == 16 and all(r.status == "ok" for r in results)
+        eng.pager.check_balanced()
+        chunks = phases(eng.tele, "prefill_chunk")
+        assert len(chunks) == n_chunks > 0, (len(chunks), n_chunks)
+        assert launches["flash_attention"] == L * prefill_calls > 0, launches
+        assert launches["paged_decode"] == L * st.decode_steps > 0, launches
+        log(f"[{tag}] {prefill_calls} one-shot prefill calls "
+            f"({warm_ms(phases(eng.tele, 'prefill')):.1f} ms a warm call), "
+            f"{len(chunks)} chunks ({warm_ms(chunks):.1f} ms a warm chunk), "
+            f"decode {st.decode_s * 1e3 / st.decode_steps:.2f} ms per step "
+            f"({st.decode_steps} steps); TTFT p50 {lat.p50_ttft_s * 1e3:.1f}"
+            f" ms, p99 {lat.p99_ttft_s * 1e3:.1f} ms; {wall:.2f} s wall; "
+            f"launches {launches}")
+        check_flips(tag, requests, [r.tokens for r in results], want,
+                    params, cfg, dev, BF16_FLIP_MARGIN)
+        del eng
+        free_device()
+    # where a chunk's time goes: one 256-row chunk call alone, warm
+    from repro_torch.train.serve_loop import ServeEngine
+    eng = ServeEngine(cfg, params, num_slots=8, max_len=1024, page_size=16,
+                      k_block=8, chunk_prefill=C, device=dev)
+    for prompt, _ in requests[:8]:
+        eng.submit(prompt, max_new=32)
+    eng.step()
+    profile_window(eng, "one 256-row chunk", fn=eng._chunk_prefill_tick)
+    del eng
+    free_device()
+
+
+# the cluster's drives: the serve engine's settings, 256-row chunks
+CLUSTER_KW = dict(n_drives=4, num_slots=8, max_len=1024, page_size=16,
+                  k_block=8, chunk_prefill=256)
+# headroom over the weights and the four pools for one prefill bucket's
+# activations (8 x 256 rows), one chunk's scores (256 x 32 x 1024 fp32)
+# and the allocator's rounding
+CLUSTER_MEM_MARGIN = 2 * 2**30
+
+
+def drive_cluster(cfg, params, dev, requests, shards=None, replay=None,
+                  **kw):
+    """Serve ``requests`` (or replay the open-loop trace ``replay``) on a
+    fresh cluster over the one ``params``, the launch counters set to 0
+    just before and read just after, every tick timed.  Checks the
+    kernels' launches, conservation, the drives' free lists and the merged
+    ledger.  Returns a namespace of the run."""
+    from repro_torch.core.telemetry import TelemetryHub
+    from repro_torch.data.workload import replay_open_loop
+    from repro_torch.kernels import ops
+    from repro_torch.train.cluster_loop import ClusterEngine
+    hub = TelemetryHub()
+    clu = ClusterEngine(cfg, params, telemetry=hub, device=dev,
+                        **{**CLUSTER_KW, **kw})
+    assert all(d.engine.params is params for d in clu.drives)
+    for i, (prompt, max_new) in enumerate(requests):
+        clu.submit(prompt, max_new=max_new,
+                   shard_id=None if shards is None else i % shards)
+    run = SimpleNamespace(clu=clu, hub=hub, longest_tick=0.0,
+                          submitted=len(requests))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if replay is not None:
+        report = replay_open_loop(clu, replay)
+        run.submitted = report.submitted
+    else:
+        for _ in range(100_000):
+            if not (clu.queue or any(d.has_work for d in clu.drives)):
+                break
+            t = time.perf_counter()
+            clu.step()
+            run.longest_tick = max(run.longest_tick, time.perf_counter() - t)
+    run.results = clu.run_until_complete()
+    torch.cuda.synchronize()
+    run.wall = time.perf_counter() - t0
+    run.launches = ops.launch_counts()
+    clu.close()
+    assert hub.events_dropped == 0
+    run.suspect = [e["attrs"] for e in hub.events()
+                   if e["name"] == "health_transition"
+                   and e["attrs"]["new"] == "suspect"]
+    L = cfg.num_layers
+    run.prefill_calls = len(phases(hub, "prefill"))
+    run.chunks = len(phases(hub, "prefill_chunk"))
+    run.steps = sum(d.engine.stats.decode_steps for d in clu.drives)
+    assert run.launches["flash_attention"] == L * run.prefill_calls > 0, \
+        (run.launches, run.prefill_calls)
+    assert run.launches["paged_decode"] == L * run.steps > 0, \
+        (run.launches, run.steps)
+    statuses = [r.status for r in run.results]
+    assert run.submitted == len(statuses) == sum(
+        statuses.count(x) for x in ("ok", "shed", "failed")), statuses
+    for d in clu.drives:
+        assert d.engine.pager.num_in_use == 0
+        d.engine.pager.check_balanced()
+    merged, drives = clu.stats.ledger, [x.ledger for x in clu.stats.drives]
+    for tier in ("link_bytes", "kv_bytes"):
+        parts = sum(getattr(x, tier) for x in drives) + \
+            getattr(clu.stats.spill_ledger, tier)
+        assert math.isclose(getattr(merged, tier), parts, rel_tol=1e-12), \
+            (tier, getattr(merged, tier), parts)
+    return run
+
+
+def cluster_log(tag, run):
+    st, lat = run.clu.stats, run.clu.stats.latency
+    log(f"[{tag}] {st.completed} ok / {st.shed_requests} shed / "
+        f"{st.failed_requests} failed of {run.submitted}; "
+        f"{run.prefill_calls} one-shot prefill calls, {run.chunks} chunks, "
+        f"{run.steps} decode steps on {len(run.clu.drives)} drives; "
+        f"{run.wall:.2f} s wall in-process ({st.completed / run.wall:.3f} "
+        f"requests/s), {st.cluster_s:.2f} s on the cluster clock "
+        f"({st.throughput_qps:.3f} requests/s, {st.tokens_per_s:.1f} tok/s); "
+        f"TTFT p50 {lat.p50_ttft_s * 1e3:.1f} ms, p99 "
+        f"{lat.p99_ttft_s * 1e3:.1f} ms; longest tick "
+        f"{run.longest_tick:.3f} s; launches {run.launches}")
+    log(f"[{tag}] Table I energy per query of the paper's 36-drive server "
+        f"model (core/energy.py, not the card's power): "
+        f"{st.energy_per_query_mj:.1f} mJ at {st.mean_active:.2f} mean "
+        f"active drives")
+    for line in run.clu.summary().splitlines():
+        log(f"[{tag}] {line}")
+
+
+def tpot_p(lat, q) -> float:
+    from repro_torch.core.latency import percentile
+    return percentile([r.tpot_s for r in lat.completed
+                       if math.isfinite(r.tpot_s)], q)
+
+
+def gil_probe(dev, n_ops=20_000):
+    """Host cost of one small CUDA op launched by one thread alone and by
+    four threads at once (each launching ``n_ops``): what the drive
+    workers pay per op when they share the interpreter."""
+    x = [torch.zeros(8, device=dev) for _ in range(4)]
+
+    def launch(t):
+        for _ in range(n_ops):
+            t.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launch(x[0])
+    torch.cuda.synchronize()
+    one = (time.perf_counter() - t0) / n_ops
+    threads = [threading.Thread(target=launch, args=(t,)) for t in x]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    four = (time.perf_counter() - t0) / (4 * n_ops)
+    assert all(float(t[0]) == n_ops * (1 + (i == 0)) for i, t in enumerate(x))
+    log(f"[gil] one small CUDA op: {one * 1e6:.2f} us from one thread, "
+        f"{four * 1e6:.2f} us a op with four threads launching at once "
+        f"({four / one:.2f}x)")
+
+
+def cluster_phase(cfg, params, dev):
+    """yi-9b bf16 served by a 4-drive cluster over the one model: serial,
+    then data_local over 4 shards with a tick-based crash of drive 1, then
+    on worker threads, then open-loop bursty traffic FIFO and EDF."""
+    from repro_torch.core.faults import (DEAD, HEALTHY, FailureDetector,
+                                         FaultSchedule)
+    from repro_torch.core.runtime import HeartbeatWatchdog
+    from repro_torch.data.workload import (PriorityClass, WorkloadConfig,
+                                           generate_trace)
+    rng = np.random.default_rng(SEED + 2)
+    requests = [(rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(16, 701))).tolist(), 32)
+                for _ in range(32)]
+    log(f"[cluster] prompt lengths {[len(p) for p, _ in requests]}")
+    kw = CLUSTER_KW        # serve()'s engine has 8 slots of 16-row pages
+    eng, results, wall, launches, prefill_calls = serve(
+        cfg, params, requests, kw["k_block"], dev, max_len=kw["max_len"],
+        chunk_prefill=kw["chunk_prefill"])
+    want = [r.tokens for r in results]
+    assert all(r.status == "ok" for r in results)
+    log(f"[cluster] one engine: {len(results)} ok in {wall:.2f} s wall, "
+        f"{eng.stats.decode_steps} decode steps")
+    del eng
+    free_device()
+
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_cluster(cfg, params, dev, requests, routing="least_loaded")
+    peak = torch.cuda.max_memory_allocated()
+    pools = [sum(c[leaf].numel() * c[leaf].element_size()
+                 for c in d.engine.caches.values() for leaf in ("kp", "vp"))
+             for d in run.clu.drives]
+    bound = weights + sum(pools) + CLUSTER_MEM_MARGIN
+    cluster_log("cluster serial", run)
+    assert [r.tokens for r in run.results] == want, \
+        "the cluster's tokens differ from one engine's"
+    assert not run.suspect, run.suspect
+    log(f"[cluster serial] tokens identical to one engine on 32/32 "
+        f"requests; free lists balance on all 4 drives; merged ledger = "
+        f"the drives' ledgers + the spill ledger")
+    log(f"[cluster serial] peak memory {peak / 1e9:.3f} GB <= weights "
+        f"{weights / 1e9:.3f} GB + 4 pools of {pools[0] / 1e6:.1f} MB + "
+        f"margin {CLUSTER_MEM_MARGIN / 1e9:.3f} GB = {bound / 1e9:.3f} GB "
+        f"(one copy of the weights for all drives)")
+    assert peak <= bound, (peak, bound)
+    per_req_s = run.clu.stats.cluster_s / run.clu.stats.completed
+    longest = run.longest_tick
+    del run
+    free_device()
+
+    # the crash run and the worker-thread runs serve a prefix of the
+    # requests with fewer tokens each, to fit the run's time limit; greedy
+    # decode makes their tokens prefixes of the fault-free run's
+    sub = [(p, 16) for p, _ in requests[:16]]
+    crash = drive_cluster(
+        cfg, params, dev, sub, shards=4, routing="data_local",
+        faults=FaultSchedule.from_spec(
+            [{"drive_id": 1, "kind": "crash", "at_tick": 3}]),
+        detector=FailureDetector(4, suspect_ticks=2, dead_ticks=4,
+                                 suspect_after_s=math.inf))
+    cst = crash.clu.stats
+    cluster_log("cluster crash", crash)
+    assert cst.health[1] == DEAD and cst.auto_failed_drives == 1, cst.health
+    ok = [(r.rid, r.tokens) for r in crash.results if r.status == "ok"]
+    assert ok and all(t == want[rid][:16] for rid, t in ok), \
+        "an ok result of the crash run differs from the fault-free tokens"
+    log(f"[cluster crash] data_local over 4 shards, 16 requests of 16 "
+        f"tokens, drive 1 crashed at tick 3: health {cst.health}, "
+        f"{cst.retries} retries, {len(ok)}/16 ok token-identical to the "
+        f"fault-free run; spill ledger {cst.spill_bytes / 1e6:.3f} MB "
+        f"({cst.remote_requests} remote requests, {cst.migrated_shards} "
+        f"shards migrated; {dict(cst.spill_ledger.notes)})")
+    del crash
+    free_device()
+
+    # the drives share the card and its default stream: a concurrent join
+    # waits for all four drives' kernels, so the timeouts are sized from
+    # the serial run's longest tick (all four drives stepped one after the
+    # other), with room to spare
+    timeout = max(10.0, 4.0 * longest)
+    sub = [(p, 8) for p, _ in requests[:8]]
+    walls = {}
+    for concurrent in (False, True):
+        tag = "cluster " + ("concurrent" if concurrent else "serial 8x8")
+        kw = dict(concurrent=True, dispatch_timeout_s=timeout,
+                  watchdog=HeartbeatWatchdog(
+                      4, suspect_after_s=3.0 * timeout, suspect_misses=3,
+                      dead_after_s=10.0 * timeout, dead_misses=10)) \
+            if concurrent else {}
+        run = drive_cluster(cfg, params, dev, sub, routing="least_loaded",
+                            **kw)
+        cluster_log(tag, run)
+        assert [r.tokens for r in run.results] == [t[:8] for t in want[:8]],\
+            f"{tag}: the tokens differ from one engine's"
+        assert not run.suspect and run.clu.stats.health == [HEALTHY] * 4, \
+            (run.suspect, run.clu.stats.health)
+        walls[concurrent] = run.wall
+        if concurrent:
+            assert not [t for t in threading.enumerate()
+                        if t.name.startswith("drive-worker-")], "workers"
+            log(f"[{tag}] 8 requests of 8 tokens; dispatch timeout "
+                f"{timeout:.2f} s, watchdog suspect after {3 * timeout:.1f} "
+                f"s / dead after {10 * timeout:.1f} s; tokens identical to "
+                f"one engine, no drive SUSPECT, workers joined; measured wall"
+                f" {run.clu.stats.cluster_s:.2f} s vs virtual-clock "
+                f"prediction {run.clu.predicted_parallel_s:.2f} s, "
+                f"{walls[True] / walls[False]:.2f}x the serial run's wall "
+                f"(four drives on one card and its default stream: a "
+                f"drive's measured step includes the kernels the others "
+                f"queued)")
+        del run
+        free_device()
+    gil_probe(dev)
+
+    classes = (
+        PriorityClass("interactive", priority=0, weight=0.7,
+                      slo_s=6.0 * per_req_s, prompt_range=(16, 128),
+                      max_new_range=(8, 32)),
+        PriorityClass("batch", priority=1, weight=0.3,
+                      slo_s=30.0 * per_req_s, prompt_range=(256, 700),
+                      max_new_range=(16, 32)))
+    trace = generate_trace(WorkloadConfig(
+        n_requests=32, vocab_size=cfg.vocab_size, arrival="bursty",
+        rate=1.2 / per_req_s, burst_factor=4.0, duty=0.25,
+        period_s=8.0 * per_req_s, classes=classes, seed=SEED))
+    log(f"[open-loop] {per_req_s * 1e3:.1f} ms a request (the serial "
+        f"cluster's clock / requests); bursty at {1.2 / per_req_s:.3f} "
+        f"requests/s, SLO {6 * per_req_s:.2f} s interactive / "
+        f"{30 * per_req_s:.2f} s batch")
+    served = {}
+    for order, shed in (("fifo", False), ("edf", True)):
+        ol = drive_cluster(cfg, params, dev, [], replay=trace,
+                           routing="least_loaded", admission_order=order,
+                           shed_expired=shed)
+        lat = ol.clu.stats.latency
+        m = lat.metrics(wall_s=ol.clu.clock)
+        log(f"[open-loop {order}] {m['count']} ok / {m['shed']} shed / "
+            f"{m['failed']} failed of {ol.submitted}; TTFT p50 "
+            f"{m['p50_ttft_s'] * 1e3:.1f} ms, p99 {m['p99_ttft_s'] * 1e3:.1f}"
+            f" ms; TPOT p50 {tpot_p(lat, 50) * 1e3:.2f} ms, p99 "
+            f"{tpot_p(lat, 99) * 1e3:.2f} ms; SLO attainment "
+            f"{m['slo_attainment']:.1%} ({m['slo_met']} met); goodput "
+            f"{m['goodput_qps']:.3f} requests/s on the cluster clock; "
+            f"launches {ol.launches}")
+        assert ol.submitted == 32 and (shed or m["shed"] == 0)
+        served[order] = {r.rid: r.tokens for r in ol.results
+                         if r.status == "ok"}
+        del ol
+        free_device()
+    both = served["fifo"].keys() & served["edf"].keys()
+    assert all(served["fifo"][r] == served["edf"][r] for r in both)
+    log(f"[open-loop] FIFO and EDF agree token for token on the {len(both)} "
+        f"requests both served")
+
+
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and print
     ptxas's register and spill lines for every instantiation."""
@@ -1604,10 +2042,14 @@ def main() -> int:
         return 0
     build_kernels()
 
+    def lap(phase):
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     rows = kernel_phase(dev)
     app_rows, app_launches = apps_phase(dev)
     rows += app_rows
     free_device()
+    lap("kernels and apps")
 
     # -- serve -------------------------------------------------------------
     cfg = get_config("yi-9b")
@@ -1660,11 +2102,22 @@ def main() -> int:
     profile_window(eng, "decode block tick",
                    step_ms=st.decode_s * 1e3 / st.decode_steps)
     eng.run_until_complete()
-    del eng, eng1, params
+    del eng, eng1
     free_device()
+    lap("serve and consistency")
+
+    # -- chunked prefill in bf16, then the cluster tier ------------------------
+    chunk_bf16_phase(cfg, params, dev, requests,
+                     [r.tokens for r in results])
+    lap("chunked bf16")
+    cluster_phase(cfg, params, dev)
+    del params
+    free_device()
+    lap("cluster")
 
     # -- strip layout, then gemma3-12b -----------------------------------------
     path_launches["yi-9b strip"] = strip_phase(dev, requests)
+    lap("strip and chunked fp32")
     (path_launches["gemma3-12b serve"],
      path_launches["gemma3-12b plan"]) = gemma_phase(dev)
     for row in rows:

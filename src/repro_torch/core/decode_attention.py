@@ -1,6 +1,7 @@
 """Decode attention (port of ``repro/core/decode_attention.py``): over a
-dense KV strip with explicit key positions (``decode_attention``) and over
-a paged KV pool (``paged_decode_attention``).
+dense KV strip with explicit key positions (``decode_attention``), over
+a paged KV pool (``paged_decode_attention``), and a prefill chunk over a
+paged KV pool (``chunk_prefill_attention``).
 
 ISP decode under a sequence-sharded plan: each rank holds its own
 contiguous block of the strip's rows, and the per-step query goes to where
@@ -17,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import sharding as sh
+from repro_torch.core.kv_pages import pages_to_strips
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 
@@ -73,3 +75,16 @@ def paged_decode_attention(q, kpool, vpool, pages, cur_pos, *,
                                           window=window, scale=scale)
     return ref.combine_partials(acc[None], l[None], m[None],
                                 axis=0).to(q.dtype)
+
+
+def chunk_prefill_attention(q, kpool, vpool, pages, qpos, *,
+                            scale: Optional[float] = None):
+    """Chunked-prefill attention over a paged KV pool.
+
+    q: (B, C, H, dh) chunk queries; kpool/vpool: (P(+scratch), page_size,
+    Hkv, dh); pages: (B, maxp) int32 page tables; qpos: (B, C) int32 query
+    positions (-1 = pad row).  The chunk's rows are already scattered into
+    the pool, so the slot's pages gathered into the strip view hold prefix
+    + chunk in one span, masked causally per row."""
+    k, v, kpos = pages_to_strips((kpool, vpool), pages, kpool.shape[1])
+    return kops.chunk_prefill_attention(q, k, v, kpos, qpos, scale=scale)

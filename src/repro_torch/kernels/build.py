@@ -13,7 +13,9 @@ Nothing here runs at import time: the CPU tests import every module, and
 a machine without the CUDA toolkit has no ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches per kernel name; a wrapper adds one
-right after its kernel launched, and nowhere else.
+right after its kernel launched, and nowhere else.  The cluster's drive
+workers launch from several threads, so the counts and the loading of the
+libraries go under one lock (``LOCK``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -54,11 +57,18 @@ KERNELS = {
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 BUILD_LOGS: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+LOCK = threading.RLock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    with LOCK:
+        return dict(LAUNCHES)
 
 
 def _nvcc() -> str:
@@ -85,7 +95,11 @@ def _target(name: str) -> Path:
 def build(names: Optional[List[str]] = None) -> float:
     """Compile every listed kernel whose library is missing, all in
     parallel; returns the wall seconds spent.  Raises on a failed build."""
-    names = list(KERNELS) if names is None else names
+    with LOCK:
+        return _build(list(KERNELS) if names is None else names)
+
+
+def _build(names: List[str]) -> float:
     todo = [n for n in names if not _target(n).exists()]
     if not todo:
         return 0.0
@@ -113,15 +127,20 @@ def build(names: Optional[List[str]] = None) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if missing."""
+    """The loaded library of kernel ``name``, built and loaded once a
+    process (under ``LOCK``, so that threads never load it twice)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        fn = getattr(lib, KERNELS[name][1])
-        fn.argtypes = KERNELS[name][2]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            fn = getattr(lib, KERNELS[name][1])
+            fn.argtypes = KERNELS[name][2]
+            fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
 
 
@@ -145,4 +164,5 @@ def check_device(t) -> None:
 def check_status(name: str, status: int) -> None:
     if status != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {status}")
-    LAUNCHES[name] += 1
+    with LOCK:
+        LAUNCHES[name] += 1

@@ -5,6 +5,9 @@
     sm_90; there is no fallback to the plain version on a GPU;
   * a CPU tensor takes the plain PyTorch version (``ref.py``).
 
+``chunk_prefill_attention`` is the one op with no kernel: the reference
+has none either, and every device takes its plain version.
+
 Launches are counted per kernel in ``build.LAUNCHES`` (see
 ``launch_counts`` / ``reset_launch_counts``).
 """
@@ -69,6 +72,17 @@ def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
                               scale=scale)
 
 
+def chunk_prefill_attention(q, k, v, kpos, qpos, *,
+                            scale: Optional[float] = None):
+    """Chunked-prefill attention: chunk queries at explicit positions over
+    a cached span.  q: (B,C,H,dh); k/v: (B,S,Hkv,dh[v]); kpos: (B,S) (-1 =
+    empty row); qpos: (B,C) (-1 = pad row).  As in the reference, which
+    has no Pallas kernel for it, every device takes the plain version (one
+    chunk runs per engine tick: admission work, not the per-token loop),
+    and no launch is counted."""
+    return ref.chunk_attention_masked(q, k, v, kpos, qpos, scale=scale)
+
+
 def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
     """Masked shard-local row gather: ``table[id - shard_offset]`` for ids in
     this shard's rows, zeros elsewhere.  table (V_loc, D); indices (...)
@@ -105,7 +119,7 @@ def topk_similarity(queries, corpus, k: int):
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return dict(build.LAUNCHES)
+    return build.launch_counts()
 
 
 def reset_launch_counts() -> None:

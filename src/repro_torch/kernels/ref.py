@@ -164,6 +164,37 @@ def decode_partial_masked(q, k, v, kpos, cur_pos, *,
     return acc.reshape(B, H, dhv), l.reshape(B, H), m.reshape(B, H)
 
 
+def chunk_attention_masked(q, k, v, kpos, qpos, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Prefill-continuation attention: a chunk of queries at explicit
+    positions against a cached span with explicit key positions.
+
+    q: (B, C, H, dh); k/v: (B, S, Hkv, dh[v]); kpos: (B, S) int32 global
+    position of each cache row (-1 = empty); qpos: (B, C) int32 query
+    positions (-1 = pad row).  Key j is visible to query i iff
+    ``kpos[j] >= 0 and kpos[j] <= qpos[i]``: the chunk's own rows are in
+    the cache already, so this is causal attention over prefix + chunk.
+    Returns (B, C, H, dhv) in q's dtype (pad rows are finite garbage).
+    """
+    B, C, H, dh = q.shape
+    Hkv, dhv = v.shape[2], v.shape[3]
+    g = H // Hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qg = q.reshape(B, C, Hkv, g, dh).float()
+    s = torch.einsum("bchgd,bkhd->bchgk", qg, k.float()) * scale
+    valid = (kpos[:, None, :] >= 0) & (qpos[:, :, None] >= 0) \
+        & (kpos[:, None, :] <= qpos[:, :, None])
+    valid = valid[:, :, None, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(valid, p, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bchgk,bkhd->bchgd", p, v.float())
+    out = out / torch.where(l == 0, torch.ones_like(l), l)
+    return out.reshape(B, C, H, dhv).to(q.dtype)
+
+
 def merge_partials(acc, l, m, axis: int = 0):
     """Merge flash-decoding partials along ``axis`` into one unnormalised
     ``(acc, l, m)``: m = max m_i, l = sum l_i e^(m_i - m), acc = sum

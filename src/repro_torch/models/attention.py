@@ -1,7 +1,7 @@
 """GQA attention, full and sliding-window (port of the prefill and decode
 branches of ``repro/models/attention.py::gqa_apply``).
 
-Two entry modes:
+Three entry modes:
   prefill  — full-sequence causal attention (flash kernel), emits the
              sequence's K/V: the whole sequence for a full-attention layer,
              the last ``window`` rows as a ring (slot = pos % window) for a
@@ -10,7 +10,12 @@ Two entry modes:
              attended: against a paged pool (paged-decode kernel) or a
              dense strip with explicit key positions ``kpos`` (isp-decode
              kernel), either per slot (kpos (B, S), the serve engine) or
-             shared (kpos (S,), uniform-position decode).
+             shared (kpos (S,), uniform-position decode);
+  chunk    — one chunk of a chunked prefill at explicit (B, C) positions
+             (-1 = pad row): its rows are scattered into the slot's pages
+             first, then each row attends to the cached prefix and the
+             chunk's own causal prefix (the plain masked chunk attention,
+             which the reference also runs on every backend).
 
 The window and the RoPE base follow the layer's kind: ``"local"`` layers
 use ``cfg.attn.window`` and ``rope_base_local``, full layers no window and
@@ -33,9 +38,10 @@ from torch import nn
 
 from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
-from repro_torch.core.decode_attention import (decode_attention,
+from repro_torch.core.decode_attention import (chunk_prefill_attention,
+                                               decode_attention,
                                                paged_decode_attention)
-from repro_torch.core.kv_pages import pages_for
+from repro_torch.core.kv_pages import pages_for, scatter_rows
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import apply_rope, dense_init, empty_param
 
@@ -129,8 +135,10 @@ def _per_slot_cache(cache) -> bool:
 
 def _decode_positions(positions, batch: int, cache, mode: str):
     """(per_slot, posb, rope_pos): per-slot (B,) positions against a
-    per-slot cache, or the shared (1, S) rope layout of prefill and
-    uniform decode."""
+    per-slot cache, the explicit (B, C) positions of a prefill chunk, or
+    the shared (1, S) rope layout of prefill and uniform decode."""
+    if mode == "chunk":
+        return False, None, positions.to(torch.int32)
     if mode == "decode" and cache is not None and _per_slot_cache(cache):
         posb = positions.expand(batch).to(torch.int32)
         return True, posb, posb[:, None]
@@ -240,6 +248,15 @@ def _paged_update(cache, k_new, v_new, posb, write_mask=None):
     return cache
 
 
+def _paged_chunk_update(cache, k_new, v_new, positions):
+    """Scatter a whole chunk of rows (B, C, hkv, dh) into the paged pools
+    at their logical positions, in place (-1 = pad row, routed to the
+    scratch page)."""
+    scatter_rows(cache["kp"], cache["pages"], positions, k_new)
+    scatter_rows(cache["vp"], cache["pages"], positions, v_new)
+    return cache
+
+
 def _project(x, w):
     """(B, S, D) @ (D, H, dh) -> (B, S, H, dh)."""
     B, S, D = x.shape
@@ -265,10 +282,11 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
     """x: (B, S, D); ``kind`` "full" or "local".  prefill: positions (S,);
     decode: per-slot (B,) positions against a per-slot cache (paged pool or
     kpos (B, S) strips), or one shared position (1,) against a kpos (S,)
-    strip.  ``write_mask`` (B,) bool gates per-slot cache writes.  ``plan``
-    (a ShardingRecipe) shards dense strips over its sequence axes.  Returns
+    strip; chunk: (B, C) positions of a prefill chunk against a paged pool.
+    ``write_mask`` (B,) bool gates per-slot cache writes.  ``plan`` (a
+    ShardingRecipe) shards dense strips over its sequence axes.  Returns
     (out (B, S, D), new_cache)."""
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "decode", "chunk"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     window = cfg.attn.window if kind == "local" else None
     rope_base = cfg.attn.rope_base_local if kind == "local" \
@@ -280,7 +298,14 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
     k = apply_rope(_project(x, attn.wk), rope_pos, rope_base)
     v = _project(x, attn.wv)
 
-    if mode == "decode":
+    if mode == "chunk":
+        if cache is None or not _paged_cache(cache) or window is not None:
+            raise ValueError("chunked prefill needs the paged "
+                             "full-attention layout")
+        new_cache = _paged_chunk_update(cache, k, v, positions)
+        out_h = chunk_prefill_attention(q, cache["kp"], cache["vp"],
+                                        cache["pages"], positions)
+    elif mode == "decode":
         if cache is None:
             raise ValueError("decode needs a cache")
         if _paged_cache(cache):

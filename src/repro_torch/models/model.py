@@ -6,6 +6,8 @@ Entry points:
   prefill_fn       (model, batch, cfg, plan) -> (next_token, caches)
   decode_fn        (model, caches, token, pos, cfg, plan) -> (next_token, caches)
   decode_block_fn  up to k fused greedy steps with on-device termination
+  prefill_chunk_fn (model, caches, tokens, qpos, last_idx, cfg) -> one chunk
+                   of a chunked prefill for one slot
   init_caches      decode caches: shared or per-slot strips, paged pools
 
 Caches keep the reference's stacked layout: ``caches["b{j}"]`` holds the
@@ -125,7 +127,7 @@ def count_params(cfg: ModelConfig) -> int:
 def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
                mode: str = "prefill", write_mask=None, plan=None):
     """x: (B, S, D).  Returns (x, caches): prefill builds stacked K/V
-    caches, decode updates ``caches`` in place."""
+    caches, decode and chunk update ``caches`` in place."""
     if blk.sp_enabled(cfg, plan, x.shape[1], mode):
         raise NotImplementedError("the sequence-parallel residual stream "
                                   "(tp > 1, >= 1 B parameters) is not "
@@ -236,6 +238,27 @@ def decode_block_fn(model: LM, caches, tokens, positions, alive, remaining,
         alive = alive & ~done
         i += 1
     return out, i, tok, pos, alive, rem, caches
+
+
+def prefill_chunk_fn(model: LM, caches, tokens, qpos, last_idx,
+                     cfg: ModelConfig):
+    """One chunk of a chunked prefill for a single slot.
+
+    tokens: (1, C) int32 chunk token ids (pad rows 0); qpos: (1, C) int32
+    logical positions of each row (-1 = pad); last_idx: (1,) int32 index
+    of the chunk's last real row, where the next token samples (only the
+    last chunk's sample is used).  ``caches`` is a pool view whose
+    ``pages`` leaves are the slot's page-table row ((num_groups, 1, maxp))
+    over the shared kp/vp pools, which the chunk's rows are written into
+    in place.  Needs a paged stack of full-attention layers (the engine
+    gates chunking on that).  Returns (next_token (1,), caches).
+    """
+    x = emb.embed_lookup(model.embed.table, tokens, cfg)
+    x, caches = run_blocks(model, x, qpos.to(torch.int32), cfg, caches,
+                           "chunk")
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    last = x[torch.arange(x.shape[0], device=x.device), last_idx.long()]
+    return emb.greedy_sample(last, model.head_table(), cfg), caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,

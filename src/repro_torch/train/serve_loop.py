@@ -20,6 +20,12 @@ Mechanics, as in the reference:
   * prefill is length-bucketed with a fixed ``num_slots`` batch, padded only
     where padding is exact (no window ring shorter than the bucket); pad
     rows are never spliced into the pool;
+  * chunked prefill (``chunk_prefill=N``, paged stacks of full-attention
+    layers only): a prompt longer than N is spliced into the paged pool
+    one N-row chunk at a time, up to ``chunk_budget`` chunks a tick,
+    interleaved with decode blocks; the slot's device page-table row stays
+    -1 until its last chunk, so the decode block's masked writes go to the
+    scratch page meanwhile;
   * ``k_block`` > 1 runs up to ``k_block`` greedy steps per tick with
     on-device sampling and termination masks (``decode_block_fn``) and
     reads back one (K, num_slots) token block; ``k_block=1`` is the
@@ -32,9 +38,13 @@ paged-decode kernel on paged layers and the isp-decode kernel on strips
 and rings (``kernels/csrc``); the KV caches and the per-slot device state
 are updated in place where the reference donated buffers.
 
-Not ported yet (each raises ``NotImplementedError``): ``chunk_prefill``
-(and its ``chunk_budget``), ``jit_donor`` and ``prewarm``.  The cluster
-tier's pool-clamp fault hook waits for the cluster tier.
+``prewarm`` pays each kernel-launching site's first call before the
+first request (there is no per-shape compile on the card, so
+one call per site warms it); ``jit_donor`` checks that a replica's wiring
+equals its donor's and shares the donor's warm sites, as the cluster's
+drives do.  ``pool_clamp_frac`` is the cluster's pool-clamp fault hook.
+Every entry a worker thread reaches (``step``, ``prewarm``) runs under
+the engine's own ``torch.no_grad()``: grad mode is thread-local.
 """
 from __future__ import annotations
 
@@ -221,10 +231,13 @@ class _Slot:
     prefill_s: float = 0.0
     decode_s: float = 0.0
     reserved_pages: int = 0      # admission-time page reservation
+    prompt: Optional[List[int]] = None   # until its prefill is spliced
+    prefilling: bool = False     # chunked prefill still in flight
+    prefill_done_tokens: int = 0  # prompt tokens already spliced
 
     @property
     def decoding(self) -> bool:
-        return self.active
+        return self.active and not self.prefilling
 
 
 class AdmissionController:
@@ -310,20 +323,14 @@ class ServeEngine:
                  num_pages: Optional[int] = None, k_block: int = 8,
                  chunk_prefill: Optional[int] = None, prewarm: bool = False,
                  jit_donor: Optional["ServeEngine"] = None,
-                 admission_order: str = "fifo", shed_expired: bool = True,
-                 telemetry=None, device=None):
+                 admission_order: str = "fifo", chunk_budget: int = 1,
+                 shed_expired: bool = True, telemetry=None, device=None):
         if kv_layout not in ("paged", "strip"):
             raise ValueError(f"kv_layout must be 'paged' or 'strip', "
                              f"got {kv_layout!r}")
         if admission_order not in ("fifo", "edf"):
             raise ValueError(f"admission_order must be 'fifo' or 'edf', "
                              f"got {admission_order!r}")
-        if chunk_prefill:
-            raise NotImplementedError("chunk_prefill is not ported yet")
-        if jit_donor is not None:
-            raise NotImplementedError("jit_donor is not ported yet")
-        if prewarm:
-            raise NotImplementedError("prewarm is not ported yet")
         self.device = resolve_device(device)
         w = next(params.parameters())
         if w.device.type != self.device.type:
@@ -339,9 +346,28 @@ class ServeEngine:
         self.admission = admission if admission is not None else \
             AdmissionController(num_slots)
         self.k_block = max(int(k_block), 1)
+        if jit_donor is not None:
+            # replicas share the donor's warm sites and its built kernels
+            # (the libraries are loaded once a process), which holds only
+            # if the wiring is identical
+            same = (jit_donor.cfg == cfg and jit_donor.k_block == self.k_block
+                    and jit_donor.eos_id == eos_id
+                    and jit_donor.max_len == max_len
+                    and jit_donor.device == self.device)
+            if not same:
+                raise ValueError(
+                    "jit_donor wiring (cfg/k_block/eos_id/max_len/device) "
+                    "differs from this engine; replicas must be identical")
         self.kv_layout = kv_layout if self._has_paged_layers() else "strip"
         self.page_size = max(page_size, 1)
         self._maxp = pages_for(max_len, self.page_size)
+        # chunked prefill needs the paged layout and a stack of
+        # full-attention layers only (a window ring would have to carry
+        # state across chunks)
+        self.chunk_prefill: Optional[int] = None
+        if chunk_prefill and self.kv_layout == "paged" and \
+                all(k in ("attn", "moe") for k in cfg.layer_pattern):
+            self.chunk_prefill = max(int(chunk_prefill), 1)
         if self.kv_layout == "paged":
             if num_pages is None:
                 num_pages = num_slots * self._maxp    # dense worst case
@@ -380,7 +406,12 @@ class ServeEngine:
         self._next_rid = 0
         self._finished: List[GenResult] = []
         self.admission_order = admission_order
+        self.chunk_budget = max(int(chunk_budget), 1)
         self.shed_expired = shed_expired
+        # fault injection (page_pool_clamp): only this fraction of the KV
+        # page pool is admissible to NEW requests; in-flight reservations
+        # are untouched.  1.0 = unclamped; the cluster sets it per tick.
+        self.pool_clamp_frac = 1.0
         # virtual serving clock: advances by measured serving time (kernel
         # build and first launches excluded); every LatencyRecord lives on it
         self.clock = 0.0
@@ -390,12 +421,16 @@ class ServeEngine:
         self.tele_requests = True
         # first-use attribution: the first call at each kernel-launching
         # site (which may build the kernel and pays its first launch) is
-        # booked as compile_s, not serving time
-        self._warm_keys: set = set()
+        # booked as compile_s, not serving time; replicas share their
+        # donor's set
+        self._warm_keys: set = set() if jit_donor is None \
+            else jit_donor._warm_keys
         self._tick_compile_s = 0.0
         self.last_tick = TickObservation()
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and jit_donor is None:
             self.stats.compile_s += build.build()
+        if prewarm:
+            self.prewarm()
 
     # -- device helpers ------------------------------------------------------
 
@@ -451,7 +486,11 @@ class ServeEngine:
         outstanding = sum(
             s.reserved_pages - int((self.page_table[s.index] >= 0).sum())
             for s in self.slots if s.active)
-        return self.pager.num_free - outstanding
+        free = self.pager.num_free
+        if self.pool_clamp_frac < 1.0:
+            cap = int(self.pager.num_pages * self.pool_clamp_frac)
+            free = min(free, cap - self.pager.num_in_use)
+        return free - outstanding
 
     def _kv_bytes_per_token(self) -> int:
         """K+V bytes one token row costs across all full-attention layers."""
@@ -488,6 +527,47 @@ class ServeEngine:
         self.stats.compile_s += dt
         self._tick_compile_s += dt
         return 0.0
+
+    # -- prewarm -------------------------------------------------------------
+
+    def prewarm(self) -> float:
+        """Pay every kernel-launching site's first call before the first
+        request (the constructor built the kernels): one decode step with
+        every write masked
+        (the writes land in the scratch page; the fused block would stop on
+        the host before its first step with no slot alive), one all-pad
+        prefill, and one all-pad chunk against an empty page row.  Caches,
+        pager, ledgers and stats stay as they were, apart from
+        ``compile_s``.  Returns the seconds spent."""
+        t0 = time.perf_counter()
+        n = self.num_slots
+        zeros = torch.zeros(n, dtype=torch.int32, device=self.device)
+        with torch.no_grad():
+            M.decode_fn(self.params, self.caches, zeros[:, None], zeros,
+                        self.cfg, write_mask=zeros.bool())
+            self._warm_keys.add(("decode_block",) if self.k_block > 1
+                                else ("decode",))
+            padded = self._bucket_len(1)
+            M.prefill_fn(self.params, {
+                "tokens": torch.zeros((n, padded), dtype=torch.int32,
+                                      device=self.device),
+                "lengths": torch.ones_like(zeros)}, self.cfg)
+            self._warm_keys.add(("prefill",))
+            if self.chunk_prefill is not None:
+                c = self.chunk_prefill
+                M.prefill_chunk_fn(
+                    self.params,
+                    self._chunk_view(np.full(self._maxp, -1, np.int32)),
+                    torch.zeros((1, c), dtype=torch.int32,
+                                device=self.device),
+                    torch.full((1, c), -1, dtype=torch.int32,
+                               device=self.device),
+                    zeros[:1], self.cfg)
+                self._warm_keys.add(("chunk",))
+            self._sync()
+        dt = time.perf_counter() - t0
+        self.stats.compile_s += dt
+        return dt
 
     # -- request intake ------------------------------------------------------
 
@@ -573,6 +653,16 @@ class ServeEngine:
                 else:
                     keep.append(req)
             self.queue = keep
+        for s in self.slots:
+            if not (s.active and s.prefilling):
+                continue
+            rec = self.records.get(s.rid)
+            if rec is not None and rec.deadline_s is not None \
+                    and rec.deadline_s < self.clock:
+                # mid-prefill: the chunks already run are booked as waste
+                self._shed(s.rid, rec.priority, wasted_s=s.prefill_s,
+                           prefill_s=s.prefill_s)
+                self._release_slot(s)
 
     def _shed(self, rid: int, priority: int, wasted_s: float,
               prefill_s: float = 0.0) -> None:
@@ -625,9 +715,11 @@ class ServeEngine:
         return self.stats.bytes_never_crossed
 
     def step(self) -> List[GenResult]:
-        """One engine tick: admit into free slots, then run one decode block
-        (``k_block`` fused steps; ``k_block=1`` is the per-step host loop).
-        Returns the requests that finished during this tick."""
+        """One engine tick: admit into free slots, advance up to
+        ``chunk_budget`` chunks of any chunked prefill in flight, then run
+        one decode block (``k_block`` fused steps; ``k_block=1`` is the
+        per-step host loop).  Returns the requests that finished during
+        this tick."""
         n_before = len(self._finished)
         self.last_tick = obs = TickObservation()
         self._tick_compile_s = 0.0
@@ -636,6 +728,8 @@ class ServeEngine:
         with torch.no_grad():
             self._shed_expired()
             self._admit()
+            if self.chunk_prefill is not None:
+                self._chunk_prefill_tick()
             if any(s.decoding for s in self.slots):
                 if self.k_block > 1:
                     self._decode_block_step()
@@ -700,7 +794,6 @@ class ServeEngine:
                 return
         tiers = self.admission.tiers_for(n, queued=len(self.queue))
         admitted: List[_Slot] = []
-        prompts: Dict[int, List[int]] = {}
         for slot, tier in zip(free, tiers):
             req = self.queue.popleft()
             slot.active = True
@@ -711,7 +804,10 @@ class ServeEngine:
             slot.out = []
             slot.prefill_s = 0.0
             slot.decode_s = 0.0
-            prompts[slot.index] = req.prompt
+            slot.prompt = req.prompt
+            slot.prefilling = self.chunk_prefill is not None and \
+                len(req.prompt) > self.chunk_prefill
+            slot.prefill_done_tokens = 0
             if self.kv_layout == "paged":
                 slot.reserved_pages = self._reservation(len(req.prompt),
                                                         req.max_new)
@@ -730,20 +826,22 @@ class ServeEngine:
             self.stats.requests += 1
             self.stats.tier_requests[tier] = \
                 self.stats.tier_requests.get(tier, 0) + 1
-        if self.kv_layout == "paged":
-            self._set_pages_rows([s.index for s in admitted])
+        oneshot = [s for s in admitted if not s.prefilling]
+        if self.kv_layout == "paged" and oneshot:
+            # mid-prefill slots keep their device row -1 (decode writes go
+            # to the scratch page) until their last chunk is spliced
+            self._set_pages_rows([s.index for s in oneshot])
 
         buckets: Dict[int, List[_Slot]] = {}
-        for slot in admitted:
-            buckets.setdefault(self._bucket_len(len(prompts[slot.index])),
+        for slot in oneshot:
+            buckets.setdefault(self._bucket_len(len(slot.prompt)),
                                []).append(slot)
         for padded, group in sorted(buckets.items()):
-            self._prefill_bucket(group, [prompts[s.index] for s in group],
-                                 padded)
+            self._prefill_bucket(group, padded)
 
-    def _prefill_bucket(self, group: List[_Slot], prompts: List[List[int]],
-                        padded: int) -> None:
+    def _prefill_bucket(self, group: List[_Slot], padded: int) -> None:
         b = len(group)
+        prompts = [s.prompt for s in group]
         lengths = [len(p) for p in prompts]
         # fixed batch dimension: dummy length-1 rows fill the bucket up to
         # num_slots; rows are independent, so pads never touch real rows
@@ -772,11 +870,68 @@ class ServeEngine:
         for i, s in enumerate(group):
             s.prefill_s = dt
             s.cur_token = int(nxt[i])
+            s.prompt = None
             self.stats.prefill_s += dt / b
             # the prefill-sampled token is the first generated token
             self._push_token(s, s.cur_token)
         if self.k_block > 1:
             self._sync_slot_dev(group)
+
+    def _chunk_prefill_tick(self) -> None:
+        """Advance up to ``chunk_budget`` prefill chunks this tick, each
+        tick still running a decode block for everyone else: budget 1
+        protects in-flight decodes, larger budgets admit long prompts
+        faster."""
+        for _ in range(self.chunk_budget):
+            slot = next((s for s in self.slots if s.active and s.prefilling),
+                        None)
+            if slot is None:
+                return
+            self._advance_chunk(slot)
+
+    def _advance_chunk(self, slot: _Slot) -> None:
+        chunk = self.chunk_prefill
+        prompt = slot.prompt
+        c0 = slot.prefill_done_tokens
+        real = min(chunk, len(prompt) - c0)
+        tokens = np.zeros((1, chunk), np.int32)
+        tokens[0, :real] = prompt[c0: c0 + real]
+        qpos = np.full((1, chunk), -1, np.int32)
+        qpos[0, :real] = np.arange(c0, c0 + real, dtype=np.int32)
+        view = self._chunk_view(self.page_table[slot.index])
+        t0 = time.perf_counter()
+        nxt, _ = M.prefill_chunk_fn(self.params, view, self._dev(tokens),
+                                    self._dev(qpos),
+                                    self._dev(np.asarray([real - 1],
+                                                         np.int32)),
+                                    self.cfg)
+        nxt = nxt.cpu().numpy()
+        dt = self._serving_time(("chunk",), time.perf_counter() - t0)
+        self.clock += dt
+        if self.tele.enabled:
+            self.tele.phase(self.tele_track, "prefill_chunk",
+                            self.clock - dt, dt, rid=slot.rid, tokens=real)
+        slot.prefill_done_tokens = c0 + real
+        slot.prefill_s += dt
+        self.stats.prefill_s += dt
+        self._account_prefill(real)
+        if slot.prefill_done_tokens == len(prompt):
+            slot.prefilling = False
+            slot.prompt = None
+            slot.cur_token = int(nxt[0])
+            self._set_pages_rows([slot.index])
+            self._push_token(slot, slot.cur_token)
+            if self.k_block > 1:
+                self._sync_slot_dev([slot])
+
+    def _chunk_view(self, table_row: np.ndarray):
+        """B=1 view of the paged caches for one slot: the shared kp/vp
+        pools under the slot's own page-table row, so a chunk writes into
+        the pool without the other slots' batch rows."""
+        row = self._dev(np.asarray(table_row, np.int32)[None])   # (1, maxp)
+        return {g: dict(cache, pages=row[None].expand(
+                    (cache["pages"].shape[0],) + tuple(row.shape)))
+                for g, cache in self.caches.items()}
 
     # -- decode --------------------------------------------------------------
 
@@ -929,6 +1084,8 @@ class ServeEngine:
     def _release_slot(self, slot: _Slot) -> None:
         """Return a slot (and its pages) to the pool in the same step."""
         slot.active = False
+        slot.prefilling = False
+        slot.prompt = None
         slot.out = []
         slot.rid = -1
         if self.kv_layout == "paged":
