@@ -8,7 +8,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 src/repro_torch/kernels/csrc (six sources), with ptxas's
                 register and spill lines for every instantiation;
   2. kernels  — each CUDA kernel against its plain PyTorch version at the
-                shapes its serve path gives it (yi-9b: dh 128; gemma3-12b:
+                shapes its serve path gives it (yi-9b: dh 128; llama4-scout:
+                40 heads over 8 kv; musicgen-large: MHA at dh 64; gemma3-12b:
                 dh 240, window 1024, and its 262144 x 3840 vocabulary table
                 for isp_gather: 8 ids of a decode step and 8 x 1024 of a
                 prefill at offset 0, a four-shard layout with weights and
@@ -21,7 +22,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 slot, a ring wrapped inside a span, rows that are not
                 16-byte aligned, the shared track) and flash's (Sq not a
                 multiple of the q tile, q_offset > 0 with and without a
-                window, one query row over a long cache) at both head dims;
+                window, one query row over a long cache) at both head dims
+                and, for both decode and flash, at the other families'
+                head shapes (NEW_HEADS: groups 5, 1 at dh 64, 12, 16, 8);
                 then timed with
                 CUDA events (median of 25 runs, L2 flushed between runs, a
                 spin on the card before each so that the interval is device
@@ -117,7 +120,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 bit-equal to gather_baseline; decode ms per step and peak
                 memory with and without the recipe, in turns (plan, no
                 plan, no plan, plan); the process group is torn down at the
-                end.
+                end;
+  11. llama4  — llama4-scout-17b-a16e in bfloat16 at every published width
+                (d_model 5120, 40/8 heads of dh 128, 16 experts of d_ff 8192
+                top-1 + one shared, vocabulary 202,048), its depth cut from
+                48 to LLAMA4_LAYERS = 8 layers to fit one card: 8 requests
+                (prompts 16..700, max_new=32) through the same engine; all
+                ok, a balanced free list, flash and paged decode on every
+                layer of every prefill call and step, no isp decode;
+                k_block=1 gives identical tokens, chunk_prefill=256 flips
+                only below BF16_FLIP_MARGIN; one decode tick profiled; layer
+                0's MoE on 64 real hidden rows on the card in bf16 against
+                the same function on the CPU in fp32 (MOE_REL_FRO,
+                MOE_MAX_OF_RMS); one layer's dense MoE timed at 8 rows and
+                at a prompt's rows beside its bytes bound and grouped
+                dispatch's;
+  12. musicgen — musicgen-large whole (48 layers, MHA at dh 64, tied
+                embeddings) in bfloat16: AudioFrontendStub on a seeded
+                waveform, prefill_fn on its embeddings, the caches spliced
+                into a paged pool, 16 decode_fn steps on tokens (flash 48
+                launches, paged decode 48 a step; the last token equals a
+                one-shot prefill's but at a near-tie); then 8 token requests
+                through the engine, k_block 8 and 1 (identical tokens); one
+                decode tick profiled.
 Each path's launch counters are set to 0 just before it runs and read just
 after; the launches that hold a kernel against its plain version do not
 count.
@@ -187,6 +212,12 @@ TOPK_ATOL = 1e-5
 # times that, ~0.03 on a logit of this unit-scale random model, so a token
 # may flip only where the two best logits lie closer than 4x that.
 BF16_FLIP_MARGIN = 0.125
+# (H, Hkv, dh) of the other model families on the card: llama4-scout
+# (group 5, so 3 of paged decode's 8 head lanes idle), musicgen-large (MHA
+# at dh 64), starcoder2-15b (group 12: a second head chunk half empty),
+# llama3-405b (group 16) and chameleon-34b (group 8 at d_model 8192)
+NEW_HEADS = ((40, 8, 128), (32, 32, 64), (48, 4, 128), (128, 8, 128),
+             (64, 8, 128))
 
 
 def log(*a):
@@ -420,14 +451,16 @@ def strip_case(layout, dtype, dev, gen):
 
 
 def paged_edges(dev, gen):
-    """Split-K edges of paged_decode at both serve shapes, in both dtypes,
-    against the plain version: slots whose lengths fill whole split spans
-    (and one key more or less), an empty slot, a one-key slot, a full
-    table; then a window whose edge falls inside a span."""
+    """Split-K edges of paged_decode at both serve shapes and at
+    NEW_HEADS, in both dtypes, against the plain version: slots whose
+    lengths fill whole split spans (and one key more or less), an empty
+    slot, a one-key slot, a full table; then a window whose edge falls
+    inside a span."""
     from repro_torch.kernels import paged_decode as pd
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for H, Hkv, dh, maxp, window in ((32, 4, 128, 64, 100),
-                                     (16, 8, 240, 128, 300)):
+                                     (16, 8, 240, 128, 300)) + tuple(
+            (H, Hkv, dh, 64, 100) for H, Hkv, dh in NEW_HEADS):
         span, n_split = pd.split_plan(8, Hkv, maxp, n_sms)
         keys = span * 16
         lengths = tuple(min(n, maxp * 16) for n in (
@@ -450,7 +483,8 @@ def paged_edges(dev, gen):
                     "empty slot: l != 0"
                 assert bool((got[2][4] == -1e30).all()), \
                     "empty slot: m != -1e30"
-        log(f"[kernels] paged_decode edges dh={dh}: {n_split} splits of "
+        log(f"[kernels] paged_decode edges H={H} Hkv={Hkv} dh={dh} (group "
+            f"{H // Hkv}): {n_split} splits of "
             f"{span} pages, lengths {list(lengths)}, window {window} (first "
             f"visible keys {edges}): max abs err " + ", ".join(
                 f"{dname(d)} w={w} {e:.3g}" for (d, w), e in errs.items()))
@@ -518,15 +552,16 @@ def isp_edges(dev, gen):
 
 
 def flash_edges(dev, gen):
-    """flash_attention edges at both head dims, in both dtypes, against
-    the plain version: Sq not a multiple of the 64-row q tile, q_offset > 0
-    with and without a window whose edge crosses the key tiles, and one
-    query row over a long cache."""
+    """flash_attention edges at both serve head dims and at NEW_HEADS, in
+    both dtypes, against the plain version: Sq not a multiple of the
+    64-row q tile, q_offset > 0 with and without a window whose edge
+    crosses the key tiles, and one query row over a long cache."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     cases = ((100, 100, 0), (65, 200, 135), (1, 300, 299))
     for H, Hkv, dh, windows in ((32, 4, 128, (None, 48)),
-                                (16, 8, 240, (1024, 48))):
+                                (16, 8, 240, (1024, 48))) + tuple(
+            (H, Hkv, dh, (None, 48)) for H, Hkv, dh in NEW_HEADS):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
@@ -540,7 +575,8 @@ def flash_edges(dev, gen):
                 torch.cuda.synchronize()
                 errs[dtype] = max(errs.get(dtype, 0.0),
                                   max_err([got], [want], dtype))
-        log(f"[kernels] flash_attention edges dh={dh} windows {windows} "
+        log(f"[kernels] flash_attention edges H={H} Hkv={Hkv} dh={dh} "
+            f"(group {H // Hkv}) windows {windows} "
             f"(Sq, Skv, q_offset) in {cases}: max abs err fp32 "
             f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
 
@@ -598,11 +634,14 @@ def kernel_phase(dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
 
-    # -- paged decode: yi-9b (dh 128) and gemma3-12b's global layers (dh 240)
+    # -- paged decode: yi-9b (dh 128), gemma3-12b's global layers (dh 240),
+    # llama4-scout (group 5) and musicgen-large (MHA, dh 64)
     for path, kw in (("yi-9b serve", {}),
                      ("gemma3-12b serve", dict(
                          H=16, Hkv=8, dh=240, maxp=128,
-                         lengths=(2048, 1500, 16, 0, 1031, 1, 700, 1990)))):
+                         lengths=(2048, 1500, 16, 0, 1031, 1, 700, 1990))),
+                     ("llama4-scout serve", dict(H=40, Hkv=8, dh=128)),
+                     ("musicgen-large serve", dict(H=32, Hkv=32, dh=64))):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             (q, kp, vp, pages, cur), valid = decode_case(dtype, dev, gen,
@@ -685,11 +724,14 @@ def kernel_phase(dev):
                 lambda: isp.decode_partial(*args, window=window), flushes[1])
     isp_edges(dev, gen)
 
-    # -- flash attention: yi-9b's prefill (dh 128, causal) and gemma3-12b's
-    # window layers (dh 240, window 1024)
+    # -- flash attention: yi-9b's prefill (dh 128, causal), gemma3-12b's
+    # window layers (dh 240, window 1024), llama4-scout's and
+    # musicgen-large's prefill
     for path, (B, S, H, Hkv, dh, window) in (
             ("yi-9b serve", (8, 704, 32, 4, 128, None)),
-            ("gemma3-12b serve", (8, 1536, 16, 8, 240, 1024))):
+            ("gemma3-12b serve", (8, 1536, 16, 8, 240, 1024)),
+            ("llama4-scout serve", (8, 704, 40, 8, 128, None)),
+            ("musicgen-large serve", (8, 704, 32, 32, 64, None))):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
@@ -1992,6 +2034,343 @@ def cluster_phase(cfg, params, dev):
         f"requests both served")
 
 
+# llama4-scout at full width: 8 of its 48 layers hold 19.69 B parameters
+# (39.4 GB in bf16); all 48 hold 107.8 B (215.6 GB), which no card holds
+LLAMA4_LAYERS = 8
+# one layer's MoE in bf16 on the card against fp32 on the CPU, on the same
+# bf16 weights and inputs: bf16 rounds g, u, the silu cast, h and the
+# expert and shared outputs, each within 2**-8 of the value; independent
+# roundings of h move an output by about 2**-8 of the output's RMS over
+# the F-wide sum, so the relative Frobenius error stays near 4e-3 (bound
+# 1e-2); the largest of 64 x 5120 errors has tails heavier than a
+# Gaussian's (products of rounded factors: 5.6x the RMS error over 4096
+# elements at the reduced config on the CPU), so its bound is 0.1 of the
+# output's RMS, while a wrong expert or a lost shared expert moves a row by
+# the order of the RMS itself.  A row whose top-1 expert differs (fp32
+# router logits summed in another order) must be a near tie (top-2
+# probability margin < 1e-4) and is left out.
+MOE_REL_FRO = 1e-2
+MOE_MAX_OF_RMS = 0.1
+
+
+def weight_gb(model) -> float:
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+
+def check_serve(tag, cfg, eng, results, launches, prefill_calls, requests):
+    """Every request ok with its max_new tokens in the vocabulary, a
+    balanced free list, flash on every layer of every prefill call and
+    paged decode on every layer of every step, isp decode never."""
+    st, L = eng.stats, cfg.num_layers
+    assert len(results) == len(requests) and all(
+        r.status == "ok" for r in results), [r.status for r in results]
+    assert [len(r.tokens) for r in results] == [m for _, m in requests], tag
+    assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
+    eng.pager.check_balanced()
+    assert launches["flash_attention"] == L * prefill_calls > 0, \
+        (tag, launches, prefill_calls)
+    assert launches["paged_decode"] == L * st.decode_steps > 0, \
+        (tag, launches, st.decode_steps)
+    assert launches["isp_decode"] == 0, (tag, launches)
+
+
+def moe_phase(cfg, params, requests, dev):
+    """Layer 0's MoE (16 routed experts top-1 + the shared expert) on 64
+    real hidden rows (the longest prompt's first 64 tokens through layer
+    0's attention), on the card in bf16 against the same function on the
+    CPU in fp32 (MOE_REL_FRO, MOE_MAX_OF_RMS); then the dense MoE's cost on
+    the card: one layer's apply_moe at a decode step's 8 rows and at the
+    longest prompt's rows, beside the bytes of every expert (dense) and of the
+    experts the rows route to (grouped dispatch)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import rms_norm
+    b0, m = params.blocks[0], cfg.moe
+    prompt = max((p for p, _ in requests), key=len)
+    with torch.no_grad():
+        def hidden(n):
+            toks = torch.tensor([prompt[:n]], dtype=torch.long, device=dev)
+            x = params.embed.table[toks]
+            pos = torch.arange(n, dtype=torch.int32, device=dev)
+            a, _ = attn_mod.gqa_apply(b0.attn, rms_norm(x, b0.ln1,
+                                                        cfg.norm_eps),
+                                      pos, cfg, "full", None, "prefill")
+            return rms_norm(x + a, b0.ln2, cfg.norm_eps)
+        h = hidden(64)
+        y, _ = blk.apply_moe(b0.moe, h, cfg)
+        _, experts, _ = moe_mod._router(b0.moe.router, h, cfg)
+        names = ("router", "we_gate", "we_up", "we_down", "ws_gate",
+                 "ws_up", "ws_down")
+        cpu = SimpleNamespace(**{k: getattr(b0.moe, k).float().cpu()
+                                 for k in names})
+        h32 = h.float().cpu()
+        t0 = time.perf_counter()
+        y32, _ = blk.apply_moe(cpu, h32, cfg)
+        cpu_s = time.perf_counter() - t0
+        _, e32, p32 = moe_mod._router(cpu.router, h32, cfg)
+        del cpu
+    y = y.float().cpu()[0]
+    y32, e32, p32 = y32[0], e32[0, :, 0], p32[0]
+    part = experts[0, :, 0].cpu() != e32
+    top2 = torch.sort(p32, dim=-1, descending=True).values[:, :2]
+    margins = (top2[:, 0] - top2[:, 1])[part]
+    assert bool((margins < 1e-4).all()), f"MoE routes part at {margins}"
+    keep = ~part
+    diff = (y - y32)[keep]
+    rms = float(y32[keep].square().mean().sqrt())
+    rel_fro = float(diff.norm() / y32[keep].norm())
+    max_rel = float(diff.abs().max()) / rms
+    assert torch.isfinite(y).all()
+    assert rel_fro < MOE_REL_FRO and max_rel < MOE_MAX_OF_RMS, \
+        (rel_fro, max_rel)
+    log(f"[llama4 moe] layer 0 on 64 rows, bf16 card vs fp32 CPU "
+        f"({cpu_s:.1f} s): {int(keep.sum())}/64 rows routed alike "
+        f"({int(part.sum())} near ties left out), experts used "
+        f"{sorted(set(e32.tolist()))}, output RMS {rms:.4g}; relative "
+        f"Frobenius error {rel_fro:.3g} (bound {MOE_REL_FRO:g}), max abs "
+        f"error {float(diff.abs().max()):.4g} = {max_rel:.3g} of the RMS "
+        f"(bound {MOE_MAX_OF_RMS:g})")
+    # the dense MoE's cost, one layer: every expert on every row
+    flush = l2_flushes(dev)[0]
+    e_bytes = 3 * cfg.d_model * m.d_ff_expert * 2       # one expert, bf16
+    shared = 3 * cfg.d_model * m.d_ff_shared * 2
+    for n_rows in (8, len(prompt)):
+        with torch.no_grad():
+            hx = h[:, :8] if n_rows == 8 else hidden(n_rows)
+            _, ex, _ = moe_mod._router(b0.moe.router, hx, cfg)
+            ms = time_ms(lambda: blk.apply_moe(b0.moe, hx, cfg), flush)
+        used = len(set(ex.flatten().tolist()))
+        dense_b = m.num_experts * e_bytes + shared
+        grouped_b = used * e_bytes + shared
+        flops = 2 * n_rows * 3 * cfg.d_model * m.d_ff_expert
+        log(f"[llama4 moe] one layer's dense MoE at {n_rows} rows: "
+            f"{ms:.4f} ms on the card; bytes bound "
+            f"{dense_b / HBM_BYTES_PER_S * 1e3:.4f} ms for all "
+            f"{m.num_experts} experts ({dense_b / 1e9:.3f} GB), "
+            f"{grouped_b / HBM_BYTES_PER_S * 1e3:.4f} ms for the {used} "
+            f"experts routed to + the shared one ({grouped_b / 1e9:.3f} GB); "
+            f"{flops * (m.num_experts + 1) / 1e9:.1f} GFLOP dense against "
+            f"{flops * (m.top_k + 1) / 1e9:.1f} GFLOP routed")
+        del hx
+    free_device()
+
+
+def llama4_phase(dev):
+    """llama4-scout-17b-a16e in bf16 at every published width, depth cut
+    to LLAMA4_LAYERS: 8 requests (prompts 16..700, max_new 32) through
+    the paged engine with k_block 8, then k_block 1 (identical tokens) and
+    chunk_prefill=256 (flips only at near-ties), one decode-block tick
+    profiled, then moe_phase.  Returns the k_block 8 run's launches."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.serve_loop import ServeEngine
+    full = get_config("llama4-scout-17b-a16e")
+    cfg = dataclasses.replace(full, num_layers=LLAMA4_LAYERS)
+    m = cfg.moe
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    assert all(b.moe.router.dtype == torch.float32 for b in params.blocks)
+    log(f"[llama4] llama4-scout-17b-a16e bf16 at full width: d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv of dh "
+        f"{cfg.resolved_head_dim}, {m.num_experts} experts of d_ff "
+        f"{m.d_ff_expert} top-{m.top_k} + {m.num_shared_experts} shared of "
+        f"{m.d_ff_shared}, vocab {cfg.vocab_size}; depth cut from "
+        f"{full.num_layers} to {cfg.num_layers} layers (the whole model is "
+        f"{M.count_params(full) / 1e9:.3f} B parameters, "
+        f"{M.count_params(full) * 2 / 1e9:.1f} GB in bf16): "
+        f"{M.count_params(cfg) / 1e9:.3f} B parameters "
+        f"({cfg.active_param_count() / 1e9:.3f} B active), "
+        f"{weight_gb(params):.2f} GB of weights, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    requests = [(rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(16, 701))).tolist(), 32)
+                for _ in range(8)]
+    log(f"[llama4] prompt lengths {[len(p) for p, _ in requests]}")
+    eng, results, wall, launches, prefill_calls = serve(cfg, params,
+                                                        requests, 8, dev)
+    check_serve("llama4", cfg, eng, results, launches, prefill_calls,
+                requests)
+    serve_report("llama4", eng, results, wall, launches, prefill_calls)
+    st = eng.stats
+    step_ms = st.decode_s * 1e3 / st.decode_steps
+    tokens = [r.tokens for r in results]
+    del eng
+    free_device()
+
+    eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)
+    assert [r.tokens for r in results1] == tokens, \
+        "llama4: k_block=1 and k_block=8 disagree"
+    eng1.pager.check_balanced()
+    log(f"[llama4] k_block=1 gives identical tokens ({wall1:.2f} s wall, "
+        f"{eng1.stats.decode_s * 1e3 / eng1.stats.decode_steps:.2f} ms per "
+        f"step)")
+    del eng1
+    free_device()
+
+    C = 256
+    n_chunks = sum(-(-len(p) // C) for p, _ in requests if len(p) > C)
+    eng, results, wall, cl, prefill_calls = serve(cfg, params, requests, 8,
+                                                  dev, chunk_prefill=C)
+    chunks = phases(eng.tele, "prefill_chunk")
+    assert len(chunks) == n_chunks > 0, (len(chunks), n_chunks)
+    assert len(results) == 8 and all(r.status == "ok" for r in results)
+    eng.pager.check_balanced()
+    assert cl["flash_attention"] == cfg.num_layers * prefill_calls, cl
+    assert cl["paged_decode"] == cfg.num_layers * eng.stats.decode_steps, cl
+    log(f"[llama4 chunk] chunk_prefill={C}: {prefill_calls} one-shot "
+        f"prefill calls, {len(chunks)} chunks ({warm_ms(chunks):.1f} ms a "
+        f"warm chunk), TTFT p50 {eng.stats.latency.p50_ttft_s * 1e3:.1f} "
+        f"ms; launches {cl}")
+    check_flips("llama4 chunk", requests, [r.tokens for r in results],
+                tokens, params, cfg, dev, BF16_FLIP_MARGIN)
+    del eng
+    free_device()
+
+    # a warm engine: one tick admits the 8 requests, the next decodes only
+    eng = ServeEngine(cfg, params, num_slots=8, max_len=1024, page_size=16,
+                      k_block=8, device=dev)
+    for prompt, _ in requests:
+        eng.submit(prompt, max_new=32)
+    eng.step()
+    profile_window(eng, "llama4 decode block tick", step_ms=step_ms)
+    del eng
+    free_device()
+    moe_phase(cfg, params, requests, dev)
+    del params
+    free_device()
+    return launches
+
+
+def musicgen_phase(dev):
+    """musicgen-large whole (48 layers, full width, MHA at dh 64) in bf16.
+    The frontend path: AudioFrontendStub on a seeded 3 s waveform of 2
+    rows, prefill_fn on the embeddings, its caches spliced into a paged
+    pool, 16 per-slot decode_fn steps on tokens; one prefill over the
+    embeddings and the 16 fed tokens gives the last step's token (a flip
+    only below BF16_FLIP_MARGIN).  Then 8 token requests through the
+    engine, k_block 8 and 1 (identical tokens), and one decode-block tick
+    profiled.  Returns the serve run's
+    and the frontend path's launches."""
+    from repro_torch.config import get_config
+    from repro_torch.core import embedding as emb
+    from repro_torch.core.kv_pages import pages_for
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models.frontend import AudioFrontendStub
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.train.serve_loop import ServeEngine, _splice_slots
+    cfg = get_config("musicgen-large")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    log(f"[musicgen] musicgen-large bf16 whole: {L} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv of dh "
+        f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}, tied embeddings; "
+        f"{M.count_params(cfg) / 1e9:.3f} B parameters, "
+        f"{weight_gb(params):.2f} GB of weights, init "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- the frontend path: prefill on embeddings, decode on tokens
+    wave = np.random.default_rng(SEED + 2).standard_normal(
+        (2, 3 * 16_000)).astype(np.float32)
+    frames, _ = AudioFrontendStub(cfg).encode(wave, seed=SEED)
+    B, S = frames.shape[:2]
+    steps, ps, max_len = 16, 16, 256
+    table = np.full((B, pages_for(max_len, ps)), -1, np.int32)
+    need = pages_for(S + steps, ps)
+    for b in range(B):
+        table[b, :need] = np.arange(b * need, (b + 1) * need)
+    caches = M.init_caches(cfg, B, max_len, paged=True, page_size=ps,
+                           device=dev)
+    for c in caches.values():
+        c["pages"][:] = torch.from_numpy(table).to(dev)
+    x = torch.from_numpy(frames).to(dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        nxt, pre = M.prefill_fn(params, {"embeddings": x}, cfg)
+        caches = _splice_slots(caches, pre, list(range(B)), [S] * B, table,
+                               ps)
+        del pre
+        out = [nxt]
+        pos = torch.full((B,), S, dtype=torch.int32, device=dev)
+        for _ in range(steps):
+            nxt, caches = M.decode_fn(params, caches, nxt[:, None], pos, cfg)
+            out.append(nxt)
+            pos = pos + 1
+    torch.cuda.synchronize()
+    fe_s = time.perf_counter() - t0
+    fe_launches = ops.launch_counts()
+    toks = torch.stack(out, 1)
+    assert toks.shape == (B, steps + 1) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all())
+    assert fe_launches["flash_attention"] == L, fe_launches
+    assert fe_launches["paged_decode"] == L * steps, fe_launches
+    assert fe_launches["isp_decode"] == 0, fe_launches
+    # one prefill over the frames and the fed tokens gives the last token
+    with torch.no_grad():
+        seq = torch.cat([x.to(params.embed.table.dtype),
+                         params.embed.table[toks[:, :steps].long()]], 1)
+        h, _ = M.run_blocks(params, seq, torch.arange(
+            S + steps, dtype=torch.int32, device=dev), cfg, None, "prefill")
+        logits = emb.sharded_logits_last(rms_norm(
+            h[:, -1], params.final_norm, cfg.norm_eps), params.head_table(),
+            cfg)
+    top = torch.topk(logits.float(), 2).values
+    for b in range(B):
+        want, got = int(logits[b].argmax()), int(toks[b, steps])
+        margin = float(top[b, 0] - top[b, 1])
+        if got != want:
+            log(f"[musicgen frontend] row {b}: decode token {got} vs one-shot"
+                f" {want}, top-2 margin {margin:.3g}")
+            assert margin < BF16_FLIP_MARGIN, "decode parts at a clear margin"
+    log(f"[musicgen frontend] {B} x {3 * 16_000} samples -> {S} frames: "
+        f"prefill on embeddings ({S} rows) + {steps} decode steps in "
+        f"{fe_s * 1e3:.1f} ms (first launches included), tokens "
+        f"{toks.tolist()}; launches {fe_launches}")
+    del caches
+    free_device()
+
+    # -- a token serve
+    rng = np.random.default_rng(SEED + 3)
+    requests = [(rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(16, 701))).tolist(), 32)
+                for _ in range(8)]
+    log(f"[musicgen] prompt lengths {[len(p) for p, _ in requests]}")
+    eng, results, wall, launches, prefill_calls = serve(cfg, params,
+                                                        requests, 8, dev)
+    check_serve("musicgen", cfg, eng, results, launches, prefill_calls,
+                requests)
+    serve_report("musicgen", eng, results, wall, launches, prefill_calls)
+    step_ms = eng.stats.decode_s * 1e3 / eng.stats.decode_steps
+    tokens = [r.tokens for r in results]
+    del eng
+    free_device()
+    eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)
+    assert [r.tokens for r in results1] == tokens, \
+        "musicgen: k_block=1 and k_block=8 disagree"
+    eng1.pager.check_balanced()
+    log(f"[musicgen] k_block=1 gives identical tokens ({wall1:.2f} s wall)")
+    del eng1
+    free_device()
+    eng = ServeEngine(cfg, params, num_slots=8, max_len=1024, page_size=16,
+                      k_block=8, device=dev)
+    for prompt, _ in requests:
+        eng.submit(prompt, max_new=32)
+    eng.step()
+    profile_window(eng, "musicgen decode block tick", step_ms=step_ms)
+    del eng, params
+    free_device()
+    return launches, fe_launches
+
+
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and print
     ptxas's register and spill lines for every instantiation."""
@@ -2067,17 +2446,8 @@ def main() -> int:
     eng, results, wall, launches, prefill_calls = serve(cfg, params,
                                                         requests, 8, dev)
     st = eng.stats
-    assert len(results) == 16 and all(r.status == "ok" for r in results), \
-        [r.status for r in results]
-    assert all(len(r.tokens) == 32 for r in results)
-    assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
-    eng.pager.check_balanced()
-    L = cfg.num_layers
-    assert launches["flash_attention"] == L * prefill_calls > 0, \
-        (launches, prefill_calls)
-    assert launches["paged_decode"] == L * st.decode_steps > 0, \
-        (launches, st.decode_steps)
-    assert launches["isp_decode"] == 0, launches
+    check_serve("serve", cfg, eng, results, launches, prefill_calls,
+                requests)
     serve_report("serve", eng, results, wall, launches, prefill_calls)
     path_launches = {"yi-9b serve": launches, "apps": app_launches}
 
@@ -2120,6 +2490,14 @@ def main() -> int:
     lap("strip and chunked fp32")
     (path_launches["gemma3-12b serve"],
      path_launches["gemma3-12b plan"]) = gemma_phase(dev)
+    lap("gemma3-12b and plan")
+
+    # -- the other model families: llama4-scout's MoE, musicgen-large whole
+    path_launches["llama4-scout serve"] = llama4_phase(dev)
+    lap("llama4-scout")
+    (path_launches["musicgen-large serve"],
+     path_launches["musicgen-large frontend"]) = musicgen_phase(dev)
+    lap("musicgen-large")
     for row in rows:
         row["launches"] = path_launches[row["path"]][row["kernel"]]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")

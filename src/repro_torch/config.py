@@ -111,6 +111,12 @@ class ModelConfig:
         from repro_torch.models.model import count_params  # avoids a cycle
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: routed experts count
+        ``top_k / num_experts`` of their size."""
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

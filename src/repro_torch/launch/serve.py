@@ -2,7 +2,7 @@
 through the continuous-batching engine, or through a multi-drive cluster
 of them (port of ``repro/launch/serve.py``).
 
-  python -m repro_torch.launch.serve --arch {yi-9b,gemma3-12b} [--smoke] \
+  python -m repro_torch.launch.serve --arch ARCH [--smoke | --layers N] \
       --requests N --max-new M --max-len L --num-slots S \
       --kv-layout {paged,strip} --page-size P --k-block K --seed X \
       [--chunk-prefill C --chunk-budget B] [--prewarm] \
@@ -13,6 +13,12 @@ of them (port of ``repro/launch/serve.py``).
       [--max-retries N] [--hedge] \
       [--concurrent --dispatch-timeout S] [--min-tick-ms T] \
       [--trace-out F] [--metrics-out F] [--events-out F] [--device cpu]
+
+ARCH is one of the port's configs: yi-9b, gemma3-12b, starcoder2-15b,
+llama3-405b, llama4-scout-17b-a16e, musicgen-large, chameleon-34b (the
+frontend archs serve token prompts here).  ``--layers N`` cuts the depth
+to N layers at full width: llama4-scout's 48 layers (215.6 GB in bf16)
+and llama3-405b's do not fit one 80 GB card.
 
 Request sources: ``--arrival`` generates a reproducible open-loop trace
 of ``--requests`` requests at ``--rate`` req/s (mixed priority classes
@@ -38,6 +44,7 @@ PyTorch path).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -60,6 +67,9 @@ def _args():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers at full width (0 = "
+                         "the config's depth)")
     ap.add_argument("--requests", type=int, default=8,
                     help="serve N requests (random, or open-loop with "
                          "--arrival)")
@@ -161,6 +171,8 @@ def main() -> int:
     args = _args()
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device)
     engine_kw = dict(max_len=args.max_len, num_slots=args.num_slots,

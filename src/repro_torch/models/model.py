@@ -39,6 +39,7 @@ from repro_torch.core.kv_pages import pages_for
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import dense_init, empty_param, rms_norm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -92,8 +93,9 @@ class LM(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> LM:
     """Random weights with the reference's distribution (truncated-normal
-    fan-in init, zero norm scales, unit-std embedding), drawn from
-    ``generator``, which must live on ``device`` (default CUDA)."""
+    fan-in init, zero norm scales, unit-std embedding; a ``"moe"`` block's
+    as ``moe.moe_params`` draws them), drawn from ``generator``, which
+    must live on ``device`` (default CUDA)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     model = LM(cfg, dev)
@@ -106,17 +108,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             b.ln2.zero_()
             for name, t in attn_mod.gqa_params(cfg, **kw).items():
                 getattr(b.attn, name).copy_(t)
-            for name in ("w_gate", "w_up", "w_down"):
-                w = getattr(b.mlp, name)
-                w.copy_(dense_init(w.shape, **kw))
+            if b.kind == "moe":
+                for name, t in moe_mod.moe_params(cfg, **kw).items():
+                    getattr(b.moe, name).copy_(t)
+            else:
+                for name in ("w_gate", "w_up", "w_down"):
+                    w = getattr(b.mlp, name)
+                    w.copy_(dense_init(w.shape, **kw))
         model.final_norm.zero_()
         if not cfg.tie_embeddings:
             model.head.w_head.copy_(dense_init(model.head.w_head.shape, **kw))
     return model
 
 
-def count_params(cfg: ModelConfig) -> int:
-    return sum(p.numel() for p in LM(cfg, "meta").parameters())
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of the model; with ``active_only`` the routed experts'
+    ``we_*`` count ``top_k / num_experts`` of their size, as in the
+    reference."""
+    total = 0
+    for name, p in LM(cfg, "meta").named_parameters():
+        n = p.numel()
+        if active_only and cfg.moe and name.rsplit(".", 1)[-1].startswith(
+                "we_"):
+            n = n * cfg.moe.top_k // cfg.moe.num_experts
+        total += n
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -156,16 +172,22 @@ def prefill_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                plan=None):
     """Full-sequence prefill.  Returns (next_token (B,) int32, caches).
 
-    With ``batch["lengths"]`` (B,) the prompts are right-padded to a common
-    S and row i samples at position ``lengths[i] - 1``; pad rows only
-    attend forward, so the first ``lengths[i]`` cache rows are exact.
+    The batch holds ``tokens`` (B, S) int32 or, for a modality frontend's
+    output, ``embeddings`` (B, S, D), cast to the model dtype and used in
+    place of the embedding lookup.  With ``batch["lengths"]`` (B,) the
+    prompts are right-padded to a common S and row i samples at position
+    ``lengths[i] - 1``; pad rows only attend forward, so the first
+    ``lengths[i]`` cache rows are exact.
     """
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    frontend = "embeddings" in batch
+    B, S = batch["embeddings" if frontend else "tokens"].shape[:2]
     rows = sh.batch_rows(plan, B)
-    sp = blk.sp_enabled(cfg, plan, S, "prefill")
-    x = emb.embed_lookup(model.embed.table, tokens[rows], cfg, plan,
-                         seq_sharded=sp)
+    if frontend:
+        x = batch["embeddings"][rows].to(torch_dtype(cfg))
+    else:
+        sp = blk.sp_enabled(cfg, plan, S, "prefill")
+        x = emb.embed_lookup(model.embed.table, batch["tokens"][rows], cfg,
+                             plan, seq_sharded=sp)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     x, caches = run_blocks(model, x, positions, cfg, None, "prefill",
                            plan=plan)

@@ -445,9 +445,9 @@ class ServeEngine:
     # -- paged KV bookkeeping ------------------------------------------------
 
     def _has_paged_layers(self) -> bool:
-        """Paged pools exist only for full-attention layers; a model with
-        none serves on the strip layout."""
-        return "attn" in self.cfg.layer_pattern
+        """Paged pools exist only for full-attention layers (``"attn"``,
+        ``"moe"``); a model with none serves on the strip layout."""
+        return any(k in ("attn", "moe") for k in self.cfg.layer_pattern)
 
     def _sync_pages_leaves(self) -> None:
         """Point every paged group's ``pages`` leaf at (a view of) the
