@@ -9,7 +9,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 register and spill lines for every instantiation;
   2. kernels  — each CUDA kernel against its plain PyTorch version at the
                 shapes its serve path gives it (yi-9b: dh 128; llama4-scout:
-                40 heads over 8 kv; musicgen-large: MHA at dh 64; gemma3-12b:
+                40 heads over 8 kv; musicgen-large: MHA at dh 64;
+                deepseek-v2: flash at 128 heads of qk 192 / v 128;
+                hymba-1.5b: 25 heads over 5 at dh 64, flash with window
+                1024 and isp decode on its rings; gemma3-12b:
                 dh 240, window 1024, and its 262144 x 3840 vocabulary table
                 for isp_gather: 8 ids of a decode step and 8 x 1024 of a
                 prefill at offset 0, a four-shard layout with weights and
@@ -22,9 +25,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 slot, a ring wrapped inside a span, rows that are not
                 16-byte aligned, the shared track) and flash's (Sq not a
                 multiple of the q tile, q_offset > 0 with and without a
-                window, one query row over a long cache) at both head dims
-                and, for both decode and flash, at the other families'
-                head shapes (NEW_HEADS: groups 5, 1 at dh 64, 12, 16, 8);
+                window, one query row over a long cache) at both head dims,
+                flash also at qk 192 / v 128 (MLA_HEADS; the unequal pairs
+                it has no instantiation for raise) and, for both decode and
+                flash, at the other families' head shapes (NEW_HEADS:
+                groups 5, 1 at dh 64, 12, 16, 8, hymba's 5 at dh 64; isp
+                decode's edges at hymba's heads too); paged decode at
+                hymba's heads timed as an edge off every path (logged, not
+                in the kernels record);
                 then timed with
                 CUDA events (median of 25 runs, L2 flushed between runs, a
                 spin on the card before each so that the interval is device
@@ -142,7 +150,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 launches, paged decode 48 a step; the last token equals a
                 one-shot prefill's but at a near-tie); then 8 token requests
                 through the engine, k_block 8 and 1 (identical tokens); one
-                decode tick profiled.
+                decode tick profiled;
+  13. deepseek — deepseek-v2-236b in bfloat16 at every published width
+                (d_model 5120, 128 MLA heads, q rank 1536, kv rank 512, qk
+                128 + 64, v 128, 160 experts of d_ff 1536 top-6 + 2 shared,
+                vocabulary 102,400), its depth cut from 60 to
+                DEEPSEEK_LAYERS = 4 layers: 8 requests (prompts 16..700,
+                max_new=32) through ServeEngine(num_slots=8, max_len=1024,
+                k_block=8) on strips (the compressed MLA cache); all ok,
+                flash on every layer of every prefill call, no decode
+                kernel (the absorbed decode is plain tensor code, as in the
+                reference); k_block=1 gives identical tokens; one decode
+                tick profiled; KV bytes a token compressed against
+                unabsorbed; layer 0's absorbed decode step in fp32 against
+                the unabsorbed computation (MLA_REL_TOL);
+  14. hymba   — hymba-1.5b whole (32 hybrid layers: window-1024 GQA at 25
+                heads over 5 of dh 64 beside Mamba) in bfloat16: 8 requests
+                as above in exact-length buckets on strips; all ok, flash on
+                all 32 layers of every prefill call, isp decode on all 32
+                rings of every step; k_block=1 gives identical tokens; one
+                decode tick profiled;
+  15. xlstm   — xlstm-125m whole (6 mLSTM + 6 sLSTM blocks, no attention)
+                in bfloat16: 8 requests as above; all ok, no kernel
+                launched, every weight and cache on the card; k_block=1
+                gives identical tokens; one sLSTM layer's sequential
+                prefill timed.
 Each path's launch counters are set to 0 just before it runs and read just
 after; the launches that hold a kernel against its plain version do not
 count.
@@ -215,9 +247,14 @@ BF16_FLIP_MARGIN = 0.125
 # (H, Hkv, dh) of the other model families on the card: llama4-scout
 # (group 5, so 3 of paged decode's 8 head lanes idle), musicgen-large (MHA
 # at dh 64), starcoder2-15b (group 12: a second head chunk half empty),
-# llama3-405b (group 16) and chameleon-34b (group 8 at d_model 8192)
+# llama3-405b (group 16), chameleon-34b (group 8 at d_model 8192) and
+# hymba-1.5b (25 heads over 5 at dh 64, group 5; its window of 1024 is in
+# the flash and isp decode rows)
 NEW_HEADS = ((40, 8, 128), (32, 32, 64), (48, 4, 128), (128, 8, 128),
-             (64, 8, 128))
+             (64, 8, 128), (25, 5, 64))
+# deepseek-v2's MLA prefill: (H, Hkv, q/k head dim, v head dim) through
+# the flash kernel's (192, 128) instantiation
+MLA_HEADS = (128, 128, 192, 128)
 
 
 def log(*a):
@@ -431,14 +468,16 @@ def strip_case(layout, dtype, dev, gen):
     shapes, one track kpos (S,) with half the rows empty and a scalar cur.
     "ring": gemma3-12b's window layers, per-slot rings kpos (8, 1024) with
     wrapped slots, an empty slot (3) and a slot with fewer keys than the
-    window (7), window 1024."""
+    window (7), window 1024.  "hymba ring": the same tracks at hymba-1.5b's
+    heads (25 over 5 at dh 64)."""
     if layout == "shared":
         B, H, Hkv, dh, S, window = 8, 32, 4, 128, 1024, None
         pos = torch.arange(S, dtype=torch.int32)
         kpos = torch.where(pos < S // 2, pos, -1)
         cur = torch.tensor(S // 2 - 1, dtype=torch.int32)
     else:
-        B, H, Hkv, dh, S, window = 8, 16, 8, 240, 1024, 1024
+        B, S, window = 8, 1024, 1024
+        H, Hkv, dh = (16, 8, 240) if layout == "ring" else (25, 5, 64)
         now = [1500, 2047, 1023, 0, 700, 1024, 1999, 50]
         kpos = ring_tracks(now, S, empty=(3,))
         cur = torch.tensor(now, dtype=torch.int32)
@@ -502,7 +541,7 @@ def isp_edges(dev, gen):
     from repro_torch.kernels import isp_decode as isp
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     B, S = 8, 1024
-    for H, Hkv, dh in ((32, 4, 128), (16, 8, 240)):
+    for H, Hkv, dh in ((32, 4, 128), (16, 8, 240), (25, 5, 64)):
         span, n_split = isp.split_plan(B, Hkv, S, n_sms)
         lengths = (span, 2 * span, span + 1, span - 1, 0, 1, S)
         kpos = torch.full((B, S), -1, dtype=torch.int32)
@@ -543,7 +582,8 @@ def isp_edges(dev, gen):
                         "empty slot: l != 0"
                     assert bool((got[2][4] == -1e30).all()), \
                         "empty slot: m != -1e30"
-        log(f"[kernels] isp_decode edges dh={dh}: {n_split} splits of {span} "
+        log(f"[kernels] isp_decode edges H={H} Hkv={Hkv} dh={dh}: {n_split} "
+            f"splits of {span} "
             f"rows, per-slot valid rows {list(lengths)} and a ring wrapped "
             f"at row {wrap % S}, shared rows [{lo}, {hi}), windows None and "
             f"300: max abs err " + ", ".join(
@@ -552,33 +592,47 @@ def isp_edges(dev, gen):
 
 
 def flash_edges(dev, gen):
-    """flash_attention edges at both serve head dims and at NEW_HEADS, in
-    both dtypes, against the plain version: Sq not a multiple of the
-    64-row q tile, q_offset > 0 with and without a window whose edge
-    crosses the key tiles, and one query row over a long cache."""
+    """flash_attention edges at both serve head dims, at NEW_HEADS and at
+    MLA's qk 192 / v 128 (MLA_HEADS: a wrong v stride or output width
+    shows only where the two dims differ), in both dtypes, against the
+    plain version: Sq not a multiple of the 64-row q tile, q_offset > 0
+    with and without a window whose edge crosses the key tiles, and one
+    query row over a long cache.  Then the pairs the kernel has no
+    instantiation for raise."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     cases = ((100, 100, 0), (65, 200, 135), (1, 300, 299))
-    for H, Hkv, dh, windows in ((32, 4, 128, (None, 48)),
-                                (16, 8, 240, (1024, 48))) + tuple(
-            (H, Hkv, dh, (None, 48)) for H, Hkv, dh in NEW_HEADS):
+    for H, Hkv, dh, dv, windows in ((32, 4, 128, 128, (None, 48)),
+                                    (16, 8, 240, 240, (1024, 48)),
+                                    MLA_HEADS + ((None, 48),)) + tuple(
+            (H, Hkv, dh, dh, (None, 48)) for H, Hkv, dh in NEW_HEADS):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
             for (Sq, Skv, qoff), w in ((c, w) for c in cases
                                        for w in windows):
                 q, k, v = r(2, Sq, H, dh), r(2, Skv, Hkv, dh), \
-                    r(2, Skv, Hkv, dh)
+                    r(2, Skv, Hkv, dv)
                 got = fa.flash_attention(q, k, v, window=w, q_offset=qoff)
                 want = ref.chunked_attention(q, k, v, window=w,
                                              q_offset=qoff)
                 torch.cuda.synchronize()
+                assert got.shape == (2, Sq, H, dv), got.shape
                 errs[dtype] = max(errs.get(dtype, 0.0),
                                   max_err([got], [want], dtype))
         log(f"[kernels] flash_attention edges H={H} Hkv={Hkv} dh={dh} "
-            f"(group {H // Hkv}) windows {windows} "
+            f"dv={dv} (group {H // Hkv}) windows {windows} "
             f"(Sq, Skv, q_offset) in {cases}: max abs err fp32 "
             f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
+    for dh, dv in ((192, 192), (128, 192), (192, 64)):
+        q, k = (torch.zeros(1, 8, 4, dh, device=dev) for _ in range(2))
+        try:
+            fa.flash_attention(q, k, torch.zeros(1, 8, 4, dv, device=dev))
+        except ValueError:
+            continue
+        raise AssertionError(f"flash_attention took (dh, dv) = {(dh, dv)}")
+    log("[kernels] flash_attention refuses (dh, dv) in (192, 192), "
+        "(128, 192), (192, 64)")
 
 
 def gather_rows(dev, flushes):
@@ -620,6 +674,31 @@ def gather_rows(dev, flushes):
             del src, dst
         del table
     return rows
+
+
+def paged_edge_timing(dev, gen, flush):
+    """paged_decode at hymba-1.5b's heads (25 over 5 at dh 64), an edge off
+    every serve path (hymba's window layers decode on rings): held to the
+    plain version in both dtypes and timed beside it and its bound, logged
+    but kept out of the kernels record (no path launches it)."""
+    from repro_torch.kernels import paged_decode as pd
+    kw = dict(H=25, Hkv=5, dh=64)
+    for dtype in (torch.float32, torch.bfloat16):
+        args, valid = decode_case(dtype, dev, gen, **kw)
+        err = max_err(pd.paged_decode_partial(*args),
+                      pd.paged_decode_partial_ref(*args), dtype)
+    q, kp = args[0], args[1]
+    B, H, dh = q.shape
+    Hkv = kp.shape[2]
+    nbytes = (q.numel() * 2 + 2 * valid * Hkv * dh * 2 + args[3].numel() * 4
+              + B * 4 + B * H * dh * 4 + 2 * B * H * 4)
+    bound_ms, bound_by = bound(nbytes, 4 * valid * H * dh, torch.bfloat16)
+    ms = time_ms(lambda: pd.paged_decode_partial(*args), flush)
+    plain = time_ms(lambda: pd.paged_decode_partial_ref(*args), flush)
+    log(f"[kernels] paged_decode hymba heads (edge, off every path) B={B} "
+        f"H={H} Hkv={Hkv} dh={dh} ({valid} valid keys): bf16 max abs err "
+        f"{err:.3g}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), library none")
 
 
 def kernel_phase(dev):
@@ -678,11 +757,13 @@ def kernel_phase(dev):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
 
     paged_edges(dev, gen)
+    paged_edge_timing(dev, gen, flush)
 
     # -- dense-strip decode: the Pallas layout (yi-9b's shapes, the strip
     # phase) and gemma3-12b's per-slot window rings
     for path, layout in (("yi-9b strip", "shared"),
-                         ("gemma3-12b serve", "ring")):
+                         ("gemma3-12b serve", "ring"),
+                         ("hymba serve", "hymba ring")):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             args, window, valid = strip_case(layout, dtype, dev, gen)
@@ -690,7 +771,7 @@ def kernel_phase(dev):
             want = isp.decode_partial_ref(*args, window=window)
             torch.cuda.synchronize()
             errs[dtype] = max_err(got, want, dtype)
-            if layout == "ring":
+            if layout != "shared":
                 assert float(got[0][3].abs().max()) == 0.0, \
                     "empty slot: acc != 0"
                 assert float(got[1][3].abs().max()) == 0.0, \
@@ -719,58 +800,72 @@ def kernel_phase(dev):
             plain_ms=time_ms(lambda: isp.decode_partial_ref(
                 *args, window=window), flush),
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-        if layout == "ring":      # a bytes-bound row under the clean flush
+        if layout != "shared":    # a bytes-bound row under the clean flush
             rows[-1]["ms_clean_l2"] = time_ms(
                 lambda: isp.decode_partial(*args, window=window), flushes[1])
     isp_edges(dev, gen)
 
     # -- flash attention: yi-9b's prefill (dh 128, causal), gemma3-12b's
     # window layers (dh 240, window 1024), llama4-scout's and
-    # musicgen-large's prefill
-    for path, (B, S, H, Hkv, dh, window) in (
-            ("yi-9b serve", (8, 704, 32, 4, 128, None)),
-            ("gemma3-12b serve", (8, 1536, 16, 8, 240, 1024)),
-            ("llama4-scout serve", (8, 704, 40, 8, 128, None)),
-            ("musicgen-large serve", (8, 704, 32, 32, 64, None))):
+    # musicgen-large's prefill, deepseek-v2's MLA prefill (qk 192 / v 128)
+    # and hymba-1.5b's window layers (25 heads over 5 at dh 64)
+    for path, (B, S, H, Hkv, dh, dv, window) in (
+            ("yi-9b serve", (8, 704, 32, 4, 128, 128, None)),
+            ("gemma3-12b serve", (8, 1536, 16, 8, 240, 240, 1024)),
+            ("llama4-scout serve", (8, 704, 40, 8, 128, 128, None)),
+            ("musicgen-large serve", (8, 704, 32, 32, 64, 64, None)),
+            ("deepseek-v2 serve", (8, 704) + MLA_HEADS + (None,)),
+            ("hymba serve", (8, 704, 25, 5, 64, 64, 1024))):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
-            q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh)
+            q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv)
             got = fa.flash_attention(q, k, v, window=window)
             want = ref.chunked_attention(q, k, v, window=window)
             torch.cuda.synchronize()
             errs[dtype] = max_err([got], [want], dtype)
             log(f"[kernels] flash_attention {path} {dtype}: max abs err "
                 f"{errs[dtype]:.3g}")
+            del got, want
         # q/k/v are the bf16 inputs of the last iteration; (query, key)
-        # pairs the causal mask and the window leave
+        # pairs the causal mask and the window leave; q is read and the
+        # output (B, S, H, dv) written once
         w = S if window is None else window
         pairs = sum(min(i + 1, w) for i in range(S))
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-        bound_ms, bound_by = bound(nbytes, 4 * dh * pairs * B * H,
+        nbytes = (q.numel() + B * S * H * dv + k.numel() + v.numel()) * 2
+        bound_ms, bound_by = bound(nbytes, 2 * (dh + dv) * pairs * B * H,
                                    torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if window is None:
-            lib = lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                               enable_gqa=True)
         else:
             i = torch.arange(S, device=dev)
             mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
-            lib = lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                               enable_gqa=True)
+        try:
+            library_ms = time_ms(lib, flush)
+        except RuntimeError as e:      # no SDPA backend takes this shape
+            library_ms = None
+            log(f"[kernels] flash_attention {path}: library yardstick none, "
+                f"scaled_dot_product_attention refused the shape: "
+                f"{str(e).splitlines()[0][:200]}")
         rows.append(dict(
             name="flash_attention", kernel="flash_attention", path=path,
             route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:77",
             dtype="bfloat16", shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
-            f"causal window={window}",
+            f"dv={dv} causal window={window}",
             max_abs_err=errs[torch.bfloat16],
             max_abs_err_fp32=errs[torch.float32],
             ms=time_ms(lambda: fa.flash_attention(q, k, v, window=window),
                        flush),
             plain_ms=time_ms(lambda: ref.chunked_attention(
                 q, k, v, window=window), flush),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(lib,
-                                                                     flush)))
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        del q, k, v, qt, kt, vt, lib
     flash_edges(dev, gen)
 
     rows += gather_rows(dev, flushes)
@@ -2370,6 +2465,276 @@ def musicgen_phase(dev):
     free_device()
     return launches, fe_launches
 
+DEEPSEEK_LAYERS = 4        # of 60: 16.94 B parameters, 33.9 GB in bf16
+# absorbed MLA decode against the unabsorbed computation in fp32 at one
+# layer: the two take the same sums in another association (q_nope through
+# wk_b first, or wk_b through the cached rows first; 128- and 512-term fp32
+# sums, ~1e-6 of a value each), so they agree far inside 1e-4 of the
+# output's largest value
+MLA_REL_TOL = 1e-4
+
+
+def check_strip_serve(tag, cfg, eng, results, launches, prefill_calls,
+                      requests, flash_layers, isp_layers):
+    """Every request ok with its max_new tokens in the vocabulary, on the
+    strip layout (no pager), and the launch counts exact: flash on
+    ``flash_layers`` layers of every prefill call, isp decode on
+    ``isp_layers`` of every step, paged decode never."""
+    st = eng.stats
+    assert eng.kv_layout == "strip" and eng.pager is None, tag
+    assert len(results) == len(requests) and all(
+        r.status == "ok" for r in results), [r.status for r in results]
+    assert [len(r.tokens) for r in results] == [m for _, m in requests], tag
+    assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
+    assert prefill_calls > 0 and st.decode_steps > 0, tag
+    assert launches["flash_attention"] == flash_layers * prefill_calls, \
+        (tag, launches, prefill_calls)
+    assert launches["isp_decode"] == isp_layers * st.decode_steps, \
+        (tag, launches, st.decode_steps)
+    assert launches["paged_decode"] == 0, (tag, launches)
+
+
+def family_requests(cfg, seed, n=8):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, cfg.vocab_size,
+                          int(rng.integers(16, 701))).tolist(), 32)
+            for _ in range(n)]
+
+
+def serve_twice(tag, cfg, params, requests, dev, check):
+    """Serve ``requests`` at k_block 8 (checked by ``check``, reported),
+    then at k_block 1: the same tokens.  Returns (the k_block 8 run's
+    launches, its decode ms a step)."""
+    eng, results, wall, launches, prefill_calls = serve(cfg, params,
+                                                        requests, 8, dev)
+    check(eng, results, launches, prefill_calls)
+    serve_report(tag, eng, results, wall, launches, prefill_calls)
+    st = eng.stats
+    step_ms = st.decode_s * 1e3 / st.decode_steps
+    log(f"[{tag}] prefill {warm_ms(phases(eng.tele, 'prefill')):.1f} ms a "
+        f"warm call, TTFT p50 {st.latency.p50_ttft_s * 1e3:.1f} ms, host "
+        f"{step_ms:.2f} ms a decode step")
+    tokens = [r.tokens for r in results]
+    del eng
+    free_device()
+    eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)
+    assert [r.tokens for r in results1] == tokens, \
+        f"{tag}: k_block=1 and k_block=8 disagree"
+    log(f"[{tag}] k_block=1 gives identical tokens ({wall1:.2f} s wall, "
+        f"{eng1.stats.decode_s * 1e3 / eng1.stats.decode_steps:.2f} ms per "
+        f"step)")
+    del eng1
+    free_device()
+    return launches, step_ms
+
+
+def profile_tick(cfg, params, requests, dev, label, step_ms):
+    """A warm engine: one tick admits the requests, the next is profiled
+    (decode only)."""
+    from repro_torch.train.serve_loop import ServeEngine
+    eng = ServeEngine(cfg, params, num_slots=8, max_len=1024, k_block=8,
+                      device=dev)
+    for prompt, max_new in requests:
+        eng.submit(prompt, max_new=max_new)
+    eng.step()
+    profile_window(eng, label, step_ms=step_ms)
+    del eng
+    free_device()
+
+
+def mla_decode_check(cfg, params, dev):
+    """Layer 0's MLA in fp32 on the card: a prefill of 300 rows of seeded
+    hidden states into a compressed strip, then one absorbed decode step
+    (mla_apply) against the unabsorbed computation on the same cache: k =
+    [wk_b ckv, rope key], v = wv_b ckv materialised for every cached row,
+    plain masked softmax attention, wo.  Within MLA_REL_TOL of the
+    output's largest value."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.layers import apply_rope
+    a = cfg.attn
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    mla = attn_mod.MLA(cfg32, torch.float32, dev)
+    with torch.no_grad():
+        for name, p in params.blocks[0].attn.named_parameters():
+            getattr(mla, name).copy_(p.float())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    B, S, D = 2, 300, cfg.d_model
+    x = torch.randn(B, S + 1, D, generator=gen, device=dev)
+    with torch.no_grad():
+        _, pre = attn_mod.mla_apply(mla, x[:, :S], torch.arange(
+            S, dtype=torch.int32, device=dev), cfg32, None, "prefill")
+        cache = attn_mod.init_mla_cache(cfg32, B, 512, torch.float32, dev)
+        cache["ckv"][:, :S] = pre["ckv"]
+        cache["krope"][:, :S] = pre["krope"]
+        cache["kpos"][:S] = pre["kpos"]
+        pos = torch.tensor([S], dtype=torch.int32, device=dev)
+        got, cache = attn_mod.mla_apply(mla, x[:, S:], pos, cfg32, cache,
+                                        "decode")
+        # unabsorbed, from the cache the step left
+        q_nope, q_rope = attn_mod._mla_q(mla, x[:, S:], cfg32)
+        q_rope = apply_rope(q_rope, pos[None, :], a.rope_base)
+        n = S + 1
+        ckv, kr = cache["ckv"][:, :n], cache["krope"][:, :n]
+        k = torch.cat([torch.einsum("bsr,rhk->bshk", ckv, mla.wk_b),
+                       kr[:, :, None].expand(-1, -1, cfg.num_heads, -1)], -1)
+        v = torch.einsum("bsr,rhv->bshv", ckv, mla.wv_b)
+        q = torch.cat([q_nope, q_rope], -1)[:, 0]              # (B, H, 192)
+        s = torch.einsum("bhd,bshd->bhs", q, k) * (
+            a.qk_nope_dim + a.qk_rope_dim) ** -0.5
+        want = torch.einsum("bhs,bshv->bhv", torch.softmax(s, -1), v)
+        want = torch.einsum("bhv,hvd->bd", want, mla.wo)[:, None]
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    assert torch.isfinite(got).all() and err <= MLA_REL_TOL * scale, \
+        (err, scale)
+    log(f"[deepseek mla] layer 0 in fp32: absorbed decode over the "
+        f"compressed cache of {n} rows vs unabsorbed (k, v materialised, "
+        f"plain attention): max abs err {err:.3g} against max |out| "
+        f"{scale:.4g} (bound {MLA_REL_TOL:g} of it)")
+    del mla, cache, pre, k, v
+    free_device()
+
+
+def deepseek_phase(dev):
+    """deepseek-v2-236b in bf16 at every published width, depth cut to
+    DEEPSEEK_LAYERS: 8 requests (prompts 16..700, max_new 32) through the
+    engine on strips (MLA's compressed cache), k_block 8 then 1 (identical
+    tokens), flash on every layer of every prefill call and no decode
+    kernel (the absorbed decode is plain tensor code); one decode tick
+    profiled; the MLA decode check.  Returns the k_block 8 run's
+    launches."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    full = get_config("deepseek-v2-236b")
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_LAYERS)
+    a, m = cfg.attn, cfg.moe
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    log(f"[deepseek] deepseek-v2-236b bf16 at full width: d_model "
+        f"{cfg.d_model}, {cfg.num_heads} MLA heads (q rank {a.q_lora_rank}, "
+        f"kv rank {a.kv_lora_rank}, qk {a.qk_nope_dim} + {a.qk_rope_dim}, v "
+        f"{a.v_head_dim}), {m.num_experts} experts of d_ff {m.d_ff_expert} "
+        f"top-{m.top_k} + {m.num_shared_experts} shared of {m.d_ff_shared}, "
+        f"vocab {cfg.vocab_size}; depth cut from {full.num_layers} to "
+        f"{cfg.num_layers} layers (the whole model is "
+        f"{M.count_params(full) / 1e9:.3f} B parameters, "
+        f"{M.count_params(full) * 2 / 1e9:.1f} GB in bf16): "
+        f"{M.count_params(cfg) / 1e9:.3f} B parameters "
+        f"({cfg.active_param_count() / 1e9:.3f} B active), "
+        f"{weight_gb(params):.2f} GB of weights, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    compressed = (a.kv_lora_rank + a.qk_rope_dim) * 2
+    unabsorbed = cfg.num_heads * (a.qk_nope_dim + a.qk_rope_dim
+                                  + a.v_head_dim) * 2
+    log(f"[deepseek] KV bytes a token a layer: {compressed} compressed "
+        f"(ckv {a.kv_lora_rank} + rope key {a.qk_rope_dim}, bf16) against "
+        f"{unabsorbed} for the unabsorbed per-head K/V "
+        f"({unabsorbed / compressed:.1f}x)")
+    requests = family_requests(cfg, SEED + 7)
+    log(f"[deepseek] prompt lengths {[len(p) for p, _ in requests]}")
+    L = cfg.num_layers
+    launches, step_ms = serve_twice(
+        "deepseek", cfg, params, requests, dev,
+        lambda e, r, ln, pc: check_strip_serve("deepseek", cfg, e, r, ln, pc,
+                                               requests, L, 0))
+    profile_tick(cfg, params, requests, dev, "deepseek decode block tick",
+                 step_ms)
+    mla_decode_check(cfg, params, dev)
+    del params
+    free_device()
+    return launches
+
+
+def hymba_phase(dev):
+    """hymba-1.5b whole in bf16: 8 requests (prompts 16..700, max_new 32;
+    exact-length buckets, the Mamba state would integrate pad tokens)
+    through the engine on strips, k_block 8 then 1 (identical tokens);
+    flash on all 32 window layers of every prefill call, isp decode on all
+    32 rings of every step; one decode tick profiled.  Returns the k_block
+    8 run's launches."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("hymba-1.5b")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    assert all(b.ssm.a_log.dtype == torch.float32 for b in params.blocks)
+    log(f"[hymba] hymba-1.5b bf16 whole: {L} hybrid layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv of dh "
+        f"{cfg.resolved_head_dim}, window {cfg.attn.window}, Mamba d_in "
+        f"{cfg.ssm.expand * cfg.d_model} x state {cfg.ssm.state_dim}, vocab "
+        f"{cfg.vocab_size}; {M.count_params(cfg) / 1e9:.3f} B parameters, "
+        f"{weight_gb(params):.2f} GB of weights, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    requests = family_requests(cfg, SEED + 8)
+    log(f"[hymba] prompt lengths {[len(p) for p, _ in requests]}")
+    launches, step_ms = serve_twice(
+        "hymba", cfg, params, requests, dev,
+        lambda e, r, ln, pc: check_strip_serve("hymba", cfg, e, r, ln, pc,
+                                               requests, L, L))
+    profile_tick(cfg, params, requests, dev, "hymba decode block tick",
+                 step_ms)
+    del params
+    free_device()
+    return launches
+
+
+def xlstm_phase(dev):
+    """xlstm-125m whole in bf16 (6 mLSTM + 6 sLSTM blocks, no attention, no
+    KV): 8 requests (prompts 16..700, max_new 32) through the engine,
+    k_block 8 then 1 (identical tokens); no kernel launched, every weight
+    and cache on the card; one sLSTM layer's sequential prefill timed."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm as ssm_mod
+    cfg = get_config("xlstm-125m")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    log(f"[xlstm] xlstm-125m bf16 whole: {cfg.num_layers} layers "
+        f"{cfg.layer_pattern[:2]} x {cfg.num_layers // 2}, d_model "
+        f"{cfg.d_model}, {cfg.ssm.num_heads} heads, vocab {cfg.vocab_size}; "
+        f"{M.count_params(cfg) / 1e9:.4f} B parameters, "
+        f"{weight_gb(params):.3f} GB of weights")
+    requests = family_requests(cfg, SEED + 9)
+    log(f"[xlstm] prompt lengths {[len(p) for p, _ in requests]}")
+
+    def check(eng, results, launches, prefill_calls):
+        check_strip_serve("xlstm", cfg, eng, results, launches,
+                          prefill_calls, requests, 0, 0)
+        assert sum(launches.values()) == 0, launches
+        leaves = [t for g in eng.caches.values() for t in g.values()]
+        assert leaves and all(t.device == dev for t in leaves)
+        assert all(p.device == dev for p in params.parameters())
+    launches, step_ms = serve_twice("xlstm", cfg, params, requests, dev,
+                                    check)
+    # one sLSTM layer's sequential prefill over the longest prompt's rows
+    n = max(len(p) for p, _ in requests)
+    b1 = params.blocks[1]
+    assert b1.kind == "slstm"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = torch.randn(8, n, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        ssm_mod.slstm_apply(b1.core, x[:, :16], cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = ssm_mod.slstm_apply(b1.core, x, cfg)
+        torch.cuda.synchronize()
+    slstm_ms = (time.perf_counter() - t0) * 1e3
+    assert torch.isfinite(y).all()
+    log(f"[xlstm] one sLSTM layer's prefill over 8 x {n} rows: "
+        f"{slstm_ms:.1f} ms host clock ({n} sequential steps, "
+        f"{slstm_ms / n * 1e3:.0f} us a step)")
+    del params
+    free_device()
+    return launches
+
 
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and print
@@ -2498,6 +2863,12 @@ def main() -> int:
     (path_launches["musicgen-large serve"],
      path_launches["musicgen-large frontend"]) = musicgen_phase(dev)
     lap("musicgen-large")
+    path_launches["deepseek-v2 serve"] = deepseek_phase(dev)
+    lap("deepseek-v2")
+    path_launches["hymba serve"] = hymba_phase(dev)
+    lap("hymba-1.5b")
+    path_launches["xlstm serve"] = xlstm_phase(dev)
+    lap("xlstm-125m")
     for row in rows:
         row["launches"] = path_launches[row["path"]][row["kernel"]]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")

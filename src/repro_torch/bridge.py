@@ -12,7 +12,7 @@ imports JAX); ``chip_smoke.py`` draws its weights with the port's own
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -20,15 +20,7 @@ import torch
 from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import LM, group_pattern
-
-
-def _flat(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _flat(v, f"{prefix}{k}.")
-        else:
-            yield f"{prefix}{k}", v
+from repro_torch.models.model import LM, _flat, group_pattern
 
 
 def state_from_jax(tree: Dict[str, Any], cfg: ModelConfig

@@ -2,10 +2,13 @@
 them; each later slice adds the families it ports."""
 from repro_torch.configs import (  # noqa: F401
     chameleon_34b,
+    deepseek_v2_236b,
     gemma3_12b,
+    hymba_1_5b,
     llama3_405b,
     llama4_scout_17b_a16e,
     musicgen_large,
     starcoder2_15b,
+    xlstm_125m,
     yi_9b,
 )

@@ -1,7 +1,8 @@
 """Decode attention (port of ``repro/core/decode_attention.py``): over a
 dense KV strip with explicit key positions (``decode_attention``), over
-a paged KV pool (``paged_decode_attention``), and a prefill chunk over a
-paged KV pool (``chunk_prefill_attention``).
+a paged KV pool (``paged_decode_attention``), a prefill chunk over a
+paged KV pool (``chunk_prefill_attention``), and MLA's absorbed decode
+over the compressed cache (``mla_decode_attention``).
 
 ISP decode under a sequence-sharded plan: each rank holds its own
 contiguous block of the strip's rows, and the per-step query goes to where
@@ -88,3 +89,26 @@ def chunk_prefill_attention(q, kpool, vpool, pages, qpos, *,
     + chunk in one span, masked causally per row."""
     k, v, kpos = pages_to_strips((kpool, vpool), pages, kpool.shape[1])
     return kops.chunk_prefill_attention(q, k, v, kpos, qpos, scale=scale)
+
+
+def mla_decode_attention(q_nope, q_rope, ckv, krope, kpos, cur_pos, wk_b, *,
+                         scale: float, plan=None):
+    """Absorbed-MLA decode over the compressed cache.
+
+    q_nope: (B, H, n); q_rope: (B, H, r); ckv: (B, S, R); krope: (B, S, r);
+    kpos (S,) with a scalar cur_pos, or (B, S) with cur_pos (B,); wk_b:
+    (R, H, n).  q_nope is absorbed through wk_b in fp32, so the scores are
+    taken against the 576-value compressed rows directly and no per-head
+    K/V is materialised.  Returns the probability-weighted ckv context
+    (B, H, R) in fp32; the caller applies wv_b.  Like the reference, this
+    is plain tensor code on every device (no Pallas kernel there, no CUDA
+    kernel here, no launch counted).  The reference's sequence-sharded
+    path (a partial per rank, combined over the sequence axes) is not
+    ported."""
+    if _seq_sharded(plan):
+        raise NotImplementedError("MLA decode under a sequence-sharded plan "
+                                  "is not ported (ROADMAP queue 1 item 5)")
+    q_eff = torch.einsum("bhn,rhn->bhr", q_nope.float(), wk_b.float())
+    acc, l, m = ref.mla_decode_scores_partial(q_eff, q_rope, ckv, krope,
+                                              kpos, cur_pos, scale=scale)
+    return ref.combine_partials(acc[None], l[None], m[None], axis=0)

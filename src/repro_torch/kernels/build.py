@@ -42,7 +42,7 @@ KERNELS = {
     "paged_decode": ("paged_decode.cu", "repro_paged_decode",
                      [_P] * 11 + [_I] * 9 + [_F, _I, _P]),
     "flash_attention": ("flash_attention.cu", "repro_flash_attention",
-                        [_P] * 4 + [_I] * 9 + [_F, _I, _P]),
+                        [_P] * 4 + [_I] * 10 + [_F, _I, _P]),
     "isp_decode": ("isp_decode.cu", "repro_isp_decode",
                    [_P] * 11 + [_I] * 5 + [_L] * 6 + [_I] * 6
                    + [_F, _I, _P]),

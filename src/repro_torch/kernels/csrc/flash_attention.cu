@@ -1,5 +1,9 @@
 // Forward blocked attention with an online softmax (causal, optional sliding
-// window, q_offset, GQA), output in the input dtype.
+// window, q_offset, GQA), output in the input dtype.  The q/k head dim DQK
+// and the v/out head dim DV are separate template parameters: (64, 64),
+// (128, 128) and (240, 240) for the GQA families, (192, 128) for
+// deepseek-v2's MLA prefill (128 nope + 64 rope dims against 128 value
+// dims), as the op's contract allows (k/v (B, Skv, Hkv, dh[v])).
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas `_kernel`, grid (B, Hkv, G, nq, nk) with VMEM scratch carried
@@ -18,12 +22,12 @@
 //     warp owns 16 q rows; heavy (late causal) q tiles are launched first;
 //   * Q.K^T and P.V run on mma.sync.m16n8k16 with bf16 inputs and fp32
 //     accumulation, the operands fed by ldmatrix (V by ldmatrix.trans);
-//   * K/V tiles of BK keys (64, or 32 at dh 240) are staged in bf16 by
+//   * K/V tiles of BK keys (64, or 32 above DQK 128) are staged in bf16 by
 //     16-byte cp.async, double buffered; rows are padded by 8 elements so
 //     ldmatrix's eight 16-byte rows fall in distinct banks;
-//   * Q stays in registers up to dh 128; at dh 240 its fragments are read
-//     from shared memory at every k-step (the O accumulator alone is 120
-//     registers a thread there);
+//   * Q stays in registers up to DQK 128; above (192, 240) its fragments
+//     are read from shared memory at every k-step (the O accumulator alone
+//     is 120 registers a thread at DV 240);
 //   * the online softmax runs on the accumulator fragments (row max and
 //     sum over the quad's shuffles); P is rounded to bf16 in registers and
 //     becomes the A operand of P.V with no trip through shared memory;
@@ -33,7 +37,7 @@
 //   within the fp32 tolerance the port holds its kernels to):
 //   * one block per (64-row q tile, q head, batch row); four threads per
 //     query row, each owning a quarter of the head dims (float4 groups);
-//   * K/V tiles of 32 keys (16 above dh 128) staged in shared memory and
+//   * K/V tiles of 32 keys (16 above DQK 128) staged in shared memory and
 //     shared by the block's 64 rows.
 // Both: GQA maps q head h to kv head h / G, so no KV head is repeated in
 // memory; masked keys contribute p = 0 (scores of -1e30); the l == 0 -> 1
@@ -100,33 +104,36 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int DH>
+template <int DQK, int DV>
 struct TcShape {
-  static constexpr int BK = DH > 128 ? 32 : 64;   // keys per K/V tile
-  static constexpr int LD = DH + 8;               // padded smem row
-  static constexpr bool QREG = DH <= 128;         // Q fragments in regs
-  static constexpr int KSTEPS = DH / 16;          // k-steps of Q.K^T
-  static constexpr int NT_O = DH / 8;             // n-tiles of O
+  static constexpr int BK = DQK > 128 ? 32 : 64;  // keys per K/V tile
+  static constexpr int LD = DQK + 8;              // padded Q/K smem row
+  static constexpr int LDV = DV + 8;              // padded V smem row
+  static constexpr bool QREG = DQK <= 128;        // Q fragments in regs
+  static constexpr int KSTEPS = DQK / 16;         // k-steps of Q.K^T
+  static constexpr int NT_O = DV / 8;             // n-tiles of O
   static constexpr int NT_S = BK / 8;             // n-tiles of S
-  static constexpr int CPR = DH / 8;              // 16-byte copies a row
+  static constexpr int CPR = DQK / 8;             // 16-byte copies a Q/K row
+  static constexpr int CPR_V = DV / 8;            // 16-byte copies a V row
+  static constexpr int STAGE = BK * (LD + LDV);   // one K + V stage
   static constexpr size_t SMEM =
-      (size_t)(BQ + 4 * BK) * LD * sizeof(__nv_bfloat16);
+      (size_t)(BQ * LD + 2 * STAGE) * sizeof(__nv_bfloat16);
 };
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
-    const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, DH)
-    const __nv_bfloat16* __restrict__ k,   // (B, Skv, Hkv, DH)
-    const __nv_bfloat16* __restrict__ v,
-    __nv_bfloat16* __restrict__ out,       // (B, Sq, H, DH)
+    const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, DQK)
+    const __nv_bfloat16* __restrict__ k,   // (B, Skv, Hkv, DQK)
+    const __nv_bfloat16* __restrict__ v,   // (B, Skv, Hkv, DV)
+    __nv_bfloat16* __restrict__ out,       // (B, Sq, H, DV)
     int Sq, int Skv, int H, int Hkv, int causal, int window, int q_offset,
     float scale_log2) {
-  using S = TcShape<DH>;
-  constexpr int BK = S::BK, LD = S::LD;
+  using S = TcShape<DQK, DV>;
+  constexpr int BK = S::BK, LD = S::LD, LDV = S::LDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sq = smem;                       // [BQ][LD]
-  __nv_bfloat16* skv = smem + BQ * LD;            // [2][K, V][BK][LD]
+  __nv_bfloat16* skv = smem + BQ * LD;            // [2][K [BK][LD], V [BK][LDV]]
 
   const int h = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;      // heavy tiles first
@@ -145,10 +152,11 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
   if (window > 0 && q_lo - window + 1 > 0) kv_begin = q_lo - window + 1;
   kv_begin = (kv_begin / BK) * BK;
 
-  const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * DH;
-  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_row + (size_t)hk * DH;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_row + (size_t)hk * DH;
+  const size_t q_row = (size_t)H * DQK, k_row = (size_t)Hkv * DQK;
+  const size_t v_row = (size_t)Hkv * DV, o_row = (size_t)H * DV;
+  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * DQK;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * k_row + (size_t)hk * DQK;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * v_row + (size_t)hk * DV;
 
   // Q tile; rows past Sq are zero-filled
   for (int i = tid; i < BQ * S::CPR; i += TC_THREADS) {
@@ -158,14 +166,31 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
                in);
   }
   auto load_kv = [&](int k0, int st) {
-    __nv_bfloat16* ks = skv + st * 2 * BK * LD;
+    __nv_bfloat16* ks = skv + st * S::STAGE;
     __nv_bfloat16* vs = ks + BK * LD;
-    for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
-      const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
-      const bool in = k0 + r < Skv;
-      const size_t off = in ? (size_t)(k0 + r) * kv_row + c : 0;
-      cp_async16(ks + r * LD + c, kb + off, in);
-      cp_async16(vs + r * LD + c, vb + off, in);
+    // equal head dims keep the one loop of K and V rows they had before
+    // the split, so their instantiations compile as they did
+    if constexpr (DQK == DV) {
+      for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
+        const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
+        const bool in = k0 + r < Skv;
+        const size_t off = in ? (size_t)(k0 + r) * k_row + c : 0;
+        cp_async16(ks + r * LD + c, kb + off, in);
+        cp_async16(vs + r * LD + c, vb + off, in);
+      }
+    } else {
+      for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
+        const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
+        const bool in = k0 + r < Skv;
+        cp_async16(ks + r * LD + c,
+                   kb + (in ? (size_t)(k0 + r) * k_row + c : 0), in);
+      }
+      for (int i = tid; i < BK * S::CPR_V; i += TC_THREADS) {
+        const int r = i / S::CPR_V, c = (i - r * S::CPR_V) * 8;
+        const bool in = k0 + r < Skv;
+        cp_async16(vs + r * LDV + c,
+                   vb + (in ? (size_t)(k0 + r) * v_row + c : 0), in);
+      }
     }
   };
   if (kv_begin < kv_end) load_kv(kv_begin, 0);
@@ -197,7 +222,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
                                   (lane >> 4) * 8);
       }
     }
-    const __nv_bfloat16* ks = skv + (it & 1) * 2 * BK * LD;
+    const __nv_bfloat16* ks = skv + (it & 1) * S::STAGE;
     const __nv_bfloat16* vs = ks + BK * LD;
 
     // S = Q K^T (16 x BK per warp)
@@ -285,7 +310,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
       for (int dp = 0; dp < S::NT_O / 2; ++dp) {
         uint32_t bf[4];
         ldmatrix_x4_trans(bf, vs + (kk * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * LD +
+                                    ((lane >> 3) & 1) * 8) * LDV +
                                   dp * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dp], a, bf[0], bf[1]);
         mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
@@ -306,7 +331,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
     const int qi = q0 + wrow + g + 8 * r;
     if (qi >= Sq) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    __nv_bfloat16* ob = out + ((size_t)b * Sq + qi) * q_row + (size_t)h * DH;
+    __nv_bfloat16* ob = out + ((size_t)b * Sq + qi) * o_row + (size_t)h * DV;
 #pragma unroll
     for (int n = 0; n < S::NT_O; ++n)
       *reinterpret_cast<__nv_bfloat162*>(ob + n * 8 + 2 * tg) =
@@ -314,13 +339,13 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
   }
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       int B, int Sq, int Skv, int H, int Hkv, int causal,
                       int window, int q_offset, float scale,
                       cudaStream_t stream) {
-  const size_t smem = TcShape<DH>::SMEM;
-  auto kern = flash_fwd_tc<DH>;
+  const size_t smem = TcShape<DQK, DV>::SMEM;
+  auto kern = flash_fwd_tc<DQK, DV>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -336,18 +361,19 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 
 constexpr int TPR = 4;   // threads per query row
 
-template <int DH>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(BQ * TPR)
-flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DH)
-              const float* __restrict__ k,   // (B, Skv, Hkv, DH)
-              const float* __restrict__ v,
-              float* __restrict__ out,       // (B, Sq, H, DH)
+flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
+              const float* __restrict__ k,   // (B, Skv, Hkv, DQK)
+              const float* __restrict__ v,   // (B, Skv, Hkv, DV)
+              float* __restrict__ out,       // (B, Sq, H, DV)
               int Sq, int Skv, int H, int Hkv, int causal, int window,
               int q_offset, float scale) {
-  constexpr int NG = DH / 16;      // float4 groups per thread
-  constexpr int BK = DH > 128 ? 16 : 32;   // keys per shared-memory tile
-  __shared__ __align__(16) float ks[BK * DH];
-  __shared__ __align__(16) float vs[BK * DH];
+  constexpr int NG = DQK / 16;     // float4 groups of q/k per thread
+  constexpr int NGV = DV / 16;     // float4 groups of v/out per thread
+  constexpr int BK = DQK > 128 ? 16 : 32;  // keys per shared-memory tile
+  __shared__ __align__(16) float ks[BK * DQK];
+  __shared__ __align__(16) float vs[BK * DV];
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -357,16 +383,17 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DH)
   const int qpos = q_offset + qi;
   const bool live = qi < Sq;
 
-  // thread's dims: 16 * g + 4 * part + {0..3}, g in [0, NG)
-  float qr[NG * 4], acc[NG * 4];
-  const size_t qbase = (((size_t)b * Sq + (live ? qi : 0)) * H + h) * DH;
+  // thread's dims: 16 * g + 4 * part + {0..3}, g in [0, NG) for q/k and
+  // [0, NGV) for v/out
+  float qr[NG * 4], acc[NGV * 4];
+  const size_t qbase = (((size_t)b * Sq + (live ? qi : 0)) * H + h) * DQK;
 #pragma unroll
   for (int g = 0; g < NG; ++g)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < 4; ++e)
       qr[g * 4 + e] = live ? q[qbase + 16 * g + 4 * part + e] : 0.f;
-      acc[g * 4 + e] = 0.f;
-    }
+#pragma unroll
+  for (int i = 0; i < NGV * 4; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
 
   // keys any row of this tile may see
@@ -378,20 +405,38 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DH)
   if (window > 0 && q_lo - window + 1 > 0) kv_begin = q_lo - window + 1;
   kv_begin = (kv_begin / BK) * BK;
 
-  const size_t kv_row = (size_t)Hkv * DH;
+  const size_t k_row = (size_t)Hkv * DQK, v_row = (size_t)Hkv * DV;
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();
-    for (int e = threadIdx.x; e < BK * DH; e += blockDim.x) {
-      const int j = e / DH, d = e - j * DH;
-      const int kp = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kp < Skv) {
-        const size_t off = ((size_t)b * Skv + kp) * kv_row + (size_t)hk * DH + d;
-        kv = k[off];
-        vv = v[off];
+    if constexpr (DQK == DV) {    // as before the split (see load_kv)
+      for (int e = threadIdx.x; e < BK * DQK; e += blockDim.x) {
+        const int j = e / DQK, d = e - j * DQK;
+        const int kp = k0 + j;
+        float kv = 0.f, vv = 0.f;
+        if (kp < Skv) {
+          const size_t off =
+              ((size_t)b * Skv + kp) * k_row + (size_t)hk * DQK + d;
+          kv = k[off];
+          vv = v[off];
+        }
+        ks[e] = kv;
+        vs[e] = vv;
       }
-      ks[e] = kv;
-      vs[e] = vv;
+    } else {
+      for (int e = threadIdx.x; e < BK * DQK; e += blockDim.x) {
+        const int j = e / DQK, d = e - j * DQK;
+        const int kp = k0 + j;
+        ks[e] = kp < Skv
+                    ? k[((size_t)b * Skv + kp) * k_row + (size_t)hk * DQK + d]
+                    : 0.f;
+      }
+      for (int e = threadIdx.x; e < BK * DV; e += blockDim.x) {
+        const int j = e / DV, d = e - j * DV;
+        const int kp = k0 + j;
+        vs[e] = kp < Skv
+                    ? v[((size_t)b * Skv + kp) * v_row + (size_t)hk * DV + d]
+                    : 0.f;
+      }
     }
     __syncthreads();
 
@@ -399,7 +444,7 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DH)
     float tmax = kNegInf;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * DH);
+      const float4* kr = reinterpret_cast<const float4*>(ks + j * DQK);
       float dot = 0.f;
 #pragma unroll
       for (int g = 0; g < NG; ++g) {
@@ -420,14 +465,14 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DH)
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int i = 0; i < NG * 4; ++i) acc[i] *= alpha;
+    for (int i = 0; i < NGV * 4; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       const float p = s[j] == kNegInf ? 0.f : expf(s[j] - m_new);
       l += p;
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * DH);
+      const float4* vr = reinterpret_cast<const float4*>(vs + j * DV);
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
+      for (int g = 0; g < NGV; ++g) {
         const float4 vv = vr[4 * g + part];
         acc[g * 4 + 0] += p * vv.x;
         acc[g * 4 + 1] += p * vv.y;
@@ -440,21 +485,21 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DH)
 
   if (!live) return;
   const float inv = 1.f / (l == 0.f ? 1.f : l);
-  const size_t obase = (((size_t)b * Sq + qi) * H + h) * DH;
+  const size_t obase = (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
-  for (int g = 0; g < NG; ++g)
+  for (int g = 0; g < NGV; ++g)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       out[obase + 16 * g + 4 * part + e] = acc[g * 4 + e] * inv;
 }
 
-template <int DH>
+template <int DQK, int DV>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        void* out, int B, int Sq, int Skv, int H, int Hkv,
                        int causal, int window, int q_offset, float scale,
                        cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_fma<DH><<<grid, BQ * TPR, 0, stream>>>(
+  flash_fwd_fma<DQK, DV><<<grid, BQ * TPR, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
       Skv, H, Hkv, causal, window, q_offset, scale);
   return cudaGetLastError();
@@ -462,29 +507,30 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  window <= 0
-// means no window.  Returns cudaGetLastError() after the launch (0 =
-// success).
+// dh: the q/k head dim; dv: the v/out head dim.  dtype: 0 = float32 (CUDA
+// cores), 1 = bfloat16 (tensor cores).  window <= 0 means no window.
+// Returns cudaGetLastError() after the launch (0 = success), or
+// cudaErrorInvalidValue for a (dh, dv) pair with no instantiation.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
-                                     int Skv, int H, int Hkv, int dh,
+                                     int Skv, int H, int Hkv, int dh, int dv,
                                      int causal, int window, int q_offset,
                                      float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_FA_LAUNCH(DH)                                                  \
-  case DH:                                                                   \
-    return (int)(dtype == 0 ? launch_fma<DH>(q, k, v, out, B, Sq, Skv, H,    \
-                                             Hkv, causal, window, q_offset,  \
-                                             scale, s)                       \
-                            : launch_tc<DH>(q, k, v, out, B, Sq, Skv, H,     \
-                                            Hkv, causal, window, q_offset,   \
-                                            scale, s));
+#define REPRO_FA_LAUNCH(DQK, DV)                                             \
+  if (dh == DQK && dv == DV)                                                 \
+    return (int)(dtype == 0                                                  \
+                     ? launch_fma<DQK, DV>(q, k, v, out, B, Sq, Skv, H, Hkv, \
+                                           causal, window, q_offset, scale,  \
+                                           s)                                \
+                     : launch_tc<DQK, DV>(q, k, v, out, B, Sq, Skv, H, Hkv,  \
+                                          causal, window, q_offset, scale,   \
+                                          s));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (dh) {
-    REPRO_FA_LAUNCH(64)
-    REPRO_FA_LAUNCH(128)
-    REPRO_FA_LAUNCH(240)
-    default: return (int)cudaErrorInvalidValue;
-  }
+  REPRO_FA_LAUNCH(64, 64)
+  REPRO_FA_LAUNCH(128, 128)
+  REPRO_FA_LAUNCH(240, 240)
+  REPRO_FA_LAUNCH(192, 128)
 #undef REPRO_FA_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }

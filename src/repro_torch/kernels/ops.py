@@ -36,8 +36,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
                     scale: Optional[float] = None, q_chunk: int = 512,
                     kv_chunk: int = 512):
-    """Causal attention.  q: (B,Sq,H,dh); k/v: (B,Skv,Hkv,dh).  The chunk
-    sizes shape only the plain path."""
+    """Causal attention.  q: (B,Sq,H,dh); k/v: (B,Skv,Hkv,dh[v]).  Returns
+    (B,Sq,H,dhv).  The chunk sizes shape only the plain path."""
     if _on_cpu(q):
         return ref.chunked_attention(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale,

@@ -222,6 +222,29 @@ def split_plan(batch: int, kv_heads: int, units: int, num_sms: int, *,
     return span, max(1, -(-units // span))
 
 
+def mla_decode_scores_partial(q_eff, q_rope, ckv, krope, kpos, cur_pos, *,
+                              scale: float):
+    """MLA absorbed decode partial over a compressed-KV span, in fp32.
+
+    q_eff: (B, H, R), q_nope already absorbed through wk_b; q_rope:
+    (B, H, r); ckv: (B, S, R); krope: (B, S, r); kpos (S,) with a scalar
+    cur_pos, or (B, S) with cur_pos (B,).  Returns (acc (B, H, R), l, m)
+    partials, ``acc`` the probability-weighted sum of ckv rows; masked
+    scores are -1e30 and their p exactly 0."""
+    ckv32 = ckv.float()
+    s = torch.einsum("bhr,bsr->bhs", q_eff.float(), ckv32)
+    s = s + torch.einsum("bhr,bsr->bhs", q_rope.float(), krope.float())
+    s = s * scale
+    valid = _decode_valid_mask(kpos, cur_pos)[:, None, :]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(valid, p, 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhs,bsr->bhr", p, ckv32)
+    return acc, l, m
+
+
 def combine_partials(acc, l, m, axis: int = 0):
     """Merge flash-decoding partials along ``axis`` (stacked shards)."""
     acc, l, _ = merge_partials(acc, l, m, axis)

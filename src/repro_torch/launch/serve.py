@@ -16,9 +16,12 @@ of them (port of ``repro/launch/serve.py``).
 
 ARCH is one of the port's configs: yi-9b, gemma3-12b, starcoder2-15b,
 llama3-405b, llama4-scout-17b-a16e, musicgen-large, chameleon-34b (the
-frontend archs serve token prompts here).  ``--layers N`` cuts the depth
-to N layers at full width: llama4-scout's 48 layers (215.6 GB in bf16)
-and llama3-405b's do not fit one 80 GB card.
+frontend archs serve token prompts here), deepseek-v2-236b, hymba-1.5b,
+xlstm-125m (the last three have no paged layer and serve on strips;
+hymba's and xlstm's recurrent stacks take exact-length prefill buckets).
+``--layers N`` cuts the depth to N layers at full width: llama4-scout's
+48 layers (215.6 GB in bf16), llama3-405b's and deepseek-v2's 60 (478.8
+GB) do not fit one 80 GB card.
 
 Request sources: ``--arrival`` generates a reproducible open-loop trace
 of ``--requests`` requests at ``--rate`` req/s (mixed priority classes

@@ -1,5 +1,7 @@
-"""GQA attention, full and sliding-window (port of the prefill and decode
-branches of ``repro/models/attention.py::gqa_apply``).
+"""Attention layers (port of the prefill and decode branches of
+``repro/models/attention.py``): GQA, full and sliding-window
+(``gqa_apply``), and DeepSeek-style multi-head latent attention with a
+compressed KV cache (``mla_apply``, at the end of this module).
 
 Three entry modes:
   prefill  — full-sequence causal attention (flash kernel), emits the
@@ -40,10 +42,12 @@ from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.core.decode_attention import (chunk_prefill_attention,
                                                decode_attention,
+                                               mla_decode_attention,
                                                paged_decode_attention)
 from repro_torch.core.kv_pages import pages_for, scatter_rows
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import apply_rope, dense_init, empty_param
+from repro_torch.models.layers import (apply_rope, dense_init, empty_param,
+                                      rms_norm)
 
 
 class GQA(nn.Module):
@@ -151,27 +155,28 @@ def _ring_slot(pos, s: int, ring: bool):
     return pos % s if ring else torch.clamp(pos, max=s - 1)
 
 
-def _ring_update(cache, k_new, v_new, pos, ring: bool, shard=(0, 1)):
-    """Uniform decode: write every slot's (1, hkv, dh) row at the shared
-    position ``pos`` (0-dim) and stamp the shared track, in place.  With
-    ``shard = (r, n)`` the cache is block ``r`` of ``n``: only the rank
-    owning the position's strip row writes (the others rewrite the row they
-    hold at the clamped index)."""
+def _ring_update(cache, new_vals, pos, ring: bool, shard=(0, 1)):
+    """Uniform decode: write every slot's (1, ...) row of each ``new_vals``
+    leaf (``k``/``v``, or MLA's ``ckv``/``krope``) at the shared position
+    ``pos`` (0-dim) and stamp the shared track, in place.  With ``shard =
+    (r, n)`` the cache is block ``r`` of ``n``: only the rank owning the
+    position's strip row writes (the others rewrite the row they hold at
+    the clamped index)."""
     r, n = shard
-    s = cache["k"].shape[1]
+    s = cache["kpos"].shape[0]
     slot = _ring_slot(pos, s * n, ring).reshape(1).long()
     pos = pos.reshape(1).to(torch.int32)
-    k_new = k_new.to(cache["k"].dtype)
-    v_new = v_new.to(cache["v"].dtype)
+    own = None
     if n > 1:
         slot = slot - r * s
         own = (slot >= 0) & (slot < s)
         slot = torch.clamp(slot, 0, s - 1)
-        k_new = torch.where(own, k_new, cache["k"].index_select(1, slot))
-        v_new = torch.where(own, v_new, cache["v"].index_select(1, slot))
         pos = torch.where(own, pos, cache["kpos"].index_select(0, slot))
-    cache["k"].index_copy_(1, slot, k_new)
-    cache["v"].index_copy_(1, slot, v_new)
+    for name, val in new_vals.items():
+        val = val.to(cache[name].dtype)
+        if own is not None:
+            val = torch.where(own, val, cache[name].index_select(1, slot))
+        cache[name].index_copy_(1, slot, val)
     cache["kpos"].index_copy_(0, slot, pos)
     return cache
 
@@ -324,7 +329,8 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
                 pos = posb
             else:
                 pos = positions[0]
-                new_cache = _ring_update(cache, k, v, pos, ring, shard)
+                new_cache = _ring_update(cache, {"k": k, "v": v}, pos, ring,
+                                         shard)
             out_h = decode_attention(q[:, 0], new_cache["k"], new_cache["v"],
                                      new_cache["kpos"], pos, window=window,
                                      plan=plan)
@@ -342,4 +348,156 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
         new_cache = _seq_block(new_cache, plan)
     H, dh, D = attn.wo.shape
     out = out_h.to(x.dtype).reshape(B * S, H * dh) @ attn.wo.reshape(H * dh, D)
+    return out.reshape(B, S, D), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA
+# ---------------------------------------------------------------------------
+
+
+class MLA(nn.Module):
+    """One layer's MLA projections in the reference's layouts: ``wkv_a``
+    (D, R + r) to the compressed KV and the rope key, ``kv_norm`` (R,),
+    ``wk_b`` (R, H, nope) / ``wv_b`` (R, H, v) up from it, ``wo`` (H, v, D),
+    and the query through a low-rank ``wq_a`` (D, Rq), ``q_norm``, ``wq_b``
+    (Rq, H, nope + rope), or a full-rank ``wq`` (D, H, nope + rope) when
+    ``q_lora_rank`` is 0."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        for name, shape in _mla_shapes(cfg).items():
+            setattr(self, name, empty_param(shape, dtype, device))
+
+
+def _mla_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    a = cfg.attn
+    d, h = cfg.d_model, cfg.num_heads
+    qk = a.qk_nope_dim + a.qk_rope_dim
+    shapes = {
+        "wkv_a": (d, a.kv_lora_rank + a.qk_rope_dim),
+        "kv_norm": (a.kv_lora_rank,),
+        "wk_b": (a.kv_lora_rank, h, a.qk_nope_dim),
+        "wv_b": (a.kv_lora_rank, h, a.v_head_dim),
+        "wo": (h, a.v_head_dim, d),
+    }
+    if a.q_lora_rank:
+        shapes.update(wq_a=(d, a.q_lora_rank), q_norm=(a.q_lora_rank,),
+                      wq_b=(a.q_lora_rank, h, qk))
+    else:
+        shapes["wq"] = (d, h, qk)
+    return shapes
+
+
+def mla_params(cfg: ModelConfig, generator: torch.Generator, dtype,
+               device) -> Dict[str, torch.Tensor]:
+    """Fresh MLA weights with the reference's init distribution (zero norm
+    scales, ``wo`` at std (H * v) ** -0.5), drawn in its order."""
+    a = cfg.attn
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    out = {}
+    for name, shape in _mla_shapes(cfg).items():
+        if name.endswith("norm"):
+            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        elif name == "wo":
+            out[name] = dense_init(shape, scale=(cfg.num_heads *
+                                                 a.v_head_dim) ** -0.5, **kw)
+        else:
+            out[name] = dense_init(shape, **kw)
+    return out
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device):
+    """Compressed decode strip of one MLA layer: ``ckv`` (B, S, R) and the
+    rope key ``krope`` (B, S, r) — R + r = 576 values a token at
+    deepseek-v2's widths, against H * (nope + rope + v) = 40,960 for the
+    per-head K/V — with the shared position track ``kpos`` (-1 = empty)."""
+    a = cfg.attn
+    return {
+        "ckv": torch.zeros((batch, max_len, a.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_len, a.qk_rope_dim), dtype=dtype,
+                             device=device),
+        "kpos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _mla_q(attn: MLA, x, cfg: ModelConfig):
+    """(q_nope, q_rope), each (B, S, H, ·), before RoPE."""
+    a = cfg.attn
+    if a.q_lora_rank:
+        qa = rms_norm(x @ attn.wq_a, attn.q_norm, cfg.norm_eps)
+        q = _project(qa, attn.wq_b)
+    else:
+        q = _project(x, attn.wq)
+    return q[..., :a.qk_nope_dim], q[..., a.qk_nope_dim:]
+
+
+def mla_apply(attn: MLA, x, positions, cfg: ModelConfig,
+              cache: Optional[Dict] = None, mode: str = "prefill",
+              write_mask=None, plan=None):
+    """x: (B, S, D); positions as for ``gqa_apply``.
+
+    prefill: not absorbed — k = [wk_b ckv, broadcast rope key] (B, S, H,
+    nope + rope) and v = wv_b ckv (B, S, H, v) are materialised and go
+    through the flash kernel at qk dim != v dim, scaled by (nope + rope)
+    ** -0.5; the cache is the compressed rows and their positions.
+    decode: absorbed — the new row is written into the strip (per slot with
+    ``write_mask``, or at the shared position), then
+    ``mla_decode_attention`` scores q against the compressed rows, and
+    wv_b lifts the context to the value heads.  A prefill chunk raises, as
+    in the reference.  Returns (out (B, S, D), new_cache)."""
+    a = cfg.attn
+    B, S, _ = x.shape
+    if mode == "chunk":
+        raise NotImplementedError(
+            "chunked prefill covers paged full-attention GQA layers only "
+            "(MLA caches are dense per-slot strips)")
+    if mode not in ("prefill", "decode"):
+        raise NotImplementedError(f"attention mode {mode!r} is not ported")
+    per_slot, posb, rope_pos = _decode_positions(positions, B, cache, mode)
+    q_nope, q_rope = _mla_q(attn, x, cfg)
+    q_rope = apply_rope(q_rope, rope_pos, a.rope_base)
+
+    kv_a = x @ attn.wkv_a
+    ckv = rms_norm(kv_a[..., :a.kv_lora_rank], attn.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(kv_a[..., a.kv_lora_rank:][:, :, None, :], rope_pos,
+                        a.rope_base)[:, :, 0]
+    scale = (a.qk_nope_dim + a.qk_rope_dim) ** -0.5
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs a cache")
+        new_vals = {"ckv": ckv, "krope": k_rope}
+        if per_slot:
+            new_cache = _slot_update(cache, new_vals, posb, False,
+                                     write_mask)
+            pos = posb
+        else:
+            pos = positions[0]
+            new_cache = _ring_update(cache, new_vals, pos, False)
+        ctx = mla_decode_attention(q_nope[:, 0], q_rope[:, 0],
+                                   new_cache["ckv"], new_cache["krope"],
+                                   new_cache["kpos"], pos, attn.wk_b,
+                                   scale=scale, plan=plan)   # (B, H, R)
+        out_h = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype),
+                             attn.wv_b)[:, None]
+    else:
+        H = cfg.num_heads
+        k_nope = _project(ckv, attn.wk_b)
+        v = _project(ckv, attn.wv_b)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, a.qk_rope_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out_h = kops.flash_attention(q, k, v, causal=True, scale=scale,
+                                     q_chunk=cfg.attn_chunk,
+                                     kv_chunk=cfg.attn_chunk)
+        del q, k, v, k_nope
+        new_cache = {"ckv": ckv, "krope": k_rope,
+                     "kpos": torch.arange(S, dtype=torch.int32,
+                                          device=x.device)}
+    H, dv, D = attn.wo.shape
+    out = out_h.to(x.dtype).reshape(B * S, H * dv) @ attn.wo.reshape(H * dv,
+                                                                     D)
     return out.reshape(B, S, D), new_cache

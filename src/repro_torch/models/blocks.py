@@ -1,10 +1,17 @@
-"""Transformer blocks (port of the ``"attn"``, ``"local"`` and ``"moe"``
-blocks of ``repro/models/blocks.py``): RMSNorm → GQA attention →
-residual, RMSNorm → FFN → residual.  ``"attn"`` attends to the whole
-sequence, ``"local"`` to a sliding window (gemma3's local layers); both
-take a swiglu MLP.  ``"moe"`` (llama4-scout) attends to the whole sequence
-and takes the routed experts plus any shared experts (``apply_moe``).  A
-sharding recipe is threaded through to the attention layer; the Megatron
+"""Per-family blocks (port of ``repro/models/blocks.py``).
+
+Block kinds:
+  attn     RMSNorm → full GQA attention → residual, RMSNorm → swiglu MLP
+  local    the same over a sliding window (gemma3's local layers)
+  moe      full GQA attention + routed experts and shared experts
+           (llama4-scout; ``apply_moe``)
+  mla_moe  MLA attention + routed and shared experts (deepseek-v2)
+  hybrid   sliding-window GQA attention and Mamba in parallel on the same
+           normed input, 0.5 * (a + s) to the residual, then the MLP (hymba)
+  mlstm / slstm  an xLSTM core on the normed input, to the residual; no
+           second norm and no MLP (xlstm)
+
+A sharding recipe is threaded through to the attention layer; the Megatron
 sequence-parallel residual stream (``sp_enabled``) and expert parallelism
 are not ported."""
 from __future__ import annotations
@@ -17,9 +24,12 @@ from torch import nn
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import empty_param, rms_norm, swiglu
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import dense_init, empty_param, rms_norm, \
+    swiglu
 
-KINDS = ("attn", "local", "moe")
+KINDS = ("attn", "local", "moe", "mla_moe", "hybrid", "mlstm", "slstm")
+_MOE_KINDS = ("moe", "mla_moe")
 
 
 def _check_kind(kind: str) -> None:
@@ -56,10 +66,11 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
-    """One ``"attn"``, ``"local"`` or ``"moe"`` block; parameter names
-    follow the reference's pytree (``ln1``, ``attn.{wq,wk,wv,wo}``,
-    ``ln2``, then ``mlp.{w_gate,w_up,w_down}`` or ``moe.{router,we_*,
-    ws_*}``)."""
+    """One block of any of ``KINDS``; parameter names follow the
+    reference's pytree: ``ln1``; ``attn.*`` (GQA's ``wq, wk, wv, wo`` or
+    MLA's) for the attention kinds; ``ssm.*`` (Mamba) for ``"hybrid"``;
+    ``ln2`` then ``mlp.{w_gate,w_up,w_down}`` or ``moe.{router,we_*,
+    ws_*}``; ``core.*`` for the xLSTM kinds."""
 
     def __init__(self, cfg: ModelConfig, kind: str, dtype, device):
         super().__init__()
@@ -67,12 +78,50 @@ class Block(nn.Module):
         self.kind = kind
         d = cfg.d_model
         self.ln1 = empty_param((d,), dtype, device)
-        self.attn = attn_mod.GQA(cfg, dtype, device)
+        if kind == "mlstm":
+            self.core = ssm_mod.MLSTM(cfg, dtype, device)
+            return
+        if kind == "slstm":
+            self.core = ssm_mod.SLSTM(cfg, dtype, device)
+            return
+        self.attn = attn_mod.MLA(cfg, dtype, device) if kind == "mla_moe" \
+            else attn_mod.GQA(cfg, dtype, device)
+        if kind == "hybrid":
+            self.ssm = ssm_mod.Mamba(cfg, dtype, device)
         self.ln2 = empty_param((d,), dtype, device)
-        if kind == "moe":
+        if kind in _MOE_KINDS:
             self.moe = MoE(cfg, dtype, device)
         else:
             self.mlp = MLP(cfg, dtype, device)
+
+
+def block_params(cfg: ModelConfig, kind: str, generator: torch.Generator,
+                 dtype, device) -> Dict:
+    """Fresh weights of one block as the reference's ``block_params`` draws
+    them (its tree, its distributions), for ``Block``'s parameters."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    d = cfg.d_model
+    zeros = lambda: torch.zeros((d,), dtype=dtype, device=device)  # noqa
+    p: Dict = {"ln1": zeros()}
+    if kind == "mlstm":
+        p["core"] = ssm_mod.mlstm_params(cfg, **kw)
+        return p
+    if kind == "slstm":
+        p["core"] = ssm_mod.slstm_params(cfg, **kw)
+        return p
+    p["attn"] = attn_mod.mla_params(cfg, **kw) if kind == "mla_moe" \
+        else attn_mod.gqa_params(cfg, **kw)
+    if kind == "hybrid":
+        p["ssm"] = ssm_mod.mamba_params(cfg, **kw)
+    p["ln2"] = zeros()
+    if kind in _MOE_KINDS:
+        p["moe"] = moe_mod.moe_params(cfg, **kw)
+    else:
+        f = cfg.d_ff
+        p["mlp"] = {"w_gate": dense_init((d, f), **kw),
+                    "w_up": dense_init((d, f), **kw),
+                    "w_down": dense_init((f, d), **kw)}
+    return p
 
 
 def sp_enabled(cfg: ModelConfig, plan, seq_len: int,
@@ -117,17 +166,41 @@ def apply_moe(moe: MoE, x, cfg: ModelConfig, plan=None):
 def apply_block(block: Block, x, positions, cfg: ModelConfig,
                 cache: Optional[Dict], mode: str, write_mask=None,
                 plan=None):
-    """Returns (x, new_cache); a ``"moe"`` block's aux loss is dropped (no
-    training path is ported)."""
+    """Returns (x, new_cache); an MoE block's aux loss is dropped (no
+    training path is ported).  ``write_mask`` gates the attention caches'
+    decode writes; recurrent states need none (a finished slot only
+    corrupts its own state, which the engine replaces whole at refill)."""
     eps = cfg.norm_eps
+    kind = block.kind
     h = rms_norm(x, block.ln1, eps)
-    a, new_cache = attn_mod.gqa_apply(
-        block.attn, h, positions, cfg,
-        "local" if block.kind == "local" else "full", cache, mode,
-        write_mask=write_mask, plan=plan)
+    if kind == "mlstm":
+        y, new_cache = ssm_mod.mlstm_apply(block.core, h, cfg, cache, mode)
+        return x + y, new_cache
+    if kind == "slstm":
+        y, new_cache = ssm_mod.slstm_apply(block.core, h, cfg, cache, mode)
+        return x + y, new_cache
+    if kind == "mla_moe":
+        a, new_cache = attn_mod.mla_apply(block.attn, h, positions, cfg,
+                                          cache, mode, write_mask=write_mask,
+                                          plan=plan)
+    elif kind == "hybrid":
+        a, attn_cache = attn_mod.gqa_apply(
+            block.attn, h, positions, cfg, "local",
+            cache["attn"] if cache else None, mode, write_mask=write_mask,
+            plan=plan)
+        s, ssm_cache = ssm_mod.mamba_apply(block.ssm, h, cfg,
+                                           cache["ssm"] if cache else None,
+                                           mode)
+        a = 0.5 * (a + s)
+        new_cache = {"attn": attn_cache, "ssm": ssm_cache}
+    else:
+        a, new_cache = attn_mod.gqa_apply(
+            block.attn, h, positions, cfg,
+            "local" if kind == "local" else "full", cache, mode,
+            write_mask=write_mask, plan=plan)
     x = x + a
     h = rms_norm(x, block.ln2, eps)
-    if block.kind == "moe":
+    if kind in _MOE_KINDS:
         f, _ = apply_moe(block.moe, h, cfg, plan)
     else:
         f = swiglu(h, block.mlp.w_gate, block.mlp.w_up, block.mlp.w_down)
@@ -138,14 +211,26 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      dtype, device, paged: bool = False, num_pages: int = 0,
                      page_size: int = 16, plan=None):
     """Decode cache of one block.  ``paged=True`` gives a full-attention
-    layer (``"attn"`` or ``"moe"``) the paged pool; a sliding-window layer
-    always keeps its dense ring of ``window`` rows (its state is bounded
-    already), and a full-attention layer without ``paged`` a dense
-    ``max_len`` strip."""
+    GQA layer (``"attn"`` or ``"moe"``) the paged pool; a sliding-window
+    layer always keeps its dense ring of ``window`` rows (its state is
+    bounded already), and a full-attention layer without ``paged`` a dense
+    ``max_len`` strip.  An MLA layer keeps its compressed ``max_len``
+    strip, ``"hybrid"`` nests its ring and its Mamba state (``{"attn",
+    "ssm"}``), and the xLSTM kinds keep their recurrent state."""
     _check_kind(kind)
     if kind in ("attn", "moe") and paged:
         return attn_mod.init_paged_gqa_cache(cfg, batch, num_pages, page_size,
                                              max_len, dtype, device)
+    if kind == "mla_moe":
+        return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
+    if kind == "hybrid":
+        return {"attn": attn_mod.init_gqa_cache(cfg, "local", batch, max_len,
+                                                dtype, device, plan),
+                "ssm": ssm_mod.init_mamba_cache(cfg, batch, dtype, device)}
+    if kind == "mlstm":
+        return ssm_mod.init_mlstm_cache(cfg, batch, device)
+    if kind == "slstm":
+        return ssm_mod.init_slstm_cache(cfg, batch, device)
     return attn_mod.init_gqa_cache(cfg, "local" if kind == "local" else
                                    "full", batch, max_len, dtype, device,
                                    plan)

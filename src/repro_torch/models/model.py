@@ -13,7 +13,8 @@ Entry points:
 Caches keep the reference's stacked layout: ``caches["b{j}"]`` holds the
 leaves of the j-th block of every layer group with a leading
 ``num_groups`` axis, so layer ``g * group_size + j`` reads index ``g``.
-Decode updates the pools in place.
+A block's cache may nest (``"hybrid"``: ``{"attn": ring, "ssm": state}``).
+Decode updates the pools, strips and recurrent states in place.
 
 ``plan`` is a ShardingRecipe (``repro_torch.sharding``) or None.  Under a
 recipe every rank of the mesh calls the entry point with the same global
@@ -37,9 +38,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import embedding as emb
 from repro_torch.core.kv_pages import pages_for
 from repro_torch.device import resolve_device
-from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
-from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import dense_init, empty_param, rms_norm
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -90,11 +89,21 @@ class LM(nn.Module):
         return self.head.w_head if hasattr(self, "head") else self.embed.table
 
 
+def _flat(tree: Dict[str, Any], prefix: str = ""):
+    """(dotted path, leaf) pairs of a nested dict, as a state dict names
+    them."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> LM:
     """Random weights with the reference's distribution (truncated-normal
-    fan-in init, zero norm scales, unit-std embedding; a ``"moe"`` block's
-    as ``moe.moe_params`` draws them), drawn from ``generator``, which
+    fan-in init, zero norm scales, unit-std embedding; each block as
+    ``blocks.block_params`` draws it), drawn from ``generator``, which
     must live on ``device`` (default CUDA)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
@@ -104,17 +113,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         model.embed.table.copy_(dense_init(model.embed.table.shape,
                                            scale=1.0, **kw))
         for b in model.blocks:
-            b.ln1.zero_()
-            b.ln2.zero_()
-            for name, t in attn_mod.gqa_params(cfg, **kw).items():
-                getattr(b.attn, name).copy_(t)
-            if b.kind == "moe":
-                for name, t in moe_mod.moe_params(cfg, **kw).items():
-                    getattr(b.moe, name).copy_(t)
-            else:
-                for name in ("w_gate", "w_up", "w_down"):
-                    w = getattr(b.mlp, name)
-                    w.copy_(dense_init(w.shape, **kw))
+            for name, t in _flat(blk.block_params(cfg, b.kind, **kw)):
+                b.get_parameter(name).copy_(t)
         model.final_norm.zero_()
         if not cfg.tie_embeddings:
             model.head.w_head.copy_(dense_init(model.head.w_head.shape, **kw))
@@ -140,6 +140,20 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a nested cache dict."""
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _stack(trees):
+    """Per-layer cache trees of one block position -> one tree with a
+    leading ``num_groups`` axis."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
 def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
                mode: str = "prefill", write_mask=None, plan=None):
     """x: (B, S, D).  Returns (x, caches): prefill builds stacked K/V
@@ -150,21 +164,19 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
                                   "ported")
     gpat = group_pattern(cfg)
     gs = len(gpat)
-    out: Dict[str, Dict[str, list]] = {}
+    out: Dict[str, list] = {}
     for li, block in enumerate(model.blocks):
         g, j = divmod(li, gs)
         name = f"b{j}"
         c = None
         if caches is not None:
-            c = {k: t[g] for k, t in caches[name].items()}
+            c = _tree_map(lambda t: t[g], caches[name])
         x, nc = blk.apply_block(block, x, positions, cfg, c, mode,
                                 write_mask=write_mask, plan=plan)
         if mode == "prefill":
-            for k, t in nc.items():
-                out.setdefault(name, {}).setdefault(k, []).append(t)
+            out.setdefault(name, []).append(nc)
     if mode == "prefill":
-        caches = {name: {k: torch.stack(ts) for k, ts in leaves.items()}
-                  for name, leaves in out.items()}
+        caches = {name: _stack(trees) for name, trees in out.items()}
     return x, caches
 
 
@@ -298,7 +310,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     (implies per-slot) gives full-attention layers paged pools instead:
     ``kp``/``vp`` (num_groups, num_pages + 1, page_size, Hkv, dh) and
     ``pages`` (num_groups, batch, maxp), all -1; ``num_pages`` defaults to
-    the dense worst case ``batch * pages_for(max_len, page_size)``.
+    the dense worst case ``batch * pages_for(max_len, page_size)``.  MLA
+    layers keep their compressed ``ckv``/``krope`` strips with a position
+    track, ``"hybrid"`` blocks nest their ring (``attn``, with its track)
+    and their Mamba state (``ssm``), and the xLSTM kinds hold their
+    recurrent state per slot (no track).
 
     Under a recipe (``plan``) the caches are this rank's: its batch rows
     and, over the sequence axes, its block of each dense strip."""
@@ -315,13 +331,19 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         per_slot = True
         if num_pages is None:
             num_pages = batch * pages_for(max_len, page_size)
+
+    def per_slot_kpos(tree):
+        return {k: per_slot_kpos(v) if isinstance(v, dict)
+                else v[None].repeat(batch, 1) if k == "kpos" else v
+                for k, v in tree.items()}
+
     out: Dict[str, Any] = {}
     for j, kind in enumerate(group_pattern(cfg)):
         one = blk.init_block_cache(cfg, kind, batch, max_len, dtype, dev,
                                    paged=paged, num_pages=num_pages or 0,
                                    page_size=page_size, plan=plan)
-        if per_slot and "kpos" in one:
-            one["kpos"] = one["kpos"][None].repeat(batch, 1)
-        out[f"b{j}"] = {k: t[None].repeat((ng,) + (1,) * t.dim())
-                        for k, t in one.items()}
+        if per_slot:
+            one = per_slot_kpos(one)
+        out[f"b{j}"] = _tree_map(
+            lambda t: t[None].repeat((ng,) + (1,) * t.dim()), one)
     return out

@@ -689,10 +689,12 @@ class ServeEngine:
     # -- bucketing -----------------------------------------------------------
 
     def _padding_safe(self, padded_len: int) -> bool:
-        """Padded prefill is exact iff no sliding-window ring evicts real
-        prompt positions (recurrent kinds are not ported)."""
-        return not ("local" in self.cfg.layer_pattern
-                    and self.cfg.attn.window is not None
+        """Padded prefill is exact iff no recurrent state integrates pad
+        tokens and no sliding-window ring evicts real prompt positions."""
+        kinds = set(self.cfg.layer_pattern)
+        if kinds & {"hybrid", "mlstm", "slstm"}:
+            return False
+        return not ("local" in kinds and self.cfg.attn.window is not None
                     and padded_len > self.cfg.attn.window)
 
     def _bucket_len(self, n: int) -> int:
@@ -1196,20 +1198,34 @@ def _splice_paged_group(dst, src, slot_ids: List[int], lengths: List[int],
 
 
 def _splice_strip_group(dst, src, slot_ids: List[int], lengths: List[int]):
-    """Dense per-slot splice, in place: ``dst`` leaves are (ng, num_slots,
-    S, ...), ``src`` leaves (ng, bpad, n, ...) with the bucket's real
-    sequences first.  A slot's kpos row becomes its own track: prefill
+    """Dense per-slot splice, in place, leaf by leaf of a possibly nested
+    group (``"hybrid"``: ``{"attn", "ssm"}``).  ``dst`` leaves are (ng,
+    num_slots, ...), ``src`` leaves (ng, bpad, ...) with the bucket's real
+    sequences first.  A kpos row becomes the slot's own track: prefill
     positions at or past the true prompt length (padding) are -1, and so
-    is everything past the copied span."""
+    is everything past the copied span; the KV rows (``k``/``v``, MLA's
+    ``ckv``/``krope``) are copied up to that span; recurrent leaves
+    (Mamba's ``conv``/``ssm``, mLSTM's ``C``/``n``/``m``, sLSTM's
+    ``c``/``n``/``m``/``h``) replace the slot's row whole."""
     b = len(slot_ids)
-    dev = dst["kpos"].device
-    slots = torch.as_tensor(slot_ids, dtype=torch.long, device=dev)
-    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-    n = min(src["kpos"].shape[1], dst["kpos"].shape[2])
-    row = src["kpos"][:, None, :n].expand(-1, b, -1)
-    row = torch.where((row >= 0) & (row < lens[None, :, None]), row, -1)
-    dst["kpos"][:, slots] = -1
-    dst["kpos"][:, slots, :n] = row
-    for name in ("k", "v"):
-        dst[name][:, slots, :n] = src[name][:, :b, :n].to(dst[name].dtype)
+    for name, d in dst.items():
+        s = src[name]
+        if isinstance(d, dict):
+            _splice_strip_group(d, s, slot_ids, lengths)
+            continue
+        slots = torch.as_tensor(slot_ids, dtype=torch.long, device=d.device)
+        if name == "kpos":
+            lens = torch.as_tensor(lengths, dtype=torch.int32,
+                                   device=d.device)
+            n = min(s.shape[1], d.shape[2])
+            row = s[:, None, :n].expand(-1, b, -1)
+            row = torch.where((row >= 0) & (row < lens[None, :, None]), row,
+                              -1)
+            d[:, slots] = -1
+            d[:, slots, :n] = row
+        elif name in ("k", "v", "ckv", "krope"):
+            n = min(s.shape[2], d.shape[2])
+            d[:, slots, :n] = s[:, :b, :n].to(d.dtype)
+        else:
+            d[:, slots] = s[:, :b].to(d.dtype)
     return dst

@@ -49,7 +49,10 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.kernels.isp_gather", "repro_torch.sharding",
               "repro_torch.launch.mesh", "repro_torch.launch.steps",
               "repro_torch.kernels.topk_similarity",
-              "repro_torch.core.energy"):
+              "repro_torch.core.energy", "repro_torch.models.ssm",
+              "repro_torch.configs.deepseek_v2_236b",
+              "repro_torch.configs.hymba_1_5b",
+              "repro_torch.configs.xlstm_125m"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
