@@ -82,8 +82,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 one-shot tokens (a flip only below BF16_FLIP_MARGIN); one
                 chunk call profiled;
   7. cluster  — four drives (ClusterEngine, 8 slots each, 256-row chunks)
-                over the one yi-9b: 32 requests (prompts 16..700, max_new
-                32) served serially give one engine's tokens with balanced
+                over the one yi-9b: CLUSTER_REQUESTS = 16 requests (prompts
+                16..700, max_new 32; 32 before the train phases came) served
+                serially give one engine's tokens with balanced
                 free lists, a merged ledger equal to the drives' plus the
                 spill ledger, and peak memory under the weights plus four
                 pools plus CLUSTER_MEM_MARGIN; data_local over 4 shards with
@@ -93,7 +94,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 watchdog sized from the serial run's longest tick): the same
                 tokens, no SUSPECT drive, workers joined, with the host cost
                 of one small CUDA op from one and from four threads; then
-                32 requests of open-loop bursty traffic at 1.2x the serial
+                16 requests of open-loop bursty traffic at 1.2x the serial
                 run's service rate, FIFO and EDF: TTFT, TPOT, SLO
                 attainment, conservation.  Requests/s and the Table I
                 energy per query of the paper's server model are printed;
@@ -174,7 +175,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 in bfloat16: 8 requests as above; all ok, no kernel
                 launched, every weight and cache on the card; k_block=1
                 gives identical tokens; one sLSTM layer's sequential
-                prefill timed.
+                prefill timed;
+  16. train   — yi-9b in bfloat16 at every published width, its depth cut
+                from 48 to TRAIN_LAYERS = 8 layers (1.908 B parameters),
+                AdamW moments in float32, remat "dots": 8 steps of 2 x 4096
+                synthetic tokens through train_loop.train (no checkpoint);
+                every loss and grad norm finite; flash launched 16 times a
+                step (8 layers, forward and remat recompute) and no other
+                kernel; median step, tokens/s, model FLOPs against the bf16
+                peak, peak memory; one step profiled into the flash kernel,
+                the plain attention backward, AdamW, GEMMs and the rest,
+                with the idle share; four steps on one repeated batch lower
+                its loss (a wrong but finite gradient would not);
+  17. elastic — launch.elastic.supervise runs the train CLI on xlstm-125m
+                (6 steps of 4 x 256, a checkpoint every 2) with
+                REPRO_FAIL_AT_STEP=3 and a marker: it dies once (exit 42),
+                resumes from the last committed checkpoint and finishes at
+                6; its final checkpoint equals an uninterrupted in-process
+                run from the same seed bit for bit.
+The kernel phase also holds flash's log-sum-exp output (lse, what the
+training path's backward reads) to the plain version at the train shape
+(B=2, S=4096, H=32, Hkv=4, dh 128, causal, bf16 and fp32; LSE_TOL), the
+differentiable op's dq/dk/dv with the kernel's forward against the plain
+forward's through the plain backward (GRAD_REL_TOL), and lse at the edge
+head shapes, where rows that see no key must give out 0, lse +inf and
+dq 0; the kernel with lse is timed at the train shape beside SDPA's
+forward and one layer's plain backward.
 Each path's launch counters are set to 0 just before it runs and read just
 after; the launches that hold a kernel against its plain version do not
 count.
@@ -190,6 +216,11 @@ version, and prints them as one JSON line.  The wrappers' contracts are
 those of every tree since the kernels were ported, so a copy of this
 script in another checkout times that tree's kernels: two trees can run
 in turns in one call.
+
+    python3 chip_smoke.py --flash-times
+
+times flash at its six serve paths' shapes without lse (the wrapper's
+contract before and after lse), one JSON line, for the same use.
 """
 from __future__ import annotations
 
@@ -255,6 +286,33 @@ NEW_HEADS = ((40, 8, 128), (32, 32, 64), (48, 4, 128), (128, 8, 128),
 # deepseek-v2's MLA prefill: (H, Hkv, q/k head dim, v head dim) through
 # the flash kernel's (192, 128) instantiation
 MLA_HEADS = (128, 128, 192, 128)
+# flash's serve paths: (B, S, H, Hkv, dh, dv, window)
+FLASH_PATHS = (
+    ("yi-9b serve", (8, 704, 32, 4, 128, 128, None)),
+    ("gemma3-12b serve", (8, 1536, 16, 8, 240, 240, 1024)),
+    ("llama4-scout serve", (8, 704, 40, 8, 128, 128, None)),
+    ("musicgen-large serve", (8, 704, 32, 32, 64, 64, None)),
+    ("deepseek-v2 serve", (8, 704) + MLA_HEADS + (None,)),
+    ("hymba serve", (8, 704, 25, 5, 64, 64, 1024)))
+# the train phase: yi-9b at every published width, its depth cut from 48
+# to 8 layers (1.908 B parameters: with bf16 weights and gradients and
+# fp32 AdamW moments, 22.9 GB; all 48 layers would need 106 GB), Yi's 4K
+# pretraining context, global batch 2, 8 steps
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 8, 4096, 2, 8
+# flash at the train shape: (B, S, H, Hkv, dh) and yi-9b's attn_chunk
+TRAIN_FLASH = (TRAIN_BATCH, TRAIN_SEQ, 32, 4, 128)
+TRAIN_CHUNK = 512
+# lse, kernel against plain version: both sum the same fp32 scores (exact
+# products of the inputs) in other orders, ~1e-6 of an lse of O(10); a key
+# masked wrongly moves a row's lse by log(1 + p_key), >= ~1e-4 here
+LSE_TOL = dict(atol=1e-4, rtol=1e-5)
+# dq/dk/dv through the plain backward with the kernel's forward against
+# the plain forward's, as a share of each gradient's max |value|: fp32,
+# the same math on outputs within 1e-6 (1e-4); bf16, the kernel's output
+# (bf16 probabilities into the value product, rounded to bf16) enters
+# delta = rowsum(dout * out) and both sides round dq/dk/dv to bf16, each
+# up to 2**-8 of a value, summed over a 4096-key row: 5e-2
+GRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 
 def log(*a):
@@ -635,6 +693,186 @@ def flash_edges(dev, gen):
         "(128, 192), (192, 64)")
 
 
+def lse_err(got, want, mask=None) -> float:
+    """Max abs error of a kernel's lse against the plain version's, held to
+    LSE_TOL, over the rows in ``mask`` (all without one)."""
+    if mask is not None:
+        got, want = got[:, mask], want[:, mask]
+    assert torch.isfinite(got).all(), "kernel lse non-finite on a live row"
+    torch.testing.assert_close(got, want, **LSE_TOL)
+    return float((got - want).abs().max())
+
+
+def grad_rel_err(got, want, dtype, what) -> float:
+    """Max over dq, dk, dv of max |got - want| / max |want|, held to
+    GRAD_REL_TOL."""
+    worst = 0.0
+    for g, w, n in zip(got, want, "qkv"):
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all(), f"{what}: d{n} non-finite"
+        e = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        assert e <= GRAD_REL_TOL[dtype], (what, n, e)
+        worst = max(worst, e)
+    return worst
+
+
+def flash_train_row(dev, gen, flush):
+    """Flash with lse at the train phase's shape (TRAIN_FLASH: yi-9b at
+    4096 rows, causal), bf16 and fp32: out and lse against the plain
+    ``chunked_attention(return_lse=True)``; the differentiable op's
+    dq/dk/dv (the kernel's forward) against the plain forward's, both
+    through the plain backward; then timed with lse beside its bound, the
+    plain version, SDPA's forward and the kernel without lse, and one
+    layer's plain backward timed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    B, S, H, Hkv, dh = TRAIN_FLASH
+    ck = dict(q_chunk=TRAIN_CHUNK, kv_chunk=TRAIN_CHUNK)
+    errs, lerrs, gerrs = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
+        q, k, v, dout = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh), \
+            r(B, S, H, dh)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        want, wlse = ref.chunked_attention(q, k, v, return_lse=True, **ck)
+        torch.cuda.synchronize()
+        assert lse.dtype == torch.float32 and lse.shape == (B, S, H)
+        errs[dtype] = max_err([out], [want], dtype)
+        lerrs[dtype] = lse_err(lse, wlse)
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        got = torch.autograd.grad(ops.flash_attention(qq, kk, vv, **ck),
+                                  (qq, kk, vv), dout)
+        plain = ref.flash_attention_bwd(q, k, v, want, wlse, dout, **ck)
+        gerrs[dtype] = grad_rel_err(got, plain, dtype, "train shape")
+        log(f"[kernels] flash_attention yi-9b train {dtype} (B={B} S={S} "
+            f"H={H} Hkv={Hkv} dh={dh}, with lse): out max abs err "
+            f"{errs[dtype]:.3g}, lse {lerrs[dtype]:.3g}; dq/dk/dv with the "
+            f"kernel's forward vs the plain forward's, max err / max |grad| "
+            f"{gerrs[dtype]:.3g} (bound {GRAD_REL_TOL[dtype]})")
+        del qq, kk, vv, got, plain, want, wlse, out, lse
+    # q/k/v/dout: the bf16 inputs of the last iteration
+    pairs = S * (S + 1) // 2
+    nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * dh) * 2 \
+        + B * S * H * 4
+    bound_ms, bound_by = bound(nbytes, 4 * dh * pairs * B * H,
+                               torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    row = dict(
+        name="flash_attention", kernel="flash_attention", path="yi-9b train",
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:77", dtype="bfloat16",
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} dv={dh} causal, with lse",
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_fp32=errs[torch.float32],
+        lse_max_abs_err=lerrs[torch.bfloat16],
+        lse_max_abs_err_fp32=lerrs[torch.float32],
+        grad_rel_err=gerrs[torch.bfloat16],
+        grad_rel_err_fp32=gerrs[torch.float32],
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True),
+                   flush),
+        plain_ms=time_ms(lambda: ref.chunked_attention(
+            q, k, v, return_lse=True, **ck), flush),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: torch.nn.functional.
+                           scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True, enable_gqa=True),
+                           flush),
+        ms_no_lse=time_ms(lambda: fa.flash_attention(q, k, v), flush))
+    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+    row["plain_bwd_ms"] = time_ms(lambda: ref.flash_attention_bwd(
+        q, k, v, out, lse, dout, **ck), flush)
+    log(f"[kernels] flash_attention yi-9b train: with lse {row['ms']:.4f} "
+        f"ms, without {row['ms_no_lse']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain forward {row['plain_ms']:.4f} ms, SDPA "
+        f"forward {row['library_ms']:.4f} ms; one layer's plain backward "
+        f"(bf16 inputs, fp32 math) {row['plain_bwd_ms']:.4f} ms")
+    return row
+
+
+def flash_lse_edges(dev, gen):
+    """Flash with lse at the edge head shapes (both serve head dims, MLA's
+    qk 192 / v 128, NEW_HEADS), both dtypes: Sq not a multiple of the q
+    tile, a window edge crossing the key tiles with q_offset, one row over
+    a long cache, rows of which some and rows of which all see no key
+    (q_offset past the window's reach).  Live rows: out and lse against
+    the plain version.  Rows with no key: out 0 and lse +inf from the
+    kernel (the plain version keeps the reference's -1e30 and its mean of
+    visited values there), and the plain backward fed the kernel's lse
+    gives them dq = 0 and finite dk/dv."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    cases = ((100, 100, 0, None), (65, 200, 135, 48), (1, 300, 299, None),
+             (16, 40, 36, 8), (16, 40, 60, 8))
+    heads = ((32, 4, 128, 128), (16, 8, 240, 240), MLA_HEADS) + tuple(
+        (H, Hkv, dh, dh) for H, Hkv, dh in NEW_HEADS)
+    n_empty = 0
+    for H, Hkv, dh, dv in heads:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
+            for Sq, Skv, qoff, w in cases:
+                q, k, v = r(2, Sq, H, dh), r(2, Skv, Hkv, dh), \
+                    r(2, Skv, Hkv, dv)
+                out, lse = fa.flash_attention(q, k, v, window=w,
+                                              q_offset=qoff, return_lse=True)
+                want, wlse = ref.chunked_attention(q, k, v, window=w,
+                                                   q_offset=qoff,
+                                                   return_lse=True)
+                torch.cuda.synchronize()
+                qpos = qoff + torch.arange(Sq, device=dev)
+                lo = torch.zeros_like(qpos) if w is None \
+                    else torch.clamp(qpos - w + 1, min=0)
+                live = lo <= torch.clamp(qpos, max=Skv - 1)
+                e = le = 0.0
+                if bool(live.any()):
+                    e = max_err([out[:, live]], [want[:, live]], dtype)
+                    le = lse_err(lse, wlse, live)
+                errs[dtype] = max(errs.get(dtype, (0.0, 0.0))[0], e), \
+                    max(errs.get(dtype, (0.0, 0.0))[1], le)
+                dead = ~live
+                if bool(dead.any()):
+                    n_empty += int(dead.sum())
+                    assert float(out[:, dead].float().abs().max()) == 0.0
+                    assert bool(torch.isinf(lse[:, dead]).all()) and \
+                        bool((lse[:, dead] > 0).all()), "empty rows: lse"
+                    dq, dk, dvv = ref.flash_attention_bwd(
+                        q, k, v, out, lse, r(2, Sq, H, dv), window=w,
+                        q_offset=qoff)
+                    assert float(dq[:, dead].float().abs().max()) == 0.0
+                    assert all(bool(torch.isfinite(t).all())
+                               for t in (dq, dk, dvv))
+        log(f"[kernels] flash_attention lse edges H={H} Hkv={Hkv} dh={dh} "
+            f"dv={dv} (Sq, Skv, q_offset, window) in {cases}: live rows max "
+            f"abs err out/lse fp32 {errs[torch.float32][0]:.3g}/"
+            f"{errs[torch.float32][1]:.3g}, bf16 "
+            f"{errs[torch.bfloat16][0]:.3g}/{errs[torch.bfloat16][1]:.3g}")
+    assert n_empty > 0
+    log(f"[kernels] flash_attention lse edges: {n_empty} (batch, row) "
+        f"pairs with no key gave out 0, lse +inf and dq 0")
+
+
+def flash_times_phase(dev) -> dict:
+    """flash at its six serve paths' shapes in bf16, without lse (the
+    contract of every tree since the kernel was ported), held to the
+    plain version and timed after the dirty flush, for comparing trees in
+    turns (``--flash-times``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator().manual_seed(SEED)
+    flush = l2_flushes(dev)[0]
+    out = {}
+    for path, (B, S, H, Hkv, dh, dv, window) in FLASH_PATHS:
+        r = lambda *s: torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
+        q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv)
+        max_err([fa.flash_attention(q, k, v, window=window)],
+                [ref.chunked_attention(q, k, v, window=window)],
+                torch.bfloat16)
+        out[path] = time_ms(lambda: fa.flash_attention(q, k, v,
+                                                       window=window), flush)
+        log(f"[flash-times] {path}: {out[path]:.4f} ms")
+    return out
+
+
 def gather_rows(dev, flushes):
     """isp_gather at gemma3-12b's vocabulary table under the plan (offset
     0: the whole table is this rank's shard on the one-rank mesh), held to
@@ -809,13 +1047,7 @@ def kernel_phase(dev):
     # window layers (dh 240, window 1024), llama4-scout's and
     # musicgen-large's prefill, deepseek-v2's MLA prefill (qk 192 / v 128)
     # and hymba-1.5b's window layers (25 heads over 5 at dh 64)
-    for path, (B, S, H, Hkv, dh, dv, window) in (
-            ("yi-9b serve", (8, 704, 32, 4, 128, 128, None)),
-            ("gemma3-12b serve", (8, 1536, 16, 8, 240, 240, 1024)),
-            ("llama4-scout serve", (8, 704, 40, 8, 128, 128, None)),
-            ("musicgen-large serve", (8, 704, 32, 32, 64, 64, None)),
-            ("deepseek-v2 serve", (8, 704) + MLA_HEADS + (None,)),
-            ("hymba serve", (8, 704, 25, 5, 64, 64, 1024))):
+    for path, (B, S, H, Hkv, dh, dv, window) in FLASH_PATHS:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
@@ -867,6 +1099,8 @@ def kernel_phase(dev):
             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
         del q, k, v, qt, kt, vt, lib
     flash_edges(dev, gen)
+    rows.append(flash_train_row(dev, gen, flush))
+    flash_lse_edges(dev, gen)
 
     rows += gather_rows(dev, flushes)
     del flushes
@@ -1852,6 +2086,10 @@ CLUSTER_KW = dict(n_drives=4, num_slots=8, max_len=1024, page_size=16,
 # activations (8 x 256 rows), one chunk's scores (256 x 32 x 1024 fp32)
 # and the allocator's rounding
 CLUSTER_MEM_MARGIN = 2 * 2**30
+# requests of the serial cluster run and of each open-loop trace: 16 (cut
+# from 32 to make room for the train phases in the run's time limit; the
+# crash run takes these 16 with 16 tokens each)
+CLUSTER_REQUESTS = 16
 
 
 def drive_cluster(cfg, params, dev, requests, shards=None, replay=None,
@@ -1985,7 +2223,7 @@ def cluster_phase(cfg, params, dev):
     rng = np.random.default_rng(SEED + 2)
     requests = [(rng.integers(0, cfg.vocab_size,
                               int(rng.integers(16, 701))).tolist(), 32)
-                for _ in range(32)]
+                for _ in range(CLUSTER_REQUESTS)]
     log(f"[cluster] prompt lengths {[len(p) for p, _ in requests]}")
     kw = CLUSTER_KW        # serve()'s engine has 8 slots of 16-row pages
     eng, results, wall, launches, prefill_calls = serve(
@@ -2011,8 +2249,9 @@ def cluster_phase(cfg, params, dev):
     assert [r.tokens for r in run.results] == want, \
         "the cluster's tokens differ from one engine's"
     assert not run.suspect, run.suspect
-    log(f"[cluster serial] tokens identical to one engine on 32/32 "
-        f"requests; free lists balance on all 4 drives; merged ledger = "
+    log(f"[cluster serial] tokens identical to one engine on "
+        f"{len(requests)}/{len(requests)} requests; free lists balance on "
+        f"all 4 drives; merged ledger = "
         f"the drives' ledgers + the spill ledger")
     log(f"[cluster serial] peak memory {peak / 1e9:.3f} GB <= weights "
         f"{weights / 1e9:.3f} GB + 4 pools of {pools[0] / 1e6:.1f} MB + "
@@ -2096,7 +2335,8 @@ def cluster_phase(cfg, params, dev):
                       slo_s=30.0 * per_req_s, prompt_range=(256, 700),
                       max_new_range=(16, 32)))
     trace = generate_trace(WorkloadConfig(
-        n_requests=32, vocab_size=cfg.vocab_size, arrival="bursty",
+        n_requests=CLUSTER_REQUESTS, vocab_size=cfg.vocab_size,
+        arrival="bursty",
         rate=1.2 / per_req_s, burst_factor=4.0, duty=0.25,
         period_s=8.0 * per_req_s, classes=classes, seed=SEED))
     log(f"[open-loop] {per_req_s * 1e3:.1f} ms a request (the serial "
@@ -2118,7 +2358,7 @@ def cluster_phase(cfg, params, dev):
             f"{m['slo_attainment']:.1%} ({m['slo_met']} met); goodput "
             f"{m['goodput_qps']:.3f} requests/s on the cluster clock; "
             f"launches {ol.launches}")
-        assert ol.submitted == 32 and (shed or m["shed"] == 0)
+        assert ol.submitted == CLUSTER_REQUESTS and (shed or m["shed"] == 0)
         served[order] = {r.rid: r.tokens for r in ol.results
                          if r.status == "ok"}
         del ol
@@ -2736,6 +2976,278 @@ def xlstm_phase(dev):
     return launches
 
 
+def train_flops(cfg, model) -> tuple:
+    """(model FLOPs of one train step at TRAIN_BATCH x TRAIN_SEQ, the block
+    parameters, the head's): 6 * (block parameters + head) * tokens for
+    the products, plus attention's causal score and value products, 4 *
+    dh * pairs * H * B a layer forward and twice that backward.  The remat
+    recompute is not counted (model FLOPs, not hardware FLOPs)."""
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    blocks = sum(p.numel() for p in model.blocks.parameters())
+    head = model.head_table().numel()
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3 * 4 * cfg.resolved_head_dim * pairs * cfg.num_heads \
+        * TRAIN_BATCH * cfg.num_layers
+    return 6 * (blocks + head) * tokens + attn, blocks, head
+
+
+def profile_train_step(step_fn, state, batch, step_ms):
+    """One train step under torch.profiler (CPU and CUDA activity), its
+    device kernels split into the flash kernel, the plain attention
+    backward, AdamW, the other GEMMs and the rest (each kernel attributed
+    through its launching op to the labelled range it ran in), and the
+    device's idle share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import ref
+    from repro_torch.launch import steps as S
+    bwd, upd = ref.flash_attention_bwd, S.adamw_update
+
+    def labelled(fn, label):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+    ref.flash_attention_bwd = labelled(bwd, "plain attention backward")
+    S.adamw_update = labelled(upd, "AdamW")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, _, m = step_fn(state.params, state.opt_state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ref.flash_attention_bwd, S.adamw_update = bwd, upd
+    labels = ("plain attention backward", "AdamW")
+    # device events, less the labels' own spans on the device timeline
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and e.name != "Command Buffer Full" and e.name not in labels]
+    if not kern:
+        log("[profile] train step: device time not measured (the profiler "
+            "recorded no device events)")
+        return
+    busy, end = 0.0, -1.0
+    for e in sorted(kern, key=lambda e: e.time_range.start):
+        s0, s1 = e.time_range.start, e.time_range.end
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    total = sum(e.time_range.end - e.time_range.start for e in kern)
+    parts, names = {}, {}
+    gemm = re.compile(r"gemm|nvjet|xmma|cutlass|cublas", re.I)
+
+    def walk(evt, label):
+        if evt.name in labels:
+            label = evt.name
+        for kn in evt.kernels:
+            if "flash_fwd" in kn.name:
+                cls = "flash kernel (forward + remat recompute)"
+            elif label:
+                cls = label
+            elif gemm.search(kn.name):
+                cls = "GEMMs (model, head)"
+            else:
+                cls = "rest"
+            parts[cls] = parts.get(cls, 0.0) + kn.duration
+            key = (cls, kn.name)
+            t, n = names.get(key, (0.0, 0))
+            names[key] = (t + kn.duration, n + 1)
+        for ch in evt.cpu_children:
+            walk(ch, label)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.cpu_parent is None:
+            walk(e, None)
+    parts["unattributed"] = max(total - sum(parts.values()), 0.0)
+    log(f"[profile] train step: wall {wall_ms:.1f} ms (profiled), device "
+        f"kernels {busy / 1e3:.1f} ms ({len(kern)} launches), idle share in "
+        f"window {1 - busy / 1e3 / wall_ms:.1%}; against the unprofiled "
+        f"median step {step_ms:.1f} ms: idle {1 - busy / 1e3 / step_ms:.1%}")
+    for cls, us in sorted(parts.items(), key=lambda x: -x[1]):
+        log(f"[profile] train step: {us / 1e3:9.1f} ms {us / total:6.1%}  "
+            f"{cls}")
+    # the three kernels that took the most time in each class
+    for cls in parts:
+        top = sorted(((us, n, name) for (c, name), (us, n) in names.items()
+                      if c == cls), reverse=True)[:3]
+        for us, n, name in top:
+            log(f"[profile] train step:   {us / 1e3:8.1f} ms x{n:<5d} "
+                f"[{cls.split(' (')[0]}] {name[:70]}")
+    return {k: v / 1e3 for k, v in parts.items()}
+
+
+def train_phase(dev):
+    """yi-9b at every published width, depth cut to TRAIN_LAYERS, bf16
+    with fp32 AdamW moments and remat "dots": TRAIN_STEPS steps through
+    ``train_loop.train`` on SyntheticTokenSource batches of TRAIN_BATCH x
+    TRAIN_SEQ, no checkpoint.  Every step's loss and grad norm finite;
+    flash launched on every layer twice a step (forward and the remat
+    recompute), no other kernel; the median step, tokens/s, model FLOPs
+    against the bf16 peak, peak memory; one step profiled; then four
+    steps on one repeated batch at lr 1e-4 must lower its loss."""
+    from repro_torch.config import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, ShardedLoader, \
+        SyntheticTokenSource
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import make_plan, make_recipe
+    from repro_torch.train import train_loop as TL
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
+    assert cfg.remat == "dots" and cfg.optimizer_state_dtype == "float32"
+    n = M.count_params(cfg)
+    log(f"[train] yi-9b bf16 at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of dh "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}),"
+        f" depth cut from 48 to {cfg.num_layers} layers: {n / 1e9:.3f} B "
+        f"parameters ({n * 12 / 1e9:.1f} GB of bf16 weights and gradients "
+        f"and fp32 moments); remat {cfg.remat!r}, attn_chunk "
+        f"{cfg.attn_chunk}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dcfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      vocab_size=cfg.vocab_size, seed=SEED)
+    tcfg = TL.TrainConfig(steps=TRAIN_STEPS, log_every=1, ckpt_every=10**9,
+                          seed=SEED)
+    mets = []
+    ops.reset_launch_counts()
+    state = TL.train(cfg, dcfg, tcfg, device=dev,
+                     metrics_cb=lambda step, m: mets.append(m))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert state.step == TRAIN_STEPS and len(mets) == TRAIN_STEPS
+    for m in mets:
+        assert math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]), m
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = 2 * TRAIN_LAYERS * TRAIN_STEPS
+    assert launches == want, (launches, want)
+    step_s = sorted(m["step_time_s"] for m in mets[1:])
+    med_ms = float(np.median(step_s)) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, blocks, head = train_flops(cfg, state.params)
+    share = flops / (med_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"losses {[round(m['loss'], 4) for m in mets]}, grad norms "
+        f"{[round(m['grad_norm'], 3) for m in mets]}; launches {launches}")
+    log(f"[train] step times (host clock, ms) "
+        f"{[round(m['step_time_s'] * 1e3, 1) for m in mets]}: median after "
+        f"the first {med_ms:.1f} ms, {tokens / med_ms * 1e3:.0f} tokens/s; "
+        f"model FLOPs a step {flops / 1e12:.2f} T (6 x ({blocks / 1e9:.3f} B "
+        f"block + {head / 1e9:.3f} B head parameters) x {tokens} tokens + "
+        f"attention), {flops / (med_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+        f"{share:.1%} of the 989 TFLOP/s dense bf16 peak; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    # one more step profiled, on the next batch, with the loop's schedule
+    recipe = make_recipe(make_plan(None, cfg), cfg,
+                         ShapeConfig(TRAIN_SEQ, TRAIN_BATCH))
+    step_fn, _ = S.build_train_step(
+        cfg, recipe, AdamWConfig(lr=tcfg.lr),
+        {"warmup": tcfg.warmup, "total": tcfg.steps}, device=dev)
+    loader = ShardedLoader(SyntheticTokenSource(dcfg.vocab_size, dcfg.seed),
+                           dcfg)
+    parts = profile_train_step(step_fn, state,
+                               loader.global_batch_at(TRAIN_STEPS), med_ms)
+    # a repeated batch: four steps on it must lower its loss (at lr 1e-4
+    # with no warmup: AdamW moves each weight by about lr a step whatever
+    # its gradient's scale, and 1e-3 overshoots by the third step, ~6% of
+    # a fan-in-scaled bf16 weight a step)
+    fit_fn, _ = S.build_train_step(cfg, recipe, AdamWConfig(lr=1e-4),
+                                   {"warmup": 0, "total": 10**6}, device=dev)
+    batch = loader.global_batch_at(0)
+    fit = [float(fit_fn(state.params, state.opt_state, batch)[2]["loss"])
+           for _ in range(4)]
+    with torch.no_grad():
+        after, _ = M.loss_fn(state.params, {
+            k: torch.as_tensor(v, device=dev) for k, v in batch.items()}, cfg)
+    fit.append(float(after))
+    assert all(math.isfinite(x) for x in fit) and fit[-1] < fit[0], fit
+    log(f"[train] one repeated batch, 4 steps at lr 1e-4: loss {fit[0]:.4f} "
+        f"-> {fit[-1]:.4f} ({[round(x, 4) for x in fit]})")
+    del state, step_fn, fit_fn
+    free_device()
+    return launches, dict(median_step_ms=med_ms,
+                          tokens_per_s=tokens / med_ms * 1e3,
+                          model_tflop=flops / 1e12, peak_share=share,
+                          peak_gb=peak / 1e9, profile_ms=parts)
+
+
+def elastic_phase(dev):
+    """Kill and resume through the normal entry points:
+    ``launch.elastic.supervise`` runs the train CLI on xlstm-125m (whole, 6
+    steps of 4 x 256, a checkpoint every 2) with REPRO_FAIL_AT_STEP=3 and a
+    marker.  The first attempt must die at step 3 (exit 42), the relaunch
+    resume from the last committed checkpoint and finish at step 6; its
+    final checkpoint must equal an uninterrupted in-process 6-step run
+    from the same seed bit for bit.  Tolerance 0: every operation on this
+    path is deterministic on the card (cuBLAS products, the embedding's
+    index backward, which CUDA sums through a sort and not with atomics,
+    the loss's gather, which adds one value to each element), and the
+    checkpoint restores bf16 and fp32 bits exactly."""
+    import shutil
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.config import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.elastic import supervise
+    from repro_torch.train import train_loop as TL
+    work = ROOT / "build" / "elastic_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ck, out = work / "ckpt", work / "train.log"
+    args = ["--arch", "xlstm-125m", "--steps", "6", "--ckpt-every", "2",
+            "--seq-len", "256", "--global-batch", "4", "--log-every", "1",
+            "--ckpt-dir", str(ck)]
+    cmd = ["bash", "-c", 'set -o pipefail; "$0" -m repro_torch.launch.train '
+           '"$@" 2>&1 | tee -a "$REPRO_TRAIN_LOG"', sys.executable] + args
+    t0 = time.perf_counter()
+    res = supervise(cmd, max_restarts=2, timeout_s=600, env={
+        "PYTHONPATH": str(ROOT / "src"), "REPRO_FAIL_AT_STEP": "3",
+        "REPRO_FAIL_MARKER": str(work / "marker"),
+        "REPRO_TRAIN_LOG": str(out)})
+    wall = time.perf_counter() - t0
+    text = out.read_text()
+    log(f"[elastic] supervise: {res.log}, {wall:.1f} s wall")
+    assert res.returncode == 0 and res.restarts == 1, res
+    assert "rc=42" in res.log[0] and "rc=0" in res.log[1], res.log
+    assert text.count("[elastic] injected failure at step 3") == 1
+    assert "[train] done at step 6" in text
+    resumed = re.findall(r"\[train\] resumed from step (\d+)", text)
+    resumed_from = int(resumed[0]) if resumed else 0
+    assert len(resumed) <= 1 and resumed_from in (0, 2), resumed
+    cfg = get_config("xlstm-125m")
+    ckpt_bytes = sum(f.stat().st_size for f in (ck / "step_000000006")
+                     .iterdir())
+    t0 = time.perf_counter()
+    clean = TL.train(cfg, DataConfig(seq_len=256, global_batch=4,
+                                     vocab_size=cfg.vocab_size, seed=0),
+                     TL.TrainConfig(steps=6, log_every=10**9,
+                                    ckpt_every=10**9, seed=0), device=dev)
+    clean_s = time.perf_counter() - t0
+    tree = {"params": dict(clean.params.named_parameters()),
+            "opt": clean.opt_state}
+    got, man = restore_checkpoint(ck, tree)
+    assert man["step"] == 6
+    from repro_torch.checkpoint.checkpoint import _flatten
+    want, have = _flatten(tree), _flatten(got)
+    diff = {k: float((have[k].double() - want[k].detach().double()).abs()
+                     .max()) for k in want}
+    unequal = [k for k in want if not torch.equal(have[k],
+                                                  want[k].detach())]
+    log(f"[elastic] xlstm-125m bf16 whole, 6 steps of 4 x 256: the "
+        f"supervised run died at step 3 (exit 42), resumed from step "
+        f"{resumed_from} and finished at 6; its final checkpoint "
+        f"({ckpt_bytes / 1e9:.2f} GB) against an uninterrupted in-process "
+        f"run ({clean_s:.1f} s): {len(want) - len(unequal)}/{len(want)} "
+        f"leaves bit-equal, max abs diff {max(diff.values()):.3g}")
+    assert not unequal, unequal[:5]
+    del clean, got, tree
+    shutil.rmtree(work, ignore_errors=True)
+    free_device()
+    return resumed_from
+
+
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and print
     ptxas's register and spill lines for every instantiation."""
@@ -2761,6 +3273,9 @@ def main() -> int:
         "only time isp_gather and isp_gather_pool at their path shapes "
         "under both L2 flushes (and isp decode on the rings), and print "
         "them as one JSON line; for running two trees' kernels in turns"))
+    parser.add_argument("--flash-times", action="store_true", help=(
+        "only time flash at its six serve paths' shapes without lse and "
+        "print them as one JSON line; for running two trees in turns"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -2783,6 +3298,13 @@ def main() -> int:
         secs = build.build(["isp_gather", "isp_gather_pool", "isp_decode"])
         log(f"[device] kernel build {secs:.2f} s")
         log(json.dumps({"times": times_phase(dev), "device": smi}))
+        return 0
+    if args.flash_times:
+        from repro_torch.kernels import build
+        secs = build.build(["flash_attention"])
+        log(f"[device] kernel build {secs:.2f} s")
+        log(json.dumps({"flash_times": flash_times_phase(dev),
+                        "device": smi}))
         return 0
     build_kernels()
 
@@ -2869,10 +3391,17 @@ def main() -> int:
     lap("hymba-1.5b")
     path_launches["xlstm serve"] = xlstm_phase(dev)
     lap("xlstm-125m")
+
+    # -- training: yi-9b at 8 layers on the card, then kill and resume ------
+    path_launches["yi-9b train"], train = train_phase(dev)
+    lap("train yi-9b")
+    elastic_phase(dev)
+    lap("kill and resume")
     for row in rows:
         row["launches"] = path_launches[row["path"]][row["kernel"]]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
 
+    log(json.dumps({"train": train}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-"""Vocabulary embedding and the greedy sampling head (port of
-``repro/core/embedding.py``), unsharded and ISP-sharded.
+"""Vocabulary embedding, the greedy sampling head and the training loss
+head (port of ``repro/core/embedding.py``), unsharded and ISP-sharded.
 
 Under a plan with a model axis the vocabulary table is the "drive": each
 rank keeps its shard of rows (and, with FSDP, of columns) and the table
@@ -11,11 +11,15 @@ the link.  Collectives run on ``torch.distributed`` over the plan's groups.
 
 Tensors here are what this rank holds: its batch rows of activations and
 tokens, and its shard of a table (``sharding.vocab_slices``).
+
+The cross-entropy is the unsharded chunked path only (``sharded_xent`` on
+the local plan); the vocab-sharded loss head is ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
@@ -35,6 +39,66 @@ def _logits_f32(x: torch.Tensor, w_head: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cuda":
         return torch.mm(x, w_head.t(), out_dtype=torch.float32)
     return x.float() @ w_head.float().t()
+
+
+class _HeadLogits(torch.autograd.Function):
+    """``_logits_f32`` with a gradient: fp32 logits (T, V) from x (T, D) and
+    the head (V, D).  The backward takes the fp32 cotangent to the
+    operands' dtype and runs two products in it (bf16 on the tensor cores
+    in a bf16 model; exact fp32 in an fp32 one): dx = g w, dw = gᵀ x."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _logits_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g.to(x.dtype)
+        return gx @ w, gx.t() @ x
+
+
+def _dense_chunked_xent(x, w_head, labels, vocab_size: int, chunk: int):
+    """Per-token cross-entropy (B, S) fp32 against an unsharded head,
+    without the (tokens x vocab) logits at once: ``chunk`` tokens at a
+    time, each chunk's logits recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's per-chunk remat), the
+    padded vocabulary columns at -1e30.  x: (B, S, D); w_head (V_pad, D);
+    labels (B, S) in [0, vocab)."""
+    b, s, d = x.shape
+    t = b * s
+    c = min(chunk, t)
+    pad = (-t) % c
+    xf = torch.nn.functional.pad(x.reshape(t, d), (0, 0, 0, pad))
+    lf = torch.nn.functional.pad(labels.reshape(t), (0, pad), value=0)
+
+    def body(x_c, l_c):
+        logits = _HeadLogits.apply(x_c, w_head)
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where((cols < vocab_size)[None], logits, -1e30)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(1, l_c.long()[:, None])[:, 0]
+        return lse - ll
+
+    losses = [checkpoint(body, xf[i:i + c], lf[i:i + c], use_reentrant=False)
+              for i in range(0, t + pad, c)]
+    return torch.cat(losses)[:t].reshape(b, s)
+
+
+def sharded_xent(x, w_head, labels, cfg: ModelConfig, plan=None,
+                 chunk: int = 4096, seq_sharded=None) -> torch.Tensor:
+    """Per-token cross-entropy (B, S) fp32 (the caller masks and means).
+    x: (B, S, D); w_head: (V_pad, D); labels: (B, S).  Without a
+    vocab-sharded plan this is ``_dense_chunked_xent``, as in the
+    reference; the sharded loss head (per-shard logits, psum'd
+    log-sum-exp) is not ported and raises.  ``seq_sharded`` only shapes
+    that sharded path."""
+    if sh.vocab_sharded(plan, cfg):
+        raise NotImplementedError(
+            "the vocab-sharded cross-entropy is not ported (ROADMAP queue 1 "
+            "item 5); training takes the local plan")
+    return _dense_chunked_xent(x, w_head, labels, cfg.vocab_size, chunk)
 
 
 def _full_columns(table: torch.Tensor, plan) -> torch.Tensor:

@@ -42,6 +42,19 @@
 // Both: GQA maps q head h to kv head h / G, so no KV head is repeated in
 // memory; masked keys contribute p = 0 (scores of -1e30); the l == 0 -> 1
 // guard stays.
+//
+// lse: given a non-null pointer, each (b, q row, h) also writes the row's
+// log-sum-exp of its scaled scores, m + log(l), in natural-log units and
+// fp32 into lse (B, Sq, H): what the training path's backward recomputes
+// the probabilities from, p = exp(s - lse).  The bf16 kernel keeps m in
+// log-2 units with the scale folded in, so the write converts once
+// (m * ln 2 + log l).  A row that sees no key (only at a q_offset or
+// window edge, never in causal training from position 0) has l = 0 and
+// output 0; its lse is +inf, so that every p of the backward is 0 and the
+// row's gradient is that of its output, 0.  (The plain version follows
+// the reference, whose masked scores count in l there: its lse is -1e30
+// and its output the mean of the visited values.)  With a null pointer
+// nothing else changes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +139,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
     const __nv_bfloat16* __restrict__ k,   // (B, Skv, Hkv, DQK)
     const __nv_bfloat16* __restrict__ v,   // (B, Skv, Hkv, DV)
     __nv_bfloat16* __restrict__ out,       // (B, Sq, H, DV)
+    float* __restrict__ lse,               // (B, Sq, H) or null
     int Sq, int Skv, int H, int Hkv, int causal, int window, int q_offset,
     float scale_log2) {
   using S = TcShape<DQK, DV>;
@@ -331,6 +345,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
     const int qi = q0 + wrow + g + 8 * r;
     if (qi >= Sq) continue;
     const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    if (lse != nullptr && tg == 0)
+      lse[((size_t)b * Sq + qi) * H + h] =
+          l[r] == 0.f ? __int_as_float(0x7f800000)
+                      : m[r] * 0.6931471805599453f + logf(l[r]);
     __nv_bfloat16* ob = out + ((size_t)b * Sq + qi) * o_row + (size_t)h * DV;
 #pragma unroll
     for (int n = 0; n < S::NT_O; ++n)
@@ -341,8 +359,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
 
 template <int DQK, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int B, int Sq, int Skv, int H, int Hkv, int causal,
-                      int window, int q_offset, float scale,
+                      float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                      int causal, int window, int q_offset, float scale,
                       cudaStream_t stream) {
   const size_t smem = TcShape<DQK, DV>::SMEM;
   auto kern = flash_fwd_tc<DQK, DV>;
@@ -352,8 +370,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(H, (Sq + BQ - 1) / BQ, B);
   kern<<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Sq, Skv, H, Hkv, causal,
-      window, q_offset, scale * 1.4426950408889634f);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, Sq, Skv, H, Hkv,
+      causal, window, q_offset, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -367,6 +385,7 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
               const float* __restrict__ k,   // (B, Skv, Hkv, DQK)
               const float* __restrict__ v,   // (B, Skv, Hkv, DV)
               float* __restrict__ out,       // (B, Sq, H, DV)
+              float* __restrict__ lse,       // (B, Sq, H) or null
               int Sq, int Skv, int H, int Hkv, int causal, int window,
               int q_offset, float scale) {
   constexpr int NG = DQK / 16;     // float4 groups of q/k per thread
@@ -485,6 +504,9 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
 
   if (!live) return;
   const float inv = 1.f / (l == 0.f ? 1.f : l);
+  if (lse != nullptr && part == 0)
+    lse[((size_t)b * Sq + qi) * H + h] =
+        l == 0.f ? __int_as_float(0x7f800000) : m + logf(l);
   const size_t obase = (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
   for (int g = 0; g < NGV; ++g)
@@ -495,37 +517,40 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
 
 template <int DQK, int DV>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
-                       void* out, int B, int Sq, int Skv, int H, int Hkv,
-                       int causal, int window, int q_offset, float scale,
+                       void* out, float* lse, int B, int Sq, int Skv, int H,
+                       int Hkv, int causal, int window, int q_offset,
+                       float scale,
                        cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_fma<DQK, DV><<<grid, BQ * TPR, 0, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq,
-      Skv, H, Hkv, causal, window, q_offset, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+      Sq, Skv, H, Hkv, causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dh: the q/k head dim; dv: the v/out head dim.  dtype: 0 = float32 (CUDA
-// cores), 1 = bfloat16 (tensor cores).  window <= 0 means no window.
+// cores), 1 = bfloat16 (tensor cores).  window <= 0 means no window.  lse:
+// null, or an fp32 (B, Sq, H) buffer for each row's log-sum-exp.
 // Returns cudaGetLastError() after the launch (0 = success), or
 // cudaErrorInvalidValue for a (dh, dv) pair with no instantiation.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int Sq,
-                                     int Skv, int H, int Hkv, int dh, int dv,
+                                     const void* v, void* out, void* lse,
+                                     int B, int Sq, int Skv, int H, int Hkv,
+                                     int dh, int dv,
                                      int causal, int window, int q_offset,
                                      float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_FA_LAUNCH(DQK, DV)                                             \
   if (dh == DQK && dv == DV)                                                 \
     return (int)(dtype == 0                                                  \
-                     ? launch_fma<DQK, DV>(q, k, v, out, B, Sq, Skv, H, Hkv, \
-                                           causal, window, q_offset, scale,  \
-                                           s)                                \
-                     : launch_tc<DQK, DV>(q, k, v, out, B, Sq, Skv, H, Hkv,  \
-                                          causal, window, q_offset, scale,   \
-                                          s));
+                     ? launch_fma<DQK, DV>(q, k, v, out, (float*)lse, B, Sq, \
+                                           Skv, H, Hkv, causal, window,      \
+                                           q_offset, scale, s)               \
+                     : launch_tc<DQK, DV>(q, k, v, out, (float*)lse, B, Sq,  \
+                                          Skv, H, Hkv, causal, window,       \
+                                          q_offset, scale, s));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   REPRO_FA_LAUNCH(64, 64)
   REPRO_FA_LAUNCH(128, 128)

@@ -10,9 +10,13 @@ reference's chunked path).  The kernel runs bfloat16 on the tensor cores
 products.
 
 The q/k head dim and the v head dim may differ (``HEAD_DIMS``): MLA's
-prefill attends at qk 192 / v 128.  ``flash_attention`` launches the kernel
-and takes CUDA tensors only;
-``kernels/ops.py`` sends CPU tensors to the plain version.
+prefill attends at qk 192 / v 128.  With ``return_lse`` the kernel also
+writes each row's log-sum-exp (fp32, natural log), which the training
+path's backward recomputes the probabilities from; a row that sees no key
+gets +inf there (its output is 0, and so is its gradient), where the plain
+version keeps the reference's -1e30.  ``flash_attention`` launches the
+kernel and takes CUDA tensors only; ``kernels/ops.py`` sends CPU tensors to
+the plain version.
 """
 from __future__ import annotations
 
@@ -52,11 +56,12 @@ def check_shapes(q, k, v) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, return_lse: bool = False):
     """Launch the CUDA kernel.  q: (B, Sq, H, dh); k: (B, Skv, Hkv, dh);
     v: (B, Skv, Hkv, dv), contiguous CUDA tensors of one dtype (float32 or
     bfloat16) on an sm_90 device, (dh, dv) one of ``HEAD_DIMS``.  Returns
-    (B, Sq, H, dv) in q's dtype; ``scale`` defaults to dh ** -0.5."""
+    (B, Sq, H, dv) in q's dtype, or with ``return_lse`` (out, lse (B, Sq,
+    H) float32); ``scale`` defaults to dh ** -0.5."""
     check_shapes(q, k, v)
     B, Sq, H, dh = q.shape
     Skv, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
@@ -78,11 +83,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
                              f"vectors)")
     scale = dh ** -0.5 if scale is None else scale
     out = q.new_empty((B, Sq, H, dv))
+    lse = q.new_empty((B, Sq, H), dtype=torch.float32) if return_lse \
+        else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     status = build.entry("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, Sq, Skv, H, Hkv, dh, dv, int(causal),
         -1 if window is None else int(window), int(q_offset), float(scale),
         _DTYPES[q.dtype], stream)
     build.check_status("flash_attention", status)
-    return out
+    return (out, lse) if return_lse else out

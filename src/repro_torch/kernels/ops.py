@@ -8,12 +8,22 @@
 ``chunk_prefill_attention`` is the one op with no kernel: the reference
 has none either, and every device takes its plain version.
 
+``flash_attention`` is differentiable, as the reference's
+``chunked_attention`` (a ``custom_vjp``) is: when grad is enabled and q, k
+or v requires it, it runs as ``_FlashAttention``, whose forward is the
+kernel on the card (or the plain forward on the CPU) returning the rows'
+log-sum-exp as well, and whose backward is the plain
+``ref.flash_attention_bwd`` on every device (the reference pairs its
+forward with a jnp backward; it has no Pallas backward kernel).
+
 Launches are counted per kernel in ``build.LAUNCHES`` (see
 ``launch_counts`` / ``reset_launch_counts``).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
@@ -32,12 +42,51 @@ def _on_cpu(t) -> bool:
     raise ValueError(f"no kernel or plain path for tensors on {t.device}")
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the reference's flash VJP: the forward saves (q, k,
+    v, out, lse); the backward recomputes the probabilities chunk by chunk
+    from them (``ref.flash_attention_bwd``).  The forward launches the
+    kernel for a CUDA tensor, or raises; it never gives way to the plain
+    forward on the card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, scale, q_chunk,
+                kv_chunk):
+        if _on_cpu(q):
+            out, lse = ref.chunked_attention(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                return_lse=True)
+        else:
+            out, lse = fa.flash_attention(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset,
+                                          scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
+                      scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_bwd(q, k, v, out, lse, dout,
+                                             **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
                     scale: Optional[float] = None, q_chunk: int = 512,
                     kv_chunk: int = 512):
     """Causal attention.  q: (B,Sq,H,dh); k/v: (B,Skv,Hkv,dh[v]).  Returns
-    (B,Sq,H,dhv).  The chunk sizes shape only the plain path."""
+    (B,Sq,H,dhv).  The chunk sizes shape the plain forward and the
+    backward.  Differentiable: with grad enabled and any of q/k/v requiring
+    it, it goes through ``_FlashAttention``; otherwise (every serve path)
+    the forward alone runs and writes no lse."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                     scale, q_chunk, kv_chunk)
     if _on_cpu(q):
         return ref.chunked_attention(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale,

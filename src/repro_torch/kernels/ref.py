@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels (forward only).
+"""Plain PyTorch versions of the kernels, and the chunked attention
+backward (``flash_attention_bwd``) that training runs on every device.
 
 These are the port's counterparts of ``repro/kernels/ref.py`` and keep its
 conventions: ``NEG_INF = -1e30`` (not -inf), fp32 ``(acc, l, m)`` decode
@@ -67,21 +68,10 @@ def _kv_chunk_starts(window, q_offset, q_chunk, kv_chunk, nq_idx: int,
     return [base + i * kc for i in range(n_chunks)]
 
 
-def chunked_attention(q, k, v, *, causal: bool = True,
-                      window: Optional[int] = None, q_offset: int = 0,
-                      scale: Optional[float] = None, q_chunk: int = 512,
-                      kv_chunk: int = 512) -> torch.Tensor:
-    """Chunked online-softmax attention, the forward of the reference's
-    ``chunked_attention`` (``_flash_fwd_impl``): the same chunking, the same
-    -1e30 masking with no mask on ``p``, and the same ``l == 0`` guard.
-    Returns (B, Sq, H, dhv) in q's dtype."""
-    B, Sq, H, dh = q.shape
-    dhv = v.shape[-1]
-    _, Skv, Hkv, _ = k.shape
-    g = H // Hkv
-    scale = dh ** -0.5 if scale is None else scale
-    qc = min(q_chunk, Sq)
-    kc = min(kv_chunk, Skv)
+def _pad_qkv(q, k, v, window, qc: int, kc: int):
+    """q padded to whole q chunks, k/v to whole kv chunks and, with a
+    window, to at least the span a windowed q chunk slices (the
+    reference's padding)."""
     qp = _pad_axis(q, qc, 1)
     kp = _pad_axis(k, kc, 1)
     vp = _pad_axis(v, kc, 1)
@@ -90,10 +80,45 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         if kp.shape[1] < need:
             kp = _pad_axis(kp, need, 1)
             vp = _pad_axis(vp, need, 1)
+    return qp, kp, vp
+
+
+def _block_scores(qblk, kblk, qpos, kpos, skv: int, causal: bool,
+                  window, scale: float):
+    """Scaled fp32 scores (B, qc, Hkv, g, kc) of one (q chunk, kv chunk)
+    block with the reference's masks at -1e30."""
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qblk, kblk) * scale
+    mask = kpos[None, :] < skv
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window is not None:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return torch.where(mask[None, :, None, None, :], s, NEG_INF)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: Optional[int] = None, q_offset: int = 0,
+                      scale: Optional[float] = None, q_chunk: int = 512,
+                      kv_chunk: int = 512, return_lse: bool = False):
+    """Chunked online-softmax attention, the forward of the reference's
+    ``chunked_attention`` (``_flash_fwd_impl``): the same chunking, the same
+    -1e30 masking with no mask on ``p``, and the same ``l == 0`` guard.
+    Returns (B, Sq, H, dhv) in q's dtype, or with ``return_lse`` (out, lse
+    (B, Sq, H) float32), ``lse = m + log(l_safe)`` as in the reference (a
+    row that sees no key counts its masked scores in ``l``, so its lse is
+    -1e30 and its output the mean of the values its chunks visit)."""
+    B, Sq, H, dh = q.shape
+    dhv = v.shape[-1]
+    _, Skv, Hkv, _ = k.shape
+    g = H // Hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qc = min(q_chunk, Sq)
+    kc = min(kv_chunk, Skv)
+    qp, kp, vp = _pad_qkv(q, k, v, window, qc, kc)
     sq_p, skv_p = qp.shape[1], kp.shape[1]
     nq = sq_p // qc
     kf, vf = kp.float(), vp.float()
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qblk = qp[:, qi * qc:(qi + 1) * qc].reshape(B, qc, Hkv, g, dh).float()
         qpos = q_offset + qi * qc + torch.arange(qc, device=q.device)
@@ -104,13 +129,8 @@ def chunked_attention(q, k, v, *, causal: bool = True,
             kblk = kf[:, start:start + kc]
             vblk = vf[:, start:start + kc]
             kpos = start + torch.arange(kc, device=q.device)
-            s = torch.einsum("bqhgd,bkhd->bqhgk", qblk, kblk) * scale
-            mask = kpos[None, :] < Skv
-            if causal:
-                mask = mask & (kpos[None, :] <= qpos[:, None])
-            if window is not None:
-                mask = mask & (kpos[None, :] > qpos[:, None] - window)
-            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+            s = _block_scores(qblk, kblk, qpos, kpos, Skv, causal, window,
+                              scale)
             m_new = torch.maximum(m, s.amax(dim=-1))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new[..., None])
@@ -120,8 +140,75 @@ def chunked_attention(q, k, v, *, causal: bool = True,
             m = m_new
         l_safe = torch.where(l == 0, torch.ones_like(l), l)
         outs.append((acc / l_safe[..., None]).to(q.dtype))
-    out = torch.cat(outs, dim=1).reshape(B, sq_p, H, dhv)
-    return out[:, :Sq]
+        if return_lse:
+            lses.append(m + torch.log(l_safe))
+    out = torch.cat(outs, dim=1).reshape(B, sq_p, H, dhv)[:, :Sq]
+    if not return_lse:
+        return out
+    return out, torch.cat(lses, dim=1).reshape(B, sq_p, H)[:, :Sq]
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset: int = 0,
+                        scale: Optional[float] = None, q_chunk: int = 512,
+                        kv_chunk: int = 512):
+    """The attention backward of the reference's ``custom_vjp``
+    (``_flash_bwd_impl``): scores recomputed chunk by chunk from q, k and
+    the forward's ``lse``, ``p = exp(s - lse)``, ``delta = rowsum(dout *
+    out)`` in fp32, ``ds = p (dout v^T - delta) scale``; the same chunks
+    (every kv chunk for a causal q chunk, the window's span otherwise),
+    masks and -1e30; dq per q chunk, dk/dv accumulated in fp32 over the q
+    chunks.  q: (B, Sq, H, dh); k: (B, Skv, Hkv, dh); v (B, Skv, Hkv, dv);
+    out/dout (B, Sq, H, dv); lse (B, Sq, H) float32.  Returns (dq, dk, dv)
+    in q's, k's and v's dtypes.  Plain tensor code on every device (the
+    reference has no Pallas backward), so no launch is counted."""
+    B, Sq, H, dh = q.shape
+    dhv = v.shape[-1]
+    _, Skv, Hkv, _ = k.shape
+    g = H // Hkv
+    scale = dh ** -0.5 if scale is None else scale
+    qc = min(q_chunk, Sq)
+    kc = min(kv_chunk, Skv)
+    qp, kp, vp = _pad_qkv(q, k, v, window, qc, kc)
+    op = _pad_axis(out, qc, 1)
+    dop = _pad_axis(dout, qc, 1)
+    lsep = _pad_axis(lse, qc, 1)
+    sq_p, skv_p = qp.shape[1], kp.shape[1]
+    nq = sq_p // qc
+    delta = (dop.float() * op.float()).sum(dim=-1)              # (B, Sq, H)
+    kf, vf = kp.float(), vp.float()
+    dk = torch.zeros((B, skv_p, Hkv, dh), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.zeros((B, skv_p, Hkv, dhv), dtype=torch.float32,
+                     device=q.device)
+    dqs = []
+    for qi in range(nq):
+        rows = slice(qi * qc, (qi + 1) * qc)
+        qblk = qp[:, rows].reshape(B, qc, Hkv, g, dh).float()
+        doblk = dop[:, rows].reshape(B, qc, Hkv, g, dhv).float()
+        lseblk = lsep[:, rows].reshape(B, qc, Hkv, g)
+        dlblk = delta[:, rows].reshape(B, qc, Hkv, g)
+        qpos = q_offset + qi * qc + torch.arange(qc, device=q.device)
+        dq = torch.zeros((B, qc, Hkv, g, dh), dtype=torch.float32,
+                         device=q.device)
+        for start in _kv_chunk_starts(window, q_offset, qc, kc, qi, skv_p):
+            kblk = kf[:, start:start + kc]
+            vblk = vf[:, start:start + kc]
+            kpos = start + torch.arange(kc, device=q.device)
+            s = _block_scores(qblk, kblk, qpos, kpos, Skv, causal, window,
+                              scale)
+            p = torch.exp(s - lseblk[..., None])              # (B,qc,Hkv,g,kc)
+            dp = torch.einsum("bqhgd,bkhd->bqhgk", doblk, vblk)
+            ds = p * (dp - dlblk[..., None]) * scale
+            dq += torch.einsum("bqhgk,bkhd->bqhgd", ds, kblk)
+            dk[:, start:start + kc] += torch.einsum("bqhgk,bqhgd->bkhd", ds,
+                                                    qblk)
+            dv[:, start:start + kc] += torch.einsum("bqhgk,bqhgd->bkhd", p,
+                                                    doblk)
+        dqs.append(dq)
+    dq = torch.cat(dqs, dim=1).reshape(B, sq_p, H, dh)[:, :Sq]
+    return (dq.to(q.dtype), dk[:, :Skv].to(k.dtype),
+            dv[:, :Skv].to(v.dtype))
 
 
 def _decode_valid_mask(kpos, cur_pos, window: Optional[int] = None):

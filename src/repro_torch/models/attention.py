@@ -1,9 +1,12 @@
-"""Attention layers (port of the prefill and decode branches of
-``repro/models/attention.py``): GQA, full and sliding-window
-(``gqa_apply``), and DeepSeek-style multi-head latent attention with a
-compressed KV cache (``mla_apply``, at the end of this module).
+"""Attention layers (port of ``repro/models/attention.py``): GQA, full and
+sliding-window (``gqa_apply``), and DeepSeek-style multi-head latent
+attention with a compressed KV cache (``mla_apply``, at the end of this
+module).
 
-Three entry modes:
+Four entry modes:
+  train    — full-sequence causal attention as in prefill, through the
+             differentiable ``ops.flash_attention`` (the kernel's forward,
+             the plain chunked backward), building no cache;
   prefill  — full-sequence causal attention (flash kernel), emits the
              sequence's K/V: the whole sequence for a full-attention layer,
              the last ``window`` rows as a ring (slot = pos % window) for a
@@ -289,9 +292,10 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
     kpos (B, S) strips), or one shared position (1,) against a kpos (S,)
     strip; chunk: (B, C) positions of a prefill chunk against a paged pool.
     ``write_mask`` (B,) bool gates per-slot cache writes.  ``plan`` (a
-    ShardingRecipe) shards dense strips over its sequence axes.  Returns
-    (out (B, S, D), new_cache)."""
-    if mode not in ("prefill", "decode", "chunk"):
+    ShardingRecipe) shards dense strips over its sequence axes.  train:
+    positions (S,), prefill's attention with no cache.  Returns (out (B, S,
+    D), new_cache), new_cache None in train."""
+    if mode not in ("train", "prefill", "decode", "chunk"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     window = cfg.attn.window if kind == "local" else None
     rope_base = cfg.attn.rope_base_local if kind == "local" \
@@ -339,13 +343,16 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
         out_h = kops.flash_attention(q, k, v, causal=True, window=window,
                                      q_chunk=cfg.attn_chunk,
                                      kv_chunk=cfg.attn_chunk)
-        if window is not None:
+        if mode == "train":
+            new_cache = None
+        elif window is not None:
             new_cache = _ring_prefill_cache(k, v, window)
         else:
             new_cache = {"k": k, "v": v,
                          "kpos": torch.arange(S, dtype=torch.int32,
                                               device=x.device)}
-        new_cache = _seq_block(new_cache, plan)
+        if new_cache is not None:
+            new_cache = _seq_block(new_cache, plan)
     H, dh, D = attn.wo.shape
     out = out_h.to(x.dtype).reshape(B * S, H * dh) @ attn.wo.reshape(H * dh, D)
     return out.reshape(B, S, D), new_cache
@@ -447,14 +454,15 @@ def mla_apply(attn: MLA, x, positions, cfg: ModelConfig,
     ``write_mask``, or at the shared position), then
     ``mla_decode_attention`` scores q against the compressed rows, and
     wv_b lifts the context to the value heads.  A prefill chunk raises, as
-    in the reference.  Returns (out (B, S, D), new_cache)."""
+    in the reference.  train: prefill's unabsorbed attention with no cache.
+    Returns (out (B, S, D), new_cache), new_cache None in train."""
     a = cfg.attn
     B, S, _ = x.shape
     if mode == "chunk":
         raise NotImplementedError(
             "chunked prefill covers paged full-attention GQA layers only "
             "(MLA caches are dense per-slot strips)")
-    if mode not in ("prefill", "decode"):
+    if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     per_slot, posb, rope_pos = _decode_positions(positions, B, cache, mode)
     q_nope, q_rope = _mla_q(attn, x, cfg)
@@ -494,9 +502,9 @@ def mla_apply(attn: MLA, x, positions, cfg: ModelConfig,
                                      q_chunk=cfg.attn_chunk,
                                      kv_chunk=cfg.attn_chunk)
         del q, k, v, k_nope
-        new_cache = {"ckv": ckv, "krope": k_rope,
-                     "kpos": torch.arange(S, dtype=torch.int32,
-                                          device=x.device)}
+        new_cache = None if mode == "train" else {
+            "ckv": ckv, "krope": k_rope,
+            "kpos": torch.arange(S, dtype=torch.int32, device=x.device)}
     H, dv, D = attn.wo.shape
     out = out_h.to(x.dtype).reshape(B * S, H * dv) @ attn.wo.reshape(H * dv,
                                                                      D)

@@ -166,19 +166,23 @@ def apply_moe(moe: MoE, x, cfg: ModelConfig, plan=None):
 def apply_block(block: Block, x, positions, cfg: ModelConfig,
                 cache: Optional[Dict], mode: str, write_mask=None,
                 plan=None):
-    """Returns (x, new_cache); an MoE block's aux loss is dropped (no
-    training path is ported).  ``write_mask`` gates the attention caches'
-    decode writes; recurrent states need none (a finished slot only
-    corrupts its own state, which the engine replaces whole at refill)."""
+    """Returns (x, new_cache) in the serve modes, where an MoE block's aux
+    loss is dropped; in ``"train"``, which builds no cache, (x, aux): the
+    MoE load loss of ``"moe"`` / ``"mla_moe"`` blocks, a float32 0 for the
+    others (the reference's third return value).  ``write_mask`` gates the
+    attention caches' decode writes; recurrent states need none (a finished
+    slot only corrupts its own state, which the engine replaces whole at
+    refill)."""
     eps = cfg.norm_eps
     kind = block.kind
+    train = mode == "train"
     h = rms_norm(x, block.ln1, eps)
     if kind == "mlstm":
         y, new_cache = ssm_mod.mlstm_apply(block.core, h, cfg, cache, mode)
-        return x + y, new_cache
+        return x + y, _zero(x) if train else new_cache
     if kind == "slstm":
         y, new_cache = ssm_mod.slstm_apply(block.core, h, cfg, cache, mode)
-        return x + y, new_cache
+        return x + y, _zero(x) if train else new_cache
     if kind == "mla_moe":
         a, new_cache = attn_mod.mla_apply(block.attn, h, positions, cfg,
                                           cache, mode, write_mask=write_mask,
@@ -200,11 +204,20 @@ def apply_block(block: Block, x, positions, cfg: ModelConfig,
             write_mask=write_mask, plan=plan)
     x = x + a
     h = rms_norm(x, block.ln2, eps)
+    aux = None
     if kind in _MOE_KINDS:
-        f, _ = apply_moe(block.moe, h, cfg, plan)
+        f, aux = apply_moe(block.moe, h, cfg, plan)
     else:
         f = swiglu(h, block.mlp.w_gate, block.mlp.w_up, block.mlp.w_down)
-    return x + f, new_cache
+    if not train:
+        return x + f, new_cache
+    return x + f, _zero(x) if aux is None else aux
+
+
+def _zero(x) -> torch.Tensor:
+    """A block's load loss where it has none: float32 0 (train only, so
+    that the serve modes add no operation)."""
+    return x.new_zeros((), dtype=torch.float32)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,

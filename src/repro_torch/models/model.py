@@ -1,8 +1,9 @@
-"""LM assembly: embedding → blocks → head (port of ``repro/models/model.py``
-for the serve path).
+"""LM assembly: embedding → blocks → head (port of
+``repro/models/model.py``).
 
 Entry points:
   init_params      (cfg, generator, device) -> LM
+  loss_fn          (model, batch, cfg, plan) -> (loss, metrics)   [train]
   prefill_fn       (model, batch, cfg, plan) -> (next_token, caches)
   decode_fn        (model, caches, token, pos, cfg, plan) -> (next_token, caches)
   decode_block_fn  up to k fused greedy steps with on-device termination
@@ -32,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
@@ -157,11 +159,32 @@ def _stack(trees):
 def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
                mode: str = "prefill", write_mask=None, plan=None):
     """x: (B, S, D).  Returns (x, caches): prefill builds stacked K/V
-    caches, decode and chunk update ``caches`` in place."""
+    caches, decode and chunk update ``caches`` in place.  ``"train"``
+    builds none and returns (x, aux), the MoE load losses of all blocks
+    summed in float32.
+
+    In train with ``cfg.remat`` "dots" or "full", each block runs under
+    non-reentrant ``torch.utils.checkpoint``: its activations are dropped
+    after the forward and recomputed in the backward (the flash kernel
+    launches again there).  The reference checkpoints each layer group,
+    with ``dots_with_no_batch_dims_saveable`` for "dots"; PyTorch has no
+    such policy, so "dots" recomputes the products too.  The gradients
+    are the same either way; only memory and time differ."""
     if blk.sp_enabled(cfg, plan, x.shape[1], mode):
         raise NotImplementedError("the sequence-parallel residual stream "
                                   "(tp > 1, >= 1 B parameters) is not "
                                   "ported")
+    if mode == "train":
+        aux = x.new_zeros((), dtype=torch.float32)
+        remat = cfg.remat in ("dots", "full")
+        for block in model.blocks:
+            def run(h, block=block):
+                return blk.apply_block(block, h, positions, cfg, None,
+                                       "train", plan=plan)
+            x, a = checkpoint(run, x, use_reentrant=False) if remat \
+                else run(x)
+            aux = aux + a
+        return x, aux
     gpat = group_pattern(cfg)
     gs = len(gpat)
     out: Dict[str, list] = {}
@@ -178,6 +201,45 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
     if mode == "prefill":
         caches = {name: _stack(trees) for name, trees in out.items()}
     return x, caches
+
+
+def _local_only(plan) -> None:
+    if plan is not None and plan.mesh is not None:
+        raise NotImplementedError(
+            "training under a mesh (FSDP/TP parameter sharding, the "
+            "vocab-sharded loss, the SP residual stream) is not ported "
+            "(ROADMAP queue 1 item 5); train on the local plan")
+
+
+def loss_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            plan=None):
+    """batch: {tokens (B, S) | embeddings (B, S, D), labels (B, S)}.
+    Returns (loss, {"xent", "aux", "tokens"}), as the reference's: the
+    mean cross-entropy over labels >= 0 (negative labels are masked, their
+    rows clamped to 0), the MoE load loss summed over blocks and divided
+    by the number of layer groups, and loss = xent + aux_loss_coef * aux.
+    ``embeddings`` (a frontend's output) is cast to the model dtype and
+    used in place of the lookup.  The local plan only (``plan`` None or
+    without a mesh)."""
+    _local_only(plan)
+    if "embeddings" in batch:
+        x = batch["embeddings"].to(torch_dtype(cfg))
+    else:
+        x = emb.embed_lookup(model.embed.table, batch["tokens"], cfg, plan)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    x, aux = run_blocks(model, x, positions, cfg, None, "train", plan=plan)
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    labels = batch["labels"]
+    per_tok = emb.sharded_xent(x, model.head_table(),
+                               torch.clamp(labels, min=0), cfg, plan)
+    mask = (labels >= 0).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    xent = (per_tok * mask).sum() / denom
+    aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
+    aux = aux / max(cfg.num_layers // cfg.group_size, 1)
+    loss = xent + aux_coef * aux
+    return loss, {"xent": xent, "aux": aux, "tokens": denom}
 
 
 def prefill_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

@@ -1,5 +1,5 @@
 """Recurrent sequence mixers: Mamba, mLSTM, sLSTM (port of
-``repro/models/ssm.py`` for the serve path: prefill and decode).
+``repro/models/ssm.py``: train, prefill and decode).
 
 Each takes (module, x, cfg, cache, mode) and returns (y, new_cache) with a
 constant-size recurrent state — the "resident state" analogue of the
@@ -24,9 +24,12 @@ Parameters keep the reference's layouts and dtypes: Mamba's ``dt_bias``,
 ``a_log`` and ``d_skip``, mLSTM's ``if_bias`` and sLSTM's ``bias`` are
 float32 in any model dtype.  The recurrent caches are float32 (Mamba's
 ``conv`` window is in the model dtype).  Decode updates a given cache in
-place; prefill returns new state.  A padded prefill would integrate pad
-tokens into the state, so the serve engine gives recurrent stacks
-exact-length buckets.
+place; prefill returns new state; train is prefill's math from a zero
+state, differentiable (no in-place update of a tensor autograd keeps), and
+returns no state (None), as the reference's guards on ``mode in
+("decode", "prefill")`` do.  A padded prefill would integrate pad tokens
+into the state, so the serve engine gives recurrent stacks exact-length
+buckets.
 """
 from __future__ import annotations
 
@@ -114,17 +117,22 @@ def mamba_params(cfg: ModelConfig, generator: torch.Generator, dtype,
     }
 
 
-def doubling_scan(a, b):
+def doubling_scan(a, b, inplace: bool = True):
     """Inclusive scan of h_t = a_t * h_{t-1} + b_t along axis 1 from h = 0,
     by doubling: log2 L passes of b[t] += a[t] * b[t - o]; a[t] *= a[t - o]
     for o = 1, 2, 4, ...  Returns (A, H): A_t the product a_0 .. a_t and
     H_t the state at t; the state from h0 is A_t * h0 + H_t.  ``a`` and
-    ``b`` are consumed (updated in place)."""
+    ``b`` are consumed (updated in place) unless ``inplace`` is false, as
+    training needs: autograd keeps the tensors of every pass."""
     L = a.shape[1]
     o = 1
     while o < L:
-        b[:, o:] += a[:, o:] * b[:, :-o]
-        a[:, o:] *= a[:, :-o].clone()
+        if inplace:
+            b[:, o:] += a[:, o:] * b[:, :-o]
+            a[:, o:] *= a[:, :-o].clone()
+        else:
+            b = torch.cat([b[:, :o], b[:, o:] + a[:, o:] * b[:, :-o]], 1)
+            a = torch.cat([a[:, :o], a[:, o:] * a[:, :-o]], 1)
         o *= 2
     return a, b
 
@@ -134,7 +142,8 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     """x: (B, S, D).  Cache: {"conv": (B, W-1, d_in) model dtype, "ssm":
     (B, d_in, N) float32}.  prefill starts from ``cache`` (zeros without
     one) and returns the state after the last row; decode (S = 1) updates
-    ``cache`` in place.  Returns (out (B, S, D), new_cache)."""
+    ``cache`` in place; train is prefill out of place, with no state
+    returned.  Returns (out (B, S, D), new_cache)."""
     s = cfg.ssm
     B, S, D = x.shape
     d_in = s.expand * D
@@ -179,8 +188,11 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, cache: Optional[Dict] = None,
             sl = slice(c0, min(c0 + L, S))
             da = torch.exp(dt[:, sl, :, None] * a)            # (B, l, d_in, N)
             dbx = xdt[:, sl, :, None] * bmat[:, sl, None, :]
-            acc, h_all = doubling_scan(da, dbx)
-            h_all += acc * h_last[:, None]
+            acc, h_all = doubling_scan(da, dbx, inplace=mode != "train")
+            if mode == "train":
+                h_all = h_all + acc * h_last[:, None]
+            else:
+                h_all += acc * h_last[:, None]
             del acc, da
             ys.append(torch.einsum("bsen,bsn->bse", h_all, cmat[:, sl]))
             h_last = h_all[:, -1].clone()
@@ -190,6 +202,8 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     y = y + p.d_skip * xc.float()
     y = y * F.silu(z.float())
     out = _mm(y.to(x.dtype), p.w_out)
+    if mode == "train":
+        return out, None
     new = {"conv": new_conv.to(x.dtype), "ssm": h_last.float()}
     if mode == "decode":
         return out, _write_state(cache, new)
@@ -351,6 +365,8 @@ def mlstm_apply(p: MLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
                  cfg.norm_eps)
     h = h * F.silu(gate.float()).to(x.dtype)
     out = _mm(h, p.w_down)
+    if mode == "train":
+        return out, None
     new = dict(zip(("C", "n", "m"), state))
     if mode == "decode":
         return out, _write_state(cache, new)
@@ -450,6 +466,8 @@ def slstm_apply(p: SLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     y = _mm(h_all, p.w_pf1)
     y = F.gelu(y.float(), approximate="tanh").to(x.dtype)
     out = _mm(y, p.w_pf2)
+    if mode == "train":
+        return out, None
     new = dict(zip(("c", "n", "m", "h"), carry))
     if mode == "decode":
         return out, _write_state(cache, new)

@@ -52,7 +52,11 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.core.energy", "repro_torch.models.ssm",
               "repro_torch.configs.deepseek_v2_236b",
               "repro_torch.configs.hymba_1_5b",
-              "repro_torch.configs.xlstm_125m"):
+              "repro_torch.configs.xlstm_125m",
+              "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+              "repro_torch.checkpoint.checkpoint",
+              "repro_torch.data.pipeline", "repro_torch.train.train_loop",
+              "repro_torch.launch.train", "repro_torch.launch.elastic"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -134,6 +138,33 @@ def test_mesh_and_step_builders_default_to_cuda():
         assert sum(ops.launch_counts().values()) == 0
     finally:
         lm.teardown()
+
+
+def test_train_entry_points_default_to_cuda(tmp_path):
+    """``train``, ``build_state``, ``build_train_step`` and the train CLI
+    run on the card unless told otherwise, and raise without one; asked
+    for the CPU, the CLI trains the reduced config."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import train_loop
+    cfg = dataclasses.replace(reduced_config("yi-9b"), dtype="float32")
+    dcfg = DataConfig(seq_len=8, global_batch=2, vocab_size=cfg.vocab_size)
+    tcfg = train_loop.TrainConfig(steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop.train(cfg, dcfg, tcfg)
+    recipe = sh.make_recipe(sh.make_plan(None, cfg), cfg, ShapeConfig(8, 2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop.build_state(cfg, recipe, AdamWConfig(), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        steps.build_train_step(cfg, recipe)
+    argv = ["--arch", "yi-9b", "--smoke", "--steps", "1", "--global-batch",
+            "2", "--seq-len", "8"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(argv)
+    assert train_cli.main(argv + ["--device", "cpu"]) == 0
 
 
 def test_unported_options_raise(tmp_path):
