@@ -74,7 +74,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   5. consistency — the same requests with k_block=1 give identical tokens;
      then two engine ticks under torch.profiler (CUDA activity) show where
      the device time goes and how much of a decode step the card sits idle;
-  6. chunked  — the same yi-9b and requests with chunk_prefill=256 at chunk
+  6. chunked  — yi-9b at full width, its depth cut to CHUNK_LAYERS = 16
+                of 48, on the same requests one-shot and then with
+                chunk_prefill=256 at chunk
                 budgets 1 and 2: all ok, a balanced free list, the kernels
                 on every layer of every one-shot prefill call and step, the
                 chunk calls (the plain masked attention) counted from the
@@ -82,13 +84,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 one-shot tokens (a flip only below BF16_FLIP_MARGIN); one
                 chunk call profiled;
   7. cluster  — four drives (ClusterEngine, 8 slots each, 256-row chunks)
-                over the one yi-9b: CLUSTER_REQUESTS = 16 requests (prompts
-                16..700, max_new 32; 32 before the train phases came) served
+                over one yi-9b at full width, its depth cut to
+                CLUSTER_LAYERS = 8 of 48 layers: CLUSTER_REQUESTS = 16
+                requests (prompts 16..700, max_new 32; 32 before the train
+                phases came) served
                 serially give one engine's tokens with balanced
                 free lists, a merged ledger equal to the drives' plus the
                 spill ledger, and peak memory under the weights plus four
                 pools plus CLUSTER_MEM_MARGIN; data_local over 4 shards with
-                drive 1 crashed at tick 3 (16 requests of 16 tokens):
+                drive 1 crashed at tick 3 (the 16 requests, 16 tokens):
                 conservation and the fault-free tokens; 8 requests of 8
                 tokens serially and on worker threads (dispatch timeout and
                 watchdog sized from the serial run's longest tick): the same
@@ -105,15 +109,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 then chunk_prefill=128 on the paged layout, cold and
                 prewarmed: the same tokens, and the prewarmed engine books
                 its first launches before the first request;
-  9. gemma3   — full-width, full-depth gemma3-12b in bfloat16 (40 window
-                layers on per-slot rings, 8 global layers on the paged
-                pool): 16 requests with prompt lengths in 16..1500, two of
+  9. gemma3   — full-width gemma3-12b in bfloat16, its depth cut to
+                GEMMA_LAYERS = 12 of 48 (10 window layers on per-slot
+                rings, 2 global layers on the paged pool; whole before the
+                two-rank phase): 16 requests with prompt lengths in
+                16..1500, two of
                 them 1000-token prompts with max_new=64 so their rings wrap
                 while decoding, through ServeEngine(num_slots=8,
                 max_len=2048, page_size=16, k_block=8); all ok, a balanced
-                free list, the flash kernel on all 48 layers of every
-                prefill call, the isp-decode kernel on the 40 window layers
-                and the paged-decode kernel on the 8 global layers of every
+                free list, the flash kernel on all 12 layers of every
+                prefill call, the isp-decode kernel on the 10 window layers
+                and the paged-decode kernel on the 2 global layers of every
                 step; k_block=1 gives identical tokens; one decode tick is
                 profiled;
   10. plan    — the same gemma3-12b (before it is freed) through a sharding
@@ -124,8 +130,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 16 greedy), against the same run without a recipe: identical
                 tokens; isp_gather launched exactly once per prefill call and
                 decode step under the plan and never without it, the other
-                kernels exactly as on the uniform path (flash 48 per prefill,
-                isp decode 48 per step); embed_lookup under the plan
+                kernels exactly as on the uniform path (flash 12 per prefill,
+                isp decode 12 per step); embed_lookup under the plan
                 bit-equal to gather_baseline; decode ms per step and peak
                 memory with and without the recipe, in turns (plan, no
                 plan, no plan, plan); the process group is torn down at the
@@ -165,10 +171,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 tick profiled; KV bytes a token compressed against
                 unabsorbed; layer 0's absorbed decode step in fp32 against
                 the unabsorbed computation (MLA_REL_TOL);
-  14. hymba   — hymba-1.5b whole (32 hybrid layers: window-1024 GQA at 25
+  14. hymba   — hymba-1.5b at full width, its depth cut to HYMBA_LAYERS
+                = 16 of 32 hybrid layers (window-1024 GQA at 25
                 heads over 5 of dh 64 beside Mamba) in bfloat16: 8 requests
                 as above in exact-length buckets on strips; all ok, flash on
-                all 32 layers of every prefill call, isp decode on all 32
+                all 16 layers of every prefill call, isp decode on all 16
                 rings of every step; k_block=1 gives identical tokens; one
                 decode tick profiled;
   15. xlstm   — xlstm-125m whole (6 mLSTM + 6 sLSTM blocks, no attention)
@@ -188,11 +195,42 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 with the idle share; four steps on one repeated batch lower
                 its loss (a wrong but finite gradient would not);
   17. elastic — launch.elastic.supervise runs the train CLI on xlstm-125m
+                at full width and ELASTIC_LAYERS = 4 of its 12 layers
                 (6 steps of 4 x 256, a checkpoint every 2) with
-                REPRO_FAIL_AT_STEP=3 and a marker: it dies once (exit 42),
-                resumes from the last committed checkpoint and finishes at
+                REPRO_FAIL_AT_STEP=5 and a marker: it dies once (exit 42),
+                resumes from a committed checkpoint (step 2 or 4: at 4
+                layers a step is shorter than a checkpoint's write, and
+                the save at step 4 waits for step 2's) and finishes at
                 6; its final checkpoint equals an uninterrupted in-process
-                run from the same seed bit for bit.
+                run from the same seed bit for bit;
+  18. mesh    — two ranks share the one card (two processes on cuda:0,
+                a (1, 2) ("data", "model") mesh in a gloo group over CUDA
+                tensors: NCCL refuses two ranks on one device) and serve
+                through ServeEngine(recipe=...) (num_slots=8,
+                max_len=1024, k_block=8; mesh_cases): yi-9b whole in bf16
+                (TP 2 on the block weights, SP in prefill, the paged
+                engine, decode on the strips over the model axis) and at
+                MESH_FP32_LAYERS = 4 in fp32, deepseek-v2 at full width
+                in bf16 (MESH_DEEPSEEK_LAYERS = 4) and fp32 (2 layers),
+                EP 2 over its 160 experts at full capacity and MLA decode
+                under sequence sharding; then each case with no plan in
+                this process: fp32 tokens identical, bf16 flips only
+                below BF16_FLIP_MARGIN; the first-prefill logits of
+                MESH_LOGIT_PROMPTS = 2 prompts within MESH_LOGIT_TOL of
+                the one-rank logits (the largest difference over their
+                RMS); both ranks the same tokens; flash
+                on every layer of every prefill call, isp decode on every
+                layer of every paged step (the strips' blocks), paged
+                decode never, isp_gather on the vocabulary shard; each
+                rank's weights and peak memory beside the one-rank run's;
+                a yi-9b decode step's time in gloo collectives (through
+                the host, not NCCL) beside its profiled kernel time, on
+                a warm engine of MESH_TIMING_K = 2 steps a tick whose
+                8 requests are the first 16 tokens of the served ones.
+The kernel phase also holds flash, isp decode and isp_gather to their
+plain versions at one rank's shapes of the two-rank yi-9b path (16 of
+32 query heads over 2 of 4 KV heads; a 512-row block of a 1024-row strip
+view with every head; a 32000-row vocabulary shard) and times them.
 The kernel phase also holds flash's log-sum-exp output (lse, what the
 training path's backward reads) to the plain version at the train shape
 (B=2, S=4096, H=32, Hkv=4, dh 128, causal, bf16 and fp32; LSE_TOL), the
@@ -221,6 +259,10 @@ in turns in one call.
 
 times flash at its six serve paths' shapes without lse (the wrapper's
 contract before and after lse), one JSON line, for the same use.
+
+    python3 chip_smoke.py --mesh
+
+builds the kernels and runs only the two-rank phase.
 """
 from __future__ import annotations
 
@@ -234,6 +276,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -914,6 +957,107 @@ def gather_rows(dev, flushes):
     return rows
 
 
+def tp2_rows(dev, gen, flushes):
+    """The kernels of the two-rank yi-9b path at one rank's shapes: flash
+    on the rank's 16 of 32 query heads over its 2 of 4 KV heads (prompts
+    up to 128 rows), isp decode on the rank's block of the strip view
+    (rows 0..511 of each slot's 1024, every head: q is gathered whole
+    before the sequence-sharded decode), and isp_gather on the rank's
+    32000 x 4096 vocabulary shard for a decode step's 8 ids (about half
+    of them on the other shard).  Each held to its plain version, then
+    timed beside it, its bound and, for flash and the gather, the library
+    call."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import isp_decode as isp
+    from repro_torch.kernels import isp_gather as ig
+    from repro_torch.kernels import ref
+    flush = flushes[0]
+    path = "yi-9b tp2 serve"
+    rows = []
+    B, S, H, Hkv, dh = 8, 128, 16, 2, 128
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa
+        q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh)
+        errs[dtype] = max_err([fa.flash_attention(q, k, v)],
+                              [ref.chunked_attention(q, k, v)], dtype)
+    pairs = S * (S + 1) // 2
+    bound_ms, bound_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
+                               4 * dh * pairs * B * H, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows.append(dict(
+        name="flash_attention", kernel="flash_attention", path=path,
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:77", dtype="bfloat16",
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} causal (one rank's "
+        f"heads)", max_abs_err=errs[torch.bfloat16],
+        max_abs_err_fp32=errs[torch.float32],
+        ms=time_ms(lambda: fa.flash_attention(q, k, v), flush),
+        plain_ms=time_ms(lambda: ref.chunked_attention(q, k, v), flush),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True), flush)))
+    del q, k, v, qt, kt, vt
+
+    B, H, Hkv, dh, S = 8, 32, 4, 128, 512
+    cur = torch.tensor([271, 100, 16, 0, 300, 1, 257, 700],
+                       dtype=torch.int32)
+    j = torch.arange(S, dtype=torch.int32)
+    kpos = torch.where(j[None] <= cur[:, None], j[None], -1)
+    kpos, cur = kpos.to(dev), cur.to(dev)
+    valid = int((kpos >= 0).sum())
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa
+        args = (r(B, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh), kpos, cur)
+        errs[dtype] = max_err(isp.decode_partial(*args, window=None),
+                              isp.decode_partial_ref(*args, window=None),
+                              dtype)
+    nbytes = (B * H * dh * 2 + 2 * valid * Hkv * dh * 2 + kpos.numel() * 4
+              + B * 4 + B * H * dh * 4 + 2 * B * H * 4)
+    bound_ms, bound_by = bound(nbytes, 4 * valid * H * dh, torch.bfloat16)
+    rows.append(dict(
+        name="decode_partial", kernel="isp_decode", path=path, route="cuda",
+        source="src/repro_torch/kernels/csrc/isp_decode.cu",
+        replaces="src/repro/kernels/isp_decode.py:72", dtype="bfloat16",
+        shape=f"B={B} H={H} Hkv={Hkv} dh={dh} S={S} (rank 0's block of a "
+        f"1024-row strip view) kpos (8, {S}) ({valid} valid keys)",
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_fp32=errs[torch.float32],
+        ms=time_ms(lambda: isp.decode_partial(*args, window=None), flush),
+        plain_ms=time_ms(lambda: isp.decode_partial_ref(*args, window=None),
+                         flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+    del args
+
+    table = torch.randn(32000, 4096, generator=gen).to(dev, torch.bfloat16)
+    idx = torch.randint(0, 64000, (8,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    got, want = ig.isp_gather(table, idx), ig.isp_gather_ref(table, idx)
+    assert torch.equal(got, want), "isp_gather tp2: not exact"
+    # an id off the shard reads no row (the kernel stores zeros): the
+    # bytes are the on-shard rows read, every row written and the ids
+    n, n_on = 8, int((idx < 32000).sum())
+    nbytes = (n_on + n) * 4096 * 2 + 4 * n
+    bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+    lib_idx = idx.long().clamp(0, 31999)
+    rows.append(dict(
+        name="isp_gather", kernel="isp_gather", path=path, route="cuda",
+        source="src/repro_torch/kernels/csrc/isp_gather.cu",
+        replaces="src/repro/kernels/isp_gather.py:50", dtype="bfloat16",
+        shape="table (32000, 4096) offset 0 (rank 0's vocabulary shard), 8 "
+        f"ids over 64000 ({n_on} on the shard)",
+        max_abs_err=0.0, max_abs_err_fp32=None,
+        ms=time_ms(lambda: ig.isp_gather(table, idx), flush),
+        plain_ms=time_ms(lambda: ig.isp_gather_ref(table, idx), flush),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: torch.nn.functional.embedding(
+            lib_idx, table), flush)))
+    del table
+    return rows
+
+
 def paged_edge_timing(dev, gen, flush):
     """paged_decode at hymba-1.5b's heads (25 over 5 at dh 64), an edge off
     every serve path (hymba's window layers decode on rings): held to the
@@ -1103,6 +1247,7 @@ def kernel_phase(dev):
     flash_lse_edges(dev, gen)
 
     rows += gather_rows(dev, flushes)
+    rows += tp2_rows(dev, gen, flushes)
     del flushes
     for row in rows:
         row["kernel_ms"] = row["ms"]
@@ -1258,26 +1403,36 @@ def pool_breakdown(label, call, flush, reps=25, want_ops=None):
     """Every device operation of one isp_gather_pool call by name and µs,
     from torch.profiler over ``reps`` calls (L2 flushed before each; the
     flush is left out).  With ``want_ops`` the call must make exactly that
-    many a call."""
+    many a call.  A window whose counts are not whole multiples of
+    ``reps`` lost events in the profiler (a call launches the same
+    operations every time), so it is profiled again, up to three times;
+    the count is checked on a window that saw every call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     call()
     torch.cuda.synchronize()
     flush()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+                torch.cuda.synchronize()
+                flush()
             torch.cuda.synchronize()
-            flush()
-        torch.cuda.synchronize()
-    ops = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or "FillFunctor<unsigned char>" \
-                in e.name or e.name == "Command Buffer Full":
-            continue
-        t, k = ops.get(e.name, (0.0, 0))
-        ops[e.name] = (t + e.time_range.end - e.time_range.start, k + 1)
+        ops = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or \
+                    "FillFunctor<unsigned char>" in e.name or \
+                    e.name == "Command Buffer Full":
+                continue
+            t, k = ops.get(e.name, (0.0, 0))
+            ops[e.name] = (t + e.time_range.end - e.time_range.start, k + 1)
+        if all(k % reps == 0 for _, k in ops.values()):
+            break
+        log(f"[apps] pool breakdown, {label}: the profiler saw "
+            f"{sum(k for _, k in ops.values())} operations over {reps} "
+            f"calls (events lost); profiling again")
     if not ops:
         log(f"[apps] pool breakdown, {label}: not measured (the profiler "
             f"recorded no device events)")
@@ -1824,12 +1979,19 @@ def chunk_fp32_phase(cfg, params, dev, requests, want):
         free_device()
 
 
+# gemma3-12b's depth in its serve and plan phases, cut from 48 to keep the
+# script in its time: 10 window layers and 2 global ones, its 5:1 pattern
+GEMMA_LAYERS = 12
+
+
 def gemma_phase(dev):
-    """Full gemma3-12b in bfloat16: returns (launches, requests' tokens)."""
+    """gemma3-12b in bfloat16 at full width and GEMMA_LAYERS layers:
+    returns (launches, the plan phase's launches)."""
     from repro_torch.config import get_config
     from repro_torch.models import model as M
     from repro_torch.train.serve_loop import ServeEngine
-    cfg = get_config("gemma3-12b")
+    cfg = dataclasses.replace(get_config("gemma3-12b"),
+                              num_layers=GEMMA_LAYERS)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = M.init_params(cfg, gen, dev)
@@ -2036,12 +2198,28 @@ def times_phase(dev) -> dict:
     return out
 
 
-def chunk_bf16_phase(cfg, params, dev, requests, want):
-    """Full yi-9b in bf16 serving the serve phase's 16 requests with
-    256-row chunks at chunk budgets 1 and 2: every request ok, a balanced
-    free list, the kernels on every layer of every one-shot prefill call
-    and decode step, and the one-shot run's tokens ``want`` (a flip only
-    below BF16_FLIP_MARGIN)."""
+# yi-9b's depth in the chunked bf16 phase, cut from 48 to keep the script
+# in its time: chunking and its budgets do not depend on the depth
+CHUNK_LAYERS = 16
+
+
+def chunk_bf16_phase(dev, requests):
+    """yi-9b in bf16 at full width and CHUNK_LAYERS layers serving the
+    serve phase's 16 requests one-shot, then with 256-row chunks at chunk
+    budgets 1 and 2: every request ok, a balanced free list, the kernels
+    on every layer of every one-shot prefill call and decode step, and the
+    one-shot run's tokens (a flip only below BF16_FLIP_MARGIN)."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=CHUNK_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    eng, results, wall, _, _ = serve(cfg, params, requests, 8, dev)
+    want = [r.tokens for r in results]
+    log(f"[chunk bf16] yi-9b at full width, depth cut from 48 to "
+        f"{cfg.num_layers} layers: one-shot {wall:.2f} s wall")
+    del eng
+    free_device()
     C, L = 256, cfg.num_layers
     n_chunks = sum(-(-len(p) // C) for p, _ in requests if len(p) > C)
     for budget in (1, 2):
@@ -2075,7 +2253,7 @@ def chunk_bf16_phase(cfg, params, dev, requests, want):
         eng.submit(prompt, max_new=32)
     eng.step()
     profile_window(eng, "one 256-row chunk", fn=eng._chunk_prefill_tick)
-    del eng
+    del eng, params
     free_device()
 
 
@@ -2086,10 +2264,14 @@ CLUSTER_KW = dict(n_drives=4, num_slots=8, max_len=1024, page_size=16,
 # activations (8 x 256 rows), one chunk's scores (256 x 32 x 1024 fp32)
 # and the allocator's rounding
 CLUSTER_MEM_MARGIN = 2 * 2**30
-# requests of the serial cluster run and of each open-loop trace: 16 (cut
-# from 32 to make room for the train phases in the run's time limit; the
-# crash run takes these 16 with 16 tokens each)
+# requests of the serial cluster run and of each open-loop trace (cut from
+# 32 to 16 to make room for the train phases; the crash run takes these
+# with 16 tokens each)
 CLUSTER_REQUESTS = 16
+# the cluster's yi-9b at full width, its depth cut from 48 to 8 layers to
+# keep the script in its time: the drives' routing, faults, threads and
+# schedules do not depend on the depth, each tick's time does
+CLUSTER_LAYERS = 8
 
 
 def drive_cluster(cfg, params, dev, requests, shards=None, replay=None,
@@ -2211,15 +2393,23 @@ def gil_probe(dev, n_ops=20_000):
         f"({four / one:.2f}x)")
 
 
-def cluster_phase(cfg, params, dev):
-    """yi-9b bf16 served by a 4-drive cluster over the one model: serial,
-    then data_local over 4 shards with a tick-based crash of drive 1, then
-    on worker threads, then open-loop bursty traffic FIFO and EDF."""
+def cluster_phase(dev):
+    """yi-9b bf16 at full width and CLUSTER_LAYERS layers served by a
+    4-drive cluster over the one model: serial, then data_local over 4
+    shards with a tick-based crash of drive 1, then on worker threads,
+    then open-loop bursty traffic FIFO and EDF."""
+    from repro_torch.config import get_config
     from repro_torch.core.faults import (DEAD, HEALTHY, FailureDetector,
                                          FaultSchedule)
     from repro_torch.core.runtime import HeartbeatWatchdog
     from repro_torch.data.workload import (PriorityClass, WorkloadConfig,
                                            generate_trace)
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=CLUSTER_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = M.init_params(cfg, gen, dev)
+    log(f"[cluster] yi-9b bf16 at full width, depth cut from 48 to "
+        f"{cfg.num_layers} layers: {M.count_params(cfg) / 1e9:.3f} B params")
     rng = np.random.default_rng(SEED + 2)
     requests = [(rng.integers(0, cfg.vocab_size,
                               int(rng.integers(16, 701))).tolist(), 32)
@@ -2266,7 +2456,7 @@ def cluster_phase(cfg, params, dev):
     # the crash run and the worker-thread runs serve a prefix of the
     # requests with fewer tokens each, to fit the run's time limit; greedy
     # decode makes their tokens prefixes of the fault-free run's
-    sub = [(p, 16) for p, _ in requests[:16]]
+    sub = [(p, 16) for p, _ in requests]
     crash = drive_cluster(
         cfg, params, dev, sub, shards=4, routing="data_local",
         faults=FaultSchedule.from_spec(
@@ -2279,9 +2469,10 @@ def cluster_phase(cfg, params, dev):
     ok = [(r.rid, r.tokens) for r in crash.results if r.status == "ok"]
     assert ok and all(t == want[rid][:16] for rid, t in ok), \
         "an ok result of the crash run differs from the fault-free tokens"
-    log(f"[cluster crash] data_local over 4 shards, 16 requests of 16 "
-        f"tokens, drive 1 crashed at tick 3: health {cst.health}, "
-        f"{cst.retries} retries, {len(ok)}/16 ok token-identical to the "
+    log(f"[cluster crash] data_local over 4 shards, {len(sub)} requests of "
+        f"16 tokens, drive 1 crashed at tick 3: health {cst.health}, "
+        f"{cst.retries} retries, {len(ok)}/{len(sub)} ok token-identical to "
+        f"the "
         f"fault-free run; spill ledger {cst.spill_bytes / 1e6:.3f} MB "
         f"({cst.remote_requests} remote requests, {cst.migrated_shards} "
         f"shards migrated; {dict(cst.spill_ledger.notes)})")
@@ -2367,6 +2558,8 @@ def cluster_phase(cfg, params, dev):
     assert all(served["fifo"][r] == served["edf"][r] for r in both)
     log(f"[open-loop] FIFO and EDF agree token for token on the {len(both)} "
         f"requests both served")
+    del params
+    free_device()
 
 
 # llama4-scout at full width: 8 of its 48 layers hold 19.69 B parameters
@@ -2888,23 +3081,29 @@ def deepseek_phase(dev):
     return launches
 
 
+# hymba-1.5b's depth, cut from 32 to keep the script in its time
+HYMBA_LAYERS = 16
+
+
 def hymba_phase(dev):
-    """hymba-1.5b whole in bf16: 8 requests (prompts 16..700, max_new 32;
-    exact-length buckets, the Mamba state would integrate pad tokens)
-    through the engine on strips, k_block 8 then 1 (identical tokens);
-    flash on all 32 window layers of every prefill call, isp decode on all
-    32 rings of every step; one decode tick profiled.  Returns the k_block
-    8 run's launches."""
+    """hymba-1.5b in bf16 at full width and HYMBA_LAYERS layers: 8
+    requests (prompts 16..700, max_new 32; exact-length buckets, the Mamba
+    state would integrate pad tokens) through the engine on strips,
+    k_block 8 then 1 (identical tokens); flash on every window layer of
+    every prefill call, isp decode on every ring of every step; one decode
+    tick profiled.  Returns the k_block 8 run's launches."""
     from repro_torch.config import get_config
     from repro_torch.models import model as M
-    cfg = get_config("hymba-1.5b")
+    cfg = dataclasses.replace(get_config("hymba-1.5b"),
+                              num_layers=HYMBA_LAYERS)
     L = cfg.num_layers
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = M.init_params(cfg, gen, dev)
     torch.cuda.synchronize()
     assert all(b.ssm.a_log.dtype == torch.float32 for b in params.blocks)
-    log(f"[hymba] hymba-1.5b bf16 whole: {L} hybrid layers, d_model "
+    log(f"[hymba] hymba-1.5b bf16 at full width, {L} of 32 hybrid layers, "
+        f"d_model "
         f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} kv of dh "
         f"{cfg.resolved_head_dim}, window {cfg.attn.window}, Mamba d_in "
         f"{cfg.ssm.expand * cfg.d_model} x state {cfg.ssm.state_dim}, vocab "
@@ -3174,12 +3373,20 @@ def train_phase(dev):
                           peak_gb=peak / 1e9, profile_ms=parts)
 
 
+# xlstm-125m's depth in the kill-and-resume phase, cut from 12 to keep the
+# script in its time (its sLSTM recurrence steps through the sequence on
+# the host, one layer at a time)
+ELASTIC_LAYERS = 4
+
+
 def elastic_phase(dev):
     """Kill and resume through the normal entry points:
-    ``launch.elastic.supervise`` runs the train CLI on xlstm-125m (whole, 6
-    steps of 4 x 256, a checkpoint every 2) with REPRO_FAIL_AT_STEP=3 and a
-    marker.  The first attempt must die at step 3 (exit 42), the relaunch
-    resume from the last committed checkpoint and finish at step 6; its
+    ``launch.elastic.supervise`` runs the train CLI on xlstm-125m (full
+    width, ELASTIC_LAYERS layers, 6 steps of 4 x 256, a checkpoint every
+    2) with REPRO_FAIL_AT_STEP=5 and a
+    marker.  The first attempt must die at step 5 (exit 42), the relaunch
+    resume from a committed checkpoint (step 2, which the save at step 4
+    waits for, or step 4) and finish at step 6; its
     final checkpoint must equal an uninterrupted in-process 6-step run
     from the same seed bit for bit.  Tolerance 0: every operation on this
     path is deterministic on the card (cuBLAS products, the embedding's
@@ -3196,14 +3403,15 @@ def elastic_phase(dev):
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     ck, out = work / "ckpt", work / "train.log"
-    args = ["--arch", "xlstm-125m", "--steps", "6", "--ckpt-every", "2",
+    args = ["--arch", "xlstm-125m", "--layers", str(ELASTIC_LAYERS),
+            "--steps", "6", "--ckpt-every", "2",
             "--seq-len", "256", "--global-batch", "4", "--log-every", "1",
             "--ckpt-dir", str(ck)]
     cmd = ["bash", "-c", 'set -o pipefail; "$0" -m repro_torch.launch.train '
            '"$@" 2>&1 | tee -a "$REPRO_TRAIN_LOG"', sys.executable] + args
     t0 = time.perf_counter()
     res = supervise(cmd, max_restarts=2, timeout_s=600, env={
-        "PYTHONPATH": str(ROOT / "src"), "REPRO_FAIL_AT_STEP": "3",
+        "PYTHONPATH": str(ROOT / "src"), "REPRO_FAIL_AT_STEP": "5",
         "REPRO_FAIL_MARKER": str(work / "marker"),
         "REPRO_TRAIN_LOG": str(out)})
     wall = time.perf_counter() - t0
@@ -3211,12 +3419,13 @@ def elastic_phase(dev):
     log(f"[elastic] supervise: {res.log}, {wall:.1f} s wall")
     assert res.returncode == 0 and res.restarts == 1, res
     assert "rc=42" in res.log[0] and "rc=0" in res.log[1], res.log
-    assert text.count("[elastic] injected failure at step 3") == 1
+    assert text.count("[elastic] injected failure at step 5") == 1
     assert "[train] done at step 6" in text
     resumed = re.findall(r"\[train\] resumed from step (\d+)", text)
     resumed_from = int(resumed[0]) if resumed else 0
-    assert len(resumed) <= 1 and resumed_from in (0, 2), resumed
-    cfg = get_config("xlstm-125m")
+    assert len(resumed) == 1 and resumed_from in (2, 4), resumed
+    cfg = dataclasses.replace(get_config("xlstm-125m"),
+                              num_layers=ELASTIC_LAYERS)
     ckpt_bytes = sum(f.stat().st_size for f in (ck / "step_000000006")
                      .iterdir())
     t0 = time.perf_counter()
@@ -3235,8 +3444,9 @@ def elastic_phase(dev):
                      .max()) for k in want}
     unequal = [k for k in want if not torch.equal(have[k],
                                                   want[k].detach())]
-    log(f"[elastic] xlstm-125m bf16 whole, 6 steps of 4 x 256: the "
-        f"supervised run died at step 3 (exit 42), resumed from step "
+    log(f"[elastic] xlstm-125m bf16 at full width, {ELASTIC_LAYERS} of 12 "
+        f"layers, 6 steps of 4 x 256: the "
+        f"supervised run died at step 5 (exit 42), resumed from step "
         f"{resumed_from} and finished at 6; its final checkpoint "
         f"({ckpt_bytes / 1e9:.2f} GB) against an uninterrupted in-process "
         f"run ({clean_s:.1f} s): {len(want) - len(unequal)}/{len(want)} "
@@ -3246,6 +3456,366 @@ def elastic_phase(dev):
     shutil.rmtree(work, ignore_errors=True)
     free_device()
     return resumed_from
+
+
+# -- the two-rank phase ----------------------------------------------------
+# Both ranks share the one card (cuda:0), one process each, on a (1, 2)
+# ("data", "model") mesh.  NCCL refuses two ranks on one device, so the
+# group is gloo over CUDA tensors: every collective goes through the host.
+# gloo has CUDA paths for all_reduce, all_gather_into_tensor,
+# reduce_scatter_tensor and all_to_all_single, which the port uses; it has
+# none for the list form of all_to_all, which the port does not use.
+MESH_REQUESTS = 8
+MESH_FP32_LAYERS = 4           # yi-9b in fp32 at a cut depth: identical
+MESH_DEEPSEEK_LAYERS = 4       # deepseek-v2 in bf16, of 60
+MESH_DEEPSEEK_FP32_LAYERS = 2  # deepseek-v2 in fp32: identical
+MESH_TIMING_K = 2              # decode steps a tick of the timing engine
+MESH_LOGIT_PROMPTS = 2         # prompts whose first-prefill logits are held
+# the two-rank first-prefill logits against the one-rank run's on the same
+# prompts: the largest |difference| over the one-rank logits' RMS.  Read
+# on the H100: fp32 3.7e-6..1.4e-5, bf16 0.084..0.100 (4 prompts each;
+# bf16 rounds each rank's partial sums before gloo adds them, over 48
+# layers); the bounds are 3.6x and 2x the largest.  A lost collective or a
+# wrong piece moves the logits by the order of their RMS.
+MESH_LOGIT_TOL = {"float32": 5e-5, "bfloat16": 0.2}
+MESH_TIMEOUT = 900             # seconds for both ranks
+MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "all_to_all_single")
+
+
+def mesh_cases():
+    """(tag, config, requests) of the two-rank phase: yi-9b whole in bf16
+    (TP 2 on the block weights, SP in prefill, the paged engine, decode
+    on the strips over the model axis) and at MESH_FP32_LAYERS in fp32;
+    deepseek-v2 at full width in bf16 at MESH_DEEPSEEK_LAYERS and in fp32
+    at MESH_DEEPSEEK_FP32_LAYERS (EP 2 over its 160 experts, MLA heads
+    over the model axis, MLA decode on the strips over it).  The deepseek
+    configs run at full expert capacity (capacity_factor = 160): below it
+    the expert-parallel prefill drops assignments that the one-card dense
+    path keeps, and the two would differ by design, not by rounding; the
+    prompts are short (8..16; yi-9b's 16..128) so that full-capacity
+    dispatch buffers stay small and gloo's host copies few; the fp32
+    cases serve the first half of the requests."""
+    from repro_torch.config import get_config
+    yi = get_config("yi-9b")
+    ds = get_config("deepseek-v2-236b")
+    ds = dataclasses.replace(ds, moe=dataclasses.replace(
+        ds.moe, capacity_factor=float(ds.moe.num_experts)))
+    rng = np.random.default_rng(SEED + 11)
+    yi_req = [(rng.integers(0, yi.vocab_size, int(rng.integers(16, 129))
+                            ).tolist(), 12) for _ in range(MESH_REQUESTS)]
+    ds_req = [(rng.integers(0, ds.vocab_size, int(rng.integers(8, 17))
+                            ).tolist(), 12) for _ in range(MESH_REQUESTS)]
+    half = MESH_REQUESTS // 2
+    return [
+        ("yi-9b bf16", yi, yi_req),
+        ("yi-9b fp32", dataclasses.replace(yi, num_layers=MESH_FP32_LAYERS,
+                                           dtype="float32"), yi_req[:half]),
+        ("deepseek-v2 bf16", dataclasses.replace(
+            ds, num_layers=MESH_DEEPSEEK_LAYERS), ds_req),
+        ("deepseek-v2 fp32", dataclasses.replace(
+            ds, num_layers=MESH_DEEPSEEK_FP32_LAYERS, dtype="float32"),
+         ds_req[:half])]
+
+
+class CollectiveTimer:
+    """Host time spent in torch.distributed's collectives while active:
+    each call is wrapped between two synchronisations of the card, so the
+    interval is the collective alone (gloo: device to host, the exchange,
+    host to device)."""
+
+    def __init__(self):
+        self.s, self.calls, self._orig = 0.0, 0, {}
+
+    def __enter__(self):
+        import torch.distributed as dist
+        for name in MESH_COLLECTIVES:
+            orig = getattr(dist, name)
+            self._orig[name] = orig
+
+            def timed(*a, _orig=orig, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(*a, **kw)
+                torch.cuda.synchronize()
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+                return out
+            setattr(dist, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, orig in self._orig.items():
+            setattr(dist, name, orig)
+
+
+def kernel_ms_per_step(eng) -> float:
+    """Device kernel time a decode step over one engine tick, from the
+    profiler (the union of the kernel intervals); None where the profiler
+    recorded no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            eng.step()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "Command Buffer Full"),
+                  key=lambda e: e.time_range.start)
+    if not kern or not eng.last_tick.steps:
+        return None
+    busy, end = 0.0, -1.0
+    for e in kern:
+        if e.time_range.end > end:
+            busy += e.time_range.end - max(e.time_range.start, end)
+            end = e.time_range.end
+    return busy / 1e3 / eng.last_tick.steps
+
+
+def prefill_logits(model, cfg, plan, prompt, dev) -> torch.Tensor:
+    """fp32 logits (V,) of the token after ``prompt`` from one prefill of
+    the model as this rank holds it (its pieces under the ParallelPlan
+    ``plan``, in the recipe of a (len(prompt), 1) prefill; the whole model
+    without one): the embedding (sequence-sharded under SP), the blocks,
+    the final norm and the vocabulary-sharded head."""
+    from repro_torch import sharding as sh
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core import embedding as emb
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import rms_norm
+    S = len(prompt)
+    if plan is not None:
+        plan = sh.make_recipe(plan, cfg, ShapeConfig(S, 1))
+    sp = blk.sp_enabled(cfg, plan, S, "prefill")
+    with torch.no_grad():
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        x = emb.embed_lookup(model.embed.table, toks, cfg, plan,
+                             seq_sharded=sp)
+        x, _ = M.run_blocks(model, x, torch.arange(S, dtype=torch.int32,
+                                                   device=dev),
+                            cfg, None, "prefill", plan=plan, sp=sp)
+        x = blk.sp_gather(x, plan, sp)
+        last = rms_norm(x, sh.leaf(model, "final_norm", plan),
+                        cfg.norm_eps)[:, -1]
+        logits = emb.sharded_logits_last(last, model.head_table(), cfg, plan)
+    return logits[0, :cfg.vocab_size].float().cpu()
+
+
+def mesh_rank(rank: int, world: int, work: str) -> None:
+    """One rank of the two-rank phase: every mesh case served through
+    ServeEngine(recipe=...) on this rank's pieces; what it saw goes to
+    ``rank{rank}.json`` under ``work``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from repro_torch import sharding as sh
+    from repro_torch.config import ShapeConfig
+    from repro_torch.core.telemetry import TelemetryHub
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import model as M
+    from repro_torch.train.serve_loop import ServeEngine
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda:0")
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world)
+    try:
+        build.build()
+        mesh = make_debug_mesh(1, world, device=dev)
+        out = {}
+        for case, (tag, cfg, requests) in enumerate(mesh_cases()):
+            plan = sh.make_plan(mesh, cfg)
+            recipe = sh.make_recipe(plan, cfg, ShapeConfig(1024, 8))
+            free_device()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = case_t0 = time.perf_counter()
+            # one rank at a time: each draws every global block before it
+            # keeps its pieces, and both share the card
+            for r in range(world):
+                if r == rank:
+                    gen = torch.Generator(device=dev).manual_seed(SEED)
+                    params = M.init_params(cfg, gen, dev, plan=recipe)
+                    torch.cuda.synchronize()
+                    init_peak = torch.cuda.max_memory_allocated() / 1e9
+                    free_device()
+                dist.barrier()
+            init_s = time.perf_counter() - t0
+            eng = ServeEngine(cfg, params, recipe, num_slots=8, max_len=1024,
+                              page_size=16, k_block=8,
+                              telemetry=TelemetryHub(), device=dev)
+            eng, results, wall, launches, prefill_calls = serve(
+                cfg, params, requests, 8, dev, engine=eng)
+            st = eng.stats
+            assert all(r.status == "ok" for r in results), tag
+            if eng.kv_layout == "paged":
+                eng.pager.check_balanced()
+            row = dict(
+                tokens=[r.tokens for r in results], launches=launches,
+                prefill_calls=prefill_calls, decode_steps=st.decode_steps,
+                layout=eng.kv_layout, seq_axes=list(recipe.seq_axes),
+                sp=blk.sp_enabled(cfg, recipe, 16, "prefill"),
+                weights_gb=weight_gb(params), init_s=init_s,
+                init_peak_gb=init_peak,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, wall_s=wall,
+                step_ms=st.decode_s * 1e3 / max(st.decode_steps, 1),
+                prefill_ms=warm_ms(phases(eng.tele, "prefill")))
+            del eng
+            free_device()
+            # both ranks run the prefills (their collectives pair up); rank
+            # 0 keeps the logits
+            logits = [prefill_logits(params, cfg, plan, p, dev)
+                      for p, _ in requests[:MESH_LOGIT_PROMPTS]]
+            if rank == 0:
+                torch.save(logits, Path(work) / f"logits{case}.pt")
+            if tag == "yi-9b bf16":
+                # a warm engine: one tick admits (the requests' first 16
+                # tokens, one prefill call, and a block), one tick's
+                # collectives are timed, one tick is profiled
+                timing = ServeEngine(cfg, params, recipe, num_slots=8,
+                                     max_len=1024, page_size=16,
+                                     k_block=MESH_TIMING_K, device=dev)
+                for prompt, _ in requests:
+                    timing.submit(prompt[:16], max_new=24)
+                timing.step()
+                t0 = time.perf_counter()
+                with CollectiveTimer() as ct:
+                    timing.step()
+                torch.cuda.synchronize()
+                steps = timing.last_tick.steps
+                row["timed_tick_ms"] = (time.perf_counter() - t0) * 1e3
+                row["coll_ms_per_step"] = ct.s * 1e3 / steps
+                row["coll_calls_per_step"] = ct.calls / steps
+                # the profiler on one rank only; the other runs the same
+                # tick unprofiled (the collectives pair up)
+                row["kernel_ms_per_step"] = kernel_ms_per_step(timing) \
+                    if rank == 0 else None
+                if rank != 0:
+                    timing.step()
+                del timing
+            out[tag] = row
+            log(f"[mesh r{rank}] {tag}: {len(results)} requests ok in "
+                f"{wall:.1f} s (the case {time.perf_counter() - case_t0:.1f} s), "
+                f"{row['weights_gb']:.2f} GB of weights on this rank, peak "
+                f"{row['peak_gb']:.2f} GB, launches {launches}")
+            del params
+            free_device()
+        (Path(work) / f"rank{rank}.json").write_text(json.dumps(out))
+    except BaseException:
+        # the other rank's error is then only a closed connection
+        free, total = torch.cuda.mem_get_info()
+        log(f"[mesh r{rank}] failed ({free / 1e9:.2f} of {total / 1e9:.2f} "
+            f"GB free on the card):\n{traceback.format_exc()}")
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(dev):
+    """Both ranks on the one card through the port's sharded serve path
+    (mesh_cases), then every case with no plan in this process: the same
+    tokens (fp32 identical; bf16 a flip only at a near-tie top-2 margin),
+    each rank's peak memory beside the one-rank run's, the kernels on
+    every layer (flash on each rank's heads in prefill, isp decode on its
+    block of the strips, isp_gather on its vocabulary shard), and the time
+    a yi-9b decode step spends in gloo's collectives beside its kernel
+    time.  Returns yi-9b bf16's rank-0 launches."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.models import model as M
+    work = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    free_device()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(2, str(work)), nprocs=2,
+                             join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > MESH_TIMEOUT:
+                raise TimeoutError(f"the two ranks ran past {MESH_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(2)]
+    log(f"[mesh] two ranks on cuda:0 (gloo over CUDA tensors, through the "
+        f"host; not NCCL) done in {time.perf_counter() - t0:.1f} s")
+    yi_launches = None
+    for case, (tag, cfg, requests) in enumerate(mesh_cases()):
+        got = [r[tag] for r in ranks]
+        assert got[0]["tokens"] == got[1]["tokens"], f"{tag}: ranks differ"
+        L = cfg.num_layers
+        for r, g in enumerate(got):
+            ln = g["launches"]
+            assert ln["flash_attention"] == L * g["prefill_calls"] > 0, \
+                (tag, r, ln)
+            assert ln["isp_gather"] > 0 and ln["paged_decode"] == 0, \
+                (tag, r, ln)
+            want_isp = L * g["decode_steps"] if g["layout"] == "paged" else 0
+            assert ln["isp_decode"] == want_isp, (tag, r, ln)
+            assert g["seq_axes"] == ["model"], (tag, g["seq_axes"])
+        free_device()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = M.init_params(cfg, gen, dev)
+        eng, results, wall, launches, _ = serve(cfg, params, requests, 8,
+                                                dev)
+        want = [r.tokens for r in results]
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        one_w = weight_gb(params)
+        del eng
+        free_device()
+        two = torch.load(work / f"logits{case}.pt")
+        for k, ((prompt, _), a) in enumerate(zip(requests, two)):
+            b = prefill_logits(params, cfg, None, prompt, dev)
+            rms = float(b.pow(2).mean().sqrt())
+            err = float((a - b).abs().max()) / rms
+            top = torch.topk(b, 2).values
+            log(f"[mesh] {tag} first-prefill logits, prompt {k} "
+                f"({len(prompt)} tokens): max |two ranks - one rank| "
+                f"{err:.3g} of the logits' RMS {rms:.3g} (bound "
+                f"{MESH_LOGIT_TOL[cfg.dtype]:g}); argmax "
+                f"{'equal' if int(a.argmax()) == int(b.argmax()) else 'differs'}"
+                f", one-rank top-2 margin {float(top[0] - top[1]):.3g}")
+            assert err <= MESH_LOGIT_TOL[cfg.dtype], \
+                f"{tag}: first-prefill logits past the bound"
+        if cfg.dtype == "float32":
+            assert got[0]["tokens"] == want, f"{tag}: tokens differ in fp32"
+            log(f"[mesh] {tag}: identical tokens on {len(want)}/{len(want)} "
+                f"requests against the one-rank run")
+        else:
+            check_flips(f"mesh {tag}", requests, got[0]["tokens"], want,
+                        params, cfg, dev, BF16_FLIP_MARGIN)
+        del params
+        free_device()
+        for r, g in enumerate(got):
+            log(f"[mesh] {tag} rank {r}: {g['weights_gb']:.2f} GB of weights "
+                f"({g['weights_gb'] / one_w:.1%} of the one-rank "
+                f"{one_w:.2f} GB), peak {g['peak_gb']:.2f} GB against the "
+                f"one-rank run's {one_peak:.2f} GB; {g['layout']} layout, "
+                f"sequence axes {g['seq_axes']}; decode "
+                f"{g['step_ms']:.2f} ms a step, prefill "
+                f"{g['prefill_ms']:.1f} ms a warm call, init "
+                f"{g['init_s']:.1f} s; launches {g['launches']}")
+        if tag == "yi-9b bf16":
+            yi_launches = got[0]["launches"]
+            for r, g in enumerate(got):
+                kern = g["kernel_ms_per_step"]
+                log(f"[mesh] {tag} rank {r} decode step: "
+                    f"{g['coll_ms_per_step']:.2f} ms in gloo collectives "
+                    f"through the host ({g['coll_calls_per_step']:.0f} "
+                    f"calls, timed between syncs, tick "
+                    f"{g['timed_tick_ms']:.1f} ms) against "
+                    + (f"{kern:.2f} ms of kernels (profiled)" if kern
+                       else "kernels not measured on this rank")
+                    + f"; unprofiled {g['step_ms']:.2f} ms a step")
+    return yi_launches
 
 
 def build_kernels() -> None:
@@ -3273,6 +3843,9 @@ def main() -> int:
         "only time isp_gather and isp_gather_pool at their path shapes "
         "under both L2 flushes (and isp decode on the rings), and print "
         "them as one JSON line; for running two trees' kernels in turns"))
+    parser.add_argument("--mesh", action="store_true", help=(
+        "only build the kernels and run the two-rank phase (both ranks on "
+        "the one card over gloo)"))
     parser.add_argument("--flash-times", action="store_true", help=(
         "only time flash at its six serve paths' shapes without lse and "
         "print them as one JSON line; for running two trees in turns"))
@@ -3307,6 +3880,10 @@ def main() -> int:
                         "device": smi}))
         return 0
     build_kernels()
+    if args.mesh:
+        mesh_phase(dev)
+        log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     def lap(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
@@ -3364,12 +3941,11 @@ def main() -> int:
     lap("serve and consistency")
 
     # -- chunked prefill in bf16, then the cluster tier ------------------------
-    chunk_bf16_phase(cfg, params, dev, requests,
-                     [r.tokens for r in results])
-    lap("chunked bf16")
-    cluster_phase(cfg, params, dev)
     del params
     free_device()
+    chunk_bf16_phase(dev, requests)
+    lap("chunked bf16")
+    cluster_phase(dev)
     lap("cluster")
 
     # -- strip layout, then gemma3-12b -----------------------------------------
@@ -3397,6 +3973,8 @@ def main() -> int:
     lap("train yi-9b")
     elastic_phase(dev)
     lap("kill and resume")
+    path_launches["yi-9b tp2 serve"] = mesh_phase(dev)
+    lap("two ranks")
     for row in rows:
         row["launches"] = path_launches[row["path"]][row["kernel"]]
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")

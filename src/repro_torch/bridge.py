@@ -4,9 +4,9 @@
 leaves of ``repro.models.model.init_params``, converted by the caller) and
 returns the port's ``LM`` with the same values.  The pytree's stacked
 ``blocks.b{j}.*`` leaves carry a leading ``num_groups`` axis; layer
-``g * group_size + j`` takes index ``g``.  With a sharding ``plan`` the
-vocabulary tables are cut to this rank's shard (rows by model rank,
-columns by FSDP rank).  Only the tests call this (the port itself never
+``g * group_size + j`` takes index ``g``.  With a sharding ``plan`` every
+leaf is cut to this rank's piece by ``sharding.param_specs`` (the
+reference's ``_RULES``), as ``LM`` stores it.  Only the tests call this (the port itself never
 imports JAX); ``chip_smoke.py`` draws its weights with the port's own
 ``init_params``.
 """
@@ -45,11 +45,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None, plan=None) -> LM:
     dev = resolve_device(device)
     model = LM(cfg, dev, plan)
-    state = state_from_jax(tree, cfg)
-    for name in ("embed.table", "head.w_head"):
-        if name in state:
-            rows, cols = sh.vocab_slices(plan, cfg)
-            state[name] = state[name][rows, cols]
+    state = {name: sh.cut(plan, model.specs.get(name), arr)
+             for name, arr in state_from_jax(tree, cfg).items()}
     own = model.state_dict()
     if set(state) != set(own):
         raise KeyError(f"pytree/module mismatch: missing "

@@ -5,8 +5,9 @@ paged KV pool (``chunk_prefill_attention``), and MLA's absorbed decode
 over the compressed cache (``mla_decode_attention``).
 
 ISP decode under a sequence-sharded plan: each rank holds its own
-contiguous block of the strip's rows, and the per-step query goes to where
-the KV span lives.  Each rank computes a partial over its rows and only
+contiguous block of the strip's rows (of the compressed strip for MLA; of
+the strip view of a paged pool), and the per-step query goes to where the
+KV span lives.  Each rank computes a partial over its rows and only
 the partials move — per head ``acc`` (dh floats), ``l`` and ``m`` — merged
 by the numerically stable flash-decoding combine over the sequence axes.
 The KV bytes never cross a link.
@@ -66,16 +67,33 @@ def paged_decode_attention(q, kpool, vpool, pages, cur_pos, *,
                            scale: Optional[float] = None):
     """q: (B, H, dh); kpool/vpool: (P(+scratch), page_size, Hkv, dh);
     pages: (B, maxp) int32 per-slot page tables; cur_pos: (B,) int32.
-    Returns (B, H, dhv) in q's dtype.  Under a sequence-sharded plan the
-    reference gathers the pool into strips and takes the strip path; that
-    is not ported."""
-    if _seq_sharded(plan):
-        raise NotImplementedError("paged KV under a sequence-sharded plan "
-                                  "is not ported")
-    acc, l, m = kops.paged_decode_partial(q, kpool, vpool, pages, cur_pos,
-                                          window=window, scale=scale)
-    return ref.combine_partials(acc[None], l[None], m[None],
-                                axis=0).to(q.dtype)
+    Returns (B, H, dhv) in q's dtype.
+
+    Under a sequence-sharded plan, as in the reference, the pool is
+    gathered into the strip view (``pages_to_strips``): the page table is
+    replicated host state, so sharding the pool would shard pages, not
+    positions.  Each rank takes its block of the strips' rows and runs the
+    strip path (``decode_attention``), whose partials are combined over the
+    sequence axes; paged allocation still governs memory."""
+    if not _seq_sharded(plan):
+        acc, l, m = kops.paged_decode_partial(q, kpool, vpool, pages,
+                                              cur_pos, window=window,
+                                              scale=scale)
+        return ref.combine_partials(acc[None], l[None], m[None],
+                                    axis=0).to(q.dtype)
+    k, v, kpos = pages_to_strips((kpool, vpool), pages, kpool.shape[1])
+    n = sh.axes_size(plan, plan.seq_axes)
+    if kpos.shape[1] % n:
+        raise ValueError(f"a strip view of {kpos.shape[1]} rows does not "
+                         f"split over the sequence axes {plan.seq_axes} "
+                         f"({n} ranks)")
+    k, v, kpos = (sh.own_block(plan, t, plan.seq_axes, 1)
+                  for t in (k, v, kpos))
+    cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=q.device)
+    if cur.dim() == 0:
+        cur = cur.expand(q.shape[0])
+    return decode_attention(q, k, v, kpos, cur, window=window, plan=plan,
+                            scale=scale)
 
 
 def chunk_prefill_attention(q, kpool, vpool, pages, qpos, *,
@@ -91,6 +109,26 @@ def chunk_prefill_attention(q, kpool, vpool, pages, qpos, *,
     return kops.chunk_prefill_attention(q, k, v, kpos, qpos, scale=scale)
 
 
+def mla_absorb(q_nope, wk_b):
+    """q_nope (B, H, n) through wk_b (R, H, n) in fp32: the query against
+    the compressed rows, (B, H, R)."""
+    return torch.einsum("bhn,rhn->bhr", q_nope.float(), wk_b.float())
+
+
+def mla_decode_absorbed(q_eff, q_rope, ckv, krope, kpos, cur_pos, *,
+                        scale: float, plan=None):
+    """``mla_decode_attention`` from the absorbed query ``q_eff`` (B, H,
+    R).  Under a sequence-sharded plan ``ckv``/``krope``/``kpos`` are this
+    rank's block of the compressed strip: each rank takes the partial over
+    its block, and the partials — (R + 2) floats a head — are combined over
+    the sequence axes, as the reference's shard_map does."""
+    acc, l, m = ref.mla_decode_scores_partial(q_eff, q_rope, ckv, krope,
+                                              kpos, cur_pos, scale=scale)
+    if not _seq_sharded(plan):
+        return ref.combine_partials(acc[None], l[None], m[None], axis=0)
+    return _combine(acc, l, m, sh.axis_group(plan, plan.seq_axes))
+
+
 def mla_decode_attention(q_nope, q_rope, ckv, krope, kpos, cur_pos, wk_b, *,
                          scale: float, plan=None):
     """Absorbed-MLA decode over the compressed cache.
@@ -102,13 +140,7 @@ def mla_decode_attention(q_nope, q_rope, ckv, krope, kpos, cur_pos, wk_b, *,
     K/V is materialised.  Returns the probability-weighted ckv context
     (B, H, R) in fp32; the caller applies wv_b.  Like the reference, this
     is plain tensor code on every device (no Pallas kernel there, no CUDA
-    kernel here, no launch counted).  The reference's sequence-sharded
-    path (a partial per rank, combined over the sequence axes) is not
-    ported."""
-    if _seq_sharded(plan):
-        raise NotImplementedError("MLA decode under a sequence-sharded plan "
-                                  "is not ported (ROADMAP queue 1 item 5)")
-    q_eff = torch.einsum("bhn,rhn->bhr", q_nope.float(), wk_b.float())
-    acc, l, m = ref.mla_decode_scores_partial(q_eff, q_rope, ckv, krope,
-                                              kpos, cur_pos, scale=scale)
-    return ref.combine_partials(acc[None], l[None], m[None], axis=0)
+    kernel here, no launch counted).  Under a sequence-sharded plan the
+    cache is this rank's block of rows (``mla_decode_absorbed``)."""
+    return mla_decode_absorbed(mla_absorb(q_nope, wk_b), q_rope, ckv, krope,
+                               kpos, cur_pos, scale=scale, plan=plan)

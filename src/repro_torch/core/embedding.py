@@ -13,7 +13,7 @@ Tensors here are what this rank holds: its batch rows of activations and
 tokens, and its shard of a table (``sharding.vocab_slices``).
 
 The cross-entropy is the unsharded chunked path only (``sharded_xent`` on
-the local plan); the vocab-sharded loss head is ROADMAP queue 1 item 5.
+the local plan); the vocab-sharded loss head is ROADMAP queue 1 item 5.4.
 """
 from __future__ import annotations
 
@@ -97,29 +97,19 @@ def sharded_xent(x, w_head, labels, cfg: ModelConfig, plan=None,
     if sh.vocab_sharded(plan, cfg):
         raise NotImplementedError(
             "the vocab-sharded cross-entropy is not ported (ROADMAP queue 1 "
-            "item 5); training takes the local plan")
+            "item 5.4); training takes the local plan")
     return _dense_chunked_xent(x, w_head, labels, cfg.vocab_size, chunk)
 
 
-def _full_columns(table: torch.Tensor, plan) -> torch.Tensor:
+def _full_columns(table: torch.Tensor, plan, cfg: ModelConfig
+                  ) -> torch.Tensor:
     """FSDP storage gather: this rank's (V_loc, D/f) shard of a table
-    restored to full row width over the FSDP axis."""
-    fs = plan.fsdp_axis
-    f = plan.axis_size(fs)
-    if f == 1:
+    restored to full row width over the FSDP axis (the table as it is
+    where its columns are whole)."""
+    spec = sh.table_spec(plan, cfg)
+    if spec is None or spec[1] is None:
         return table
-    v_loc, d_loc = table.shape
-    out = table.new_empty((f * v_loc, d_loc))
-    dist.all_gather_into_tensor(out, table.contiguous(),
-                                group=sh.axis_group(plan, fs))
-    return out.view(f, v_loc, d_loc).permute(1, 0, 2).reshape(v_loc,
-                                                              f * d_loc)
-
-
-def _model_rank(plan):
-    """(this rank's model coordinate, model axis size, model group)."""
-    tp = plan.model_axis
-    return sh.axis_index(plan, tp), plan.axis_size(tp), sh.axis_group(plan, tp)
+    return sh.all_gather(plan, table, spec[1], 1)
 
 
 def embed_lookup(table, tokens, cfg: ModelConfig, plan=None,
@@ -140,38 +130,29 @@ def embed_lookup(table, tokens, cfg: ModelConfig, plan=None,
     row meets only zeros from the other shards.
     """
     if not sh.vocab_sharded(plan, cfg):
-        return gather_baseline(table, tokens)
-    r, n, group = _model_rank(plan)
-    B, S = tokens.shape
+        return gather_baseline(_full_columns(table, plan, cfg), tokens)
+    tp = plan.model_axis
+    r, n = sh.axis_index(plan, tp), plan.axis_size(tp)
+    S = tokens.shape[1]
     if seq_sharded is None:
         seq_sharded = S % n == 0 and n > 1
     seq_sharded = seq_sharded and S % n == 0
-    full = _full_columns(table, plan)
-    v_loc, d = full.shape
+    full = _full_columns(table, plan, cfg)
+    off = r * full.shape[0]
 
     if seq_sharded:
-        s_loc = S // n
-        mine = tokens[:, r * s_loc:(r + 1) * s_loc].contiguous()
-        ids = mine.new_empty((n * B, s_loc))
-        dist.all_gather_into_tensor(ids, mine, group=group)
-        ids = ids.view(n, B, s_loc).permute(1, 0, 2).reshape(B, S)
-        rows = kops.isp_gather(full, ids, shard_offset=r * v_loc)
-        rows = rows.view(B, n, s_loc, d).permute(1, 0, 2, 3).reshape(
-            n * B, s_loc, d)
-        out = rows.new_empty((B, s_loc, d))
-        dist.reduce_scatter_tensor(out, rows, group=group)
-        return out
-
-    rows = kops.isp_gather(full, tokens, shard_offset=r * v_loc)
-    dist.all_reduce(rows, group=group)      # activation rows, not the table
-    return rows
+        ids = sh.all_gather(plan, sh.own_block(plan, tokens, tp, 1), tp, 1)
+        rows = kops.isp_gather(full, ids, shard_offset=off)
+        return sh.reduce_scatter(plan, rows, tp, 1)
+    rows = kops.isp_gather(full, tokens, shard_offset=off)
+    return sh.all_reduce(plan, rows, tp)    # activation rows, not the table
 
 
 def _local_logits(x_last, w_head, plan, cfg: ModelConfig):
     """This shard's fp32 logits (B, V_loc) with pad columns at -inf, and
     the global id of its first row."""
-    r, _, _ = _model_rank(plan)
-    w = _full_columns(w_head, plan)
+    r = sh.axis_index(plan, plan.model_axis)
+    w = _full_columns(w_head, plan, cfg)
     v_loc = w.shape[0]
     off = r * v_loc
     logits = _logits_f32(x_last, w)
@@ -186,13 +167,10 @@ def sharded_logits_last(x_last: torch.Tensor, w_head: torch.Tensor,
     as in the reference, (B, V_pad) with the pad columns at -inf: each
     shard's logits are all-gathered over the model axis."""
     if not sh.vocab_sharded(plan, cfg):
-        return _logits_f32(x_last, w_head)[:, : cfg.vocab_size]
+        return _logits_f32(x_last, _full_columns(w_head, plan, cfg))[
+            :, : cfg.vocab_size]
     logits, _ = _local_logits(x_last, w_head, plan, cfg)
-    _, n, group = _model_rank(plan)
-    B, v_loc = logits.shape
-    out = logits.new_empty((n * B, v_loc))
-    dist.all_gather_into_tensor(out, logits.contiguous(), group=group)
-    return out.view(n, B, v_loc).permute(1, 0, 2).reshape(B, n * v_loc)
+    return sh.all_gather(plan, logits, plan.model_axis, 1)
 
 
 def greedy_sample(x_last: torch.Tensor, w_head: torch.Tensor,
@@ -206,14 +184,13 @@ def greedy_sample(x_last: torch.Tensor, w_head: torch.Tensor,
     ``id if value == best else 0`` — so a tie across shards goes to the
     higher shard's id, exactly as in the reference."""
     if not sh.vocab_sharded(plan, cfg):
-        return sharded_logits_last(x_last, w_head, cfg).argmax(dim=-1).to(
-            torch.int32)
+        return sharded_logits_last(x_last, w_head, cfg, plan).argmax(
+            dim=-1).to(torch.int32)
     logits, off = _local_logits(x_last, w_head, plan, cfg)
-    _, _, group = _model_rank(plan)
     val = logits.amax(dim=-1)
     idx = logits.argmax(dim=-1) + off
-    best = val.clone()
-    dist.all_reduce(best, op=dist.ReduceOp.MAX, group=group)
+    best = sh.all_reduce(plan, val.clone(), plan.model_axis,
+                         dist.ReduceOp.MAX)
     win = torch.where(val == best, idx, torch.zeros_like(idx))
-    dist.all_reduce(win, op=dist.ReduceOp.MAX, group=group)
-    return win.to(torch.int32)
+    return sh.all_reduce(plan, win, plan.model_axis,
+                         dist.ReduceOp.MAX).to(torch.int32)

@@ -4,7 +4,9 @@ The reference builds its meshes from the devices JAX sees; here a mesh is a
 ``DeviceMesh`` over the ranks of the default process group, with the
 reference's axis names ("data", "model").  Nothing tells a program of a
 cluster, so the caller starts the group (the tests start ``gloo`` groups
-on the CPU, one process per rank) — except for the one-rank mesh of a
+on the CPU, one process per rank; ``chip_smoke.py``'s two-rank phase a
+``gloo`` group of two processes that share the one card, since NCCL
+refuses two ranks on one device) — except for the one-rank mesh of a
 single card, which starts its own.
 
 Like every entry point of the port, these run on the card unless the

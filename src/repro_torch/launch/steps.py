@@ -1,20 +1,25 @@
 """Step builders: the train step and the sharded prefill, decode and
 decode-block steps of one (arch, shape, mesh) cell (port of
-``repro/launch/steps.py:110-168``).
+``repro/launch/steps.py``).
 
 Each builder closes over the config and a ``ShardingRecipe`` and returns
 the step a server calls on every rank of the mesh with the same global
 inputs; the train step takes the local recipe only (no mesh).  ``jit``
-and ``NamedSharding`` have no counterpart: the steps run eagerly, and the
-recipe decides which piece of the batch, the caches and the vocabulary
-each rank works on (``models/model.py``).  Like every entry
+and ``NamedSharding`` have no counterpart: the steps run eagerly on what
+each rank holds.  ``params_sharding`` and ``cache_sharding`` give the
+reference's specs of the parameters and the caches, per dimension the
+axis (or axes) that splits it: the serve steps take a model whose pieces
+are cut by ``params_sharding`` (``LM(cfg, device, recipe)``,
+``bridge.params_from_jax(..., plan=recipe)``) and caches laid out as
+``cache_sharding`` says (``models.model.init_caches(..., plan=recipe)``),
+and check the model's specs at their first call.  Like every entry
 point of the port, a step runs on the card unless the builder is asked for
 the CPU; the builders raise without a CUDA device, and when the recipe's
 mesh lives on another device type.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -22,7 +27,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
-from repro_torch.sharding import ShardingRecipe
+from repro_torch.sharding import ShardingRecipe, Spec, param_specs
 
 
 def _device(recipe: ShardingRecipe, device) -> torch.device:
@@ -31,6 +36,69 @@ def _device(recipe: ShardingRecipe, device) -> torch.device:
         raise ValueError(f"the recipe's mesh is on {recipe.mesh.device_type}"
                          f", the step on {dev.type}")
     return dev
+
+
+def params_sharding(recipe: ShardingRecipe, cfg: ModelConfig
+                    ) -> Dict[str, Spec]:
+    """The spec of every parameter of ``cfg`` by its state-dict name (the
+    reference's ``param_specs`` on the unstacked leaves)."""
+    meta = M.LM(cfg, "meta")
+    return param_specs(recipe, {n: tuple(p.shape)
+                                for n, p in meta.named_parameters()})
+
+
+def _cache_leaf_spec(recipe: ShardingRecipe, name: str, shape) -> Spec:
+    """The reference's ``_cache_leaf_spec``: cache leaves are stacked
+    (num_groups, ...); the batch goes over the batch axes, a strip's rows
+    over the sequence axes, Mamba's channels over the model axis, each
+    where it divides.  Paged pools and their page tables are whole."""
+    plan = recipe.plan
+    b = recipe.batch_axes or None
+    s = recipe.seq_axes or None
+    tp = recipe.model_axis
+
+    def fits(dim, axes):
+        n = 1
+        for a in ((axes,) if isinstance(axes, str) else axes or ()):
+            n *= plan.axis_size(a)
+        return axes is not None and n > 1 and shape[dim] % n == 0
+
+    def pick(dim, axes):
+        return axes if fits(dim, axes) else None
+
+    rest = (None,) * len(shape)
+    if name in ("k", "v", "ckv", "krope"):
+        return (None, pick(1, b), pick(2, s)) + rest[3:]
+    if name == "kpos":
+        if len(shape) == 3:                      # per-slot (ng, B, S)
+            return (None, pick(1, b), pick(2, s))
+        return (None, pick(1, s))
+    if name == "conv":
+        return (None, pick(1, b), None, pick(3, tp))
+    if name == "ssm":
+        return (None, pick(1, b), pick(2, tp), None)
+    if name in ("kp", "vp", "pages"):
+        return rest
+    # mlstm C/n/m, slstm c/n/m/h: batch only
+    return (None, pick(1, b) if len(shape) > 1 else None) + rest[2:]
+
+
+def cache_sharding(recipe: ShardingRecipe, cache_shapes) -> Dict:
+    """Specs of a (nested) tree of global cache shapes, leaf by leaf."""
+    return {k: cache_sharding(recipe, v) if isinstance(v, dict)
+            else _cache_leaf_spec(recipe, k, tuple(v))
+            for k, v in cache_shapes.items()}
+
+
+def _check_model(model, cfg: ModelConfig, recipe: ShardingRecipe) -> None:
+    """The model must hold the pieces ``params_sharding`` cuts."""
+    want = params_sharding(recipe, cfg)
+    got = getattr(model, "specs", {})
+    for name, spec in want.items():
+        if got.get(name, (None,) * len(spec)) != spec:
+            raise ValueError(f"{name}: the model holds the piece of spec "
+                             f"{got.get(name)}, the recipe's is {spec}; "
+                             "build it with the recipe's plan")
 
 
 def _grads(model, params, batch, cfg: ModelConfig, recipe):
@@ -100,11 +168,24 @@ def build_train_step(cfg: ModelConfig, recipe: ShardingRecipe,
     return train_step, opt_cfg
 
 
+def _checked(cfg: ModelConfig, recipe: ShardingRecipe):
+    """A check of a step's model at the step's first call for each model."""
+    seen = set()
+
+    def check(model):
+        if id(model) not in seen:
+            _check_model(model, cfg, recipe)
+            seen.add(id(model))
+    return check
+
+
 def build_prefill_step(cfg: ModelConfig, recipe: ShardingRecipe,
                        device=None):
     dev = _device(recipe, device)
+    check = _checked(cfg, recipe)
 
     def prefill_step(model, batch):
+        check(model)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         return M.prefill_fn(model, batch, cfg, recipe)
 
@@ -114,8 +195,10 @@ def build_prefill_step(cfg: ModelConfig, recipe: ShardingRecipe,
 def build_decode_step(cfg: ModelConfig, recipe: ShardingRecipe,
                       device=None):
     dev = _device(recipe, device)
+    check = _checked(cfg, recipe)
 
     def serve_step(model, caches, token, pos):
+        check(model)
         return M.decode_fn(model, caches, torch.as_tensor(token, device=dev),
                            torch.as_tensor(pos, device=dev), cfg, recipe)
 
@@ -126,8 +209,10 @@ def build_decode_block_step(cfg: ModelConfig, recipe: ShardingRecipe, *,
                             k_steps: int, eos_id: Optional[int],
                             max_len: int, device=None):
     dev = _device(recipe, device)
+    check = _checked(cfg, recipe)
 
     def block_step(model, caches, tokens, positions, alive, remaining):
+        check(model)
         t = lambda x: torch.as_tensor(x, device=dev)    # noqa: E731
         return M.decode_block_fn(model, caches, t(tokens), t(positions),
                                  t(alive), t(remaining), cfg, recipe,

@@ -28,11 +28,16 @@ use ``cfg.attn.window`` and ``rope_base_local``, full layers no window and
 wk/wv (D, Hkv, dh), wo (H, dh, D).  Activations are (B, S, H, dh).  Decode
 updates the caches in place where the reference returned new arrays.
 
-Under a sequence-sharded recipe (``plan.seq_axes``) a dense strip is held
-as this rank's contiguous block of rows — ``(B, S/n, Hkv, dh)`` and its
-kpos — so the KV bytes stay on the rank that owns them: decode writes a
-position's row only on the rank owning its strip row, and prefill keeps
-each rank's block of the rows it computed.
+Under a recipe the projections are this rank's pieces
+(``sharding.param_specs``): Megatron column-parallel q/k/v (MLA's
+``wq_b``/``wk_b``/``wv_b``) over the heads the model axis splits and a
+row-parallel o, whose partial sum the block reduces.  Under a
+sequence-sharded recipe (``plan.seq_axes``) a dense strip — MLA's
+compressed one too — is held as this rank's contiguous block of rows,
+``(B, S/n, Hkv, dh)`` and its kpos, with every KV head, so the KV bytes
+stay on the rank that owns them: decode writes a position's row only on
+the rank owning its strip row, and prefill keeps each rank's block of the
+rows it computed.
 """
 from __future__ import annotations
 
@@ -44,8 +49,8 @@ from torch import nn
 from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.core.decode_attention import (chunk_prefill_attention,
-                                               decode_attention,
-                                               mla_decode_attention,
+                                               decode_attention, mla_absorb,
+                                               mla_decode_absorbed,
                                                paged_decode_attention)
 from repro_torch.core.kv_pages import pages_for, scatter_rows
 from repro_torch.kernels import ops as kops
@@ -274,14 +279,32 @@ def _project(x, w):
 
 def _seq_block(cache, plan):
     """This rank's block of the rows of a prefill cache (all of them
-    unsharded)."""
+    unsharded): the strip leaves on their row axis (1), the track on 0."""
     r, n = seq_shard(plan, cache["kpos"].shape[0])
     if n == 1:
         return cache
-    s = cache["kpos"].shape[0] // n
-    return {"k": cache["k"][:, r * s:(r + 1) * s],
-            "v": cache["v"][:, r * s:(r + 1) * s],
-            "kpos": cache["kpos"][r * s:(r + 1) * s]}
+    return {name: t.chunk(n, dim=0 if name == "kpos" else 1)[r]
+            for name, t in cache.items()}
+
+
+def _kv_for_heads(k, k_all, heads, cfg: ModelConfig, q_split: bool,
+                  kv_split: bool):
+    """The K (or V) heads that this rank's query heads ``heads`` = (q0, q1)
+    read: its own KV heads where both are split over the model axis (each
+    rank's query heads share its KV heads), all of them where the query
+    heads are whole, else the KV heads of its query heads out of
+    ``k_all`` — a slice where they are whole GQA groups, one KV head per
+    query head otherwise."""
+    if not q_split:
+        return k_all
+    if kv_split:
+        return k
+    q0, q1 = heads
+    g = cfg.num_heads // cfg.num_kv_heads
+    if q0 % g == 0 and (q1 - q0) % g == 0:
+        return k_all[:, :, q0 // g:q1 // g]
+    idx = torch.arange(q0, q1, device=k_all.device) // g
+    return k_all.index_select(2, idx)
 
 
 def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
@@ -291,10 +314,20 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
     decode: per-slot (B,) positions against a per-slot cache (paged pool or
     kpos (B, S) strips), or one shared position (1,) against a kpos (S,)
     strip; chunk: (B, C) positions of a prefill chunk against a paged pool.
-    ``write_mask`` (B,) bool gates per-slot cache writes.  ``plan`` (a
-    ShardingRecipe) shards dense strips over its sequence axes.  train:
-    positions (S,), prefill's attention with no cache.  Returns (out (B, S,
-    D), new_cache), new_cache None in train."""
+    ``write_mask`` (B,) bool gates per-slot cache writes.  train:
+    positions (S,), prefill's attention with no cache.
+
+    Under a ``plan`` (a ShardingRecipe) the projections are this rank's
+    pieces: q/k/v column-parallel over the heads the model axis splits, o
+    row-parallel, so the output is this rank's partial sum where ``wo`` is
+    split (the block reduces it, ``blocks.sp_scatter``).  The caches keep
+    the reference's layout — every KV head, this rank's batch rows and its
+    block of each strip over the sequence axes — so the new K/V heads are
+    all-gathered over the model axis before they are written.  Prefill runs
+    flash on this rank's query heads; decode and chunks gather q to every
+    head first (the sequence-sharded decode takes q whole, as the
+    reference's shard_map does), attend, and keep this rank's heads for o.
+    Returns (out (B, S, D), new_cache), new_cache None in train."""
     if mode not in ("train", "prefill", "decode", "chunk"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     window = cfg.attn.window if kind == "local" else None
@@ -302,16 +335,29 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
         else cfg.attn.rope_base
     B, S, _ = x.shape
     per_slot, posb, rope_pos = _decode_positions(positions, B, cache, mode)
+    q_split = sh.split_on_model(plan, attn, "wq", 1)
+    kv_split = sh.split_on_model(plan, attn, "wk", 1)
+    heads = sh.tp_split(plan, cfg.num_heads) if q_split \
+        else (0, cfg.num_heads)
+    model = plan.model_axis if plan is not None else None
 
-    q = apply_rope(_project(x, attn.wq), rope_pos, rope_base)
-    k = apply_rope(_project(x, attn.wk), rope_pos, rope_base)
-    v = _project(x, attn.wv)
+    q = apply_rope(_project(x, sh.leaf(attn, "wq", plan)), rope_pos,
+                   rope_base)
+    k = apply_rope(_project(x, sh.leaf(attn, "wk", plan)), rope_pos,
+                   rope_base)
+    v = _project(x, sh.leaf(attn, "wv", plan))
+    k_all, v_all = k, v
+    if kv_split and mode != "train":
+        k_all = sh.all_gather(plan, k, model, 2)
+        v_all = sh.all_gather(plan, v, model, 2)
+    if mode in ("chunk", "decode") and q_split:
+        q = sh.all_gather(plan, q, model, 2)
 
     if mode == "chunk":
         if cache is None or not _paged_cache(cache) or window is not None:
             raise ValueError("chunked prefill needs the paged "
                              "full-attention layout")
-        new_cache = _paged_chunk_update(cache, k, v, positions)
+        new_cache = _paged_chunk_update(cache, k_all, v_all, positions)
         out_h = chunk_prefill_attention(q, cache["kp"], cache["vp"],
                                         cache["pages"], positions)
     elif mode == "decode":
@@ -320,41 +366,46 @@ def gqa_apply(attn: GQA, x, positions, cfg: ModelConfig, kind: str = "full",
         if _paged_cache(cache):
             if window is not None:
                 raise ValueError("paged KV applies to full-attention layers")
-            new_cache = _paged_update(cache, k, v, posb, write_mask)
+            new_cache = _paged_update(cache, k_all, v_all, posb, write_mask)
             out_h = paged_decode_attention(q[:, 0], cache["kp"], cache["vp"],
                                            cache["pages"], posb, window=None,
                                            plan=plan)
         else:
             ring = window is not None
             shard = seq_shard(plan)
+            new_vals = {"k": k_all, "v": v_all}
             if per_slot:
-                new_cache = _slot_update(cache, {"k": k, "v": v}, posb, ring,
+                new_cache = _slot_update(cache, new_vals, posb, ring,
                                          write_mask, shard)
                 pos = posb
             else:
                 pos = positions[0]
-                new_cache = _ring_update(cache, {"k": k, "v": v}, pos, ring,
-                                         shard)
+                new_cache = _ring_update(cache, new_vals, pos, ring, shard)
             out_h = decode_attention(q[:, 0], new_cache["k"], new_cache["v"],
                                      new_cache["kpos"], pos, window=window,
                                      plan=plan)
         out_h = out_h[:, None]                                # (B,1,H,dh)
     else:
-        out_h = kops.flash_attention(q, k, v, causal=True, window=window,
-                                     q_chunk=cfg.attn_chunk,
-                                     kv_chunk=cfg.attn_chunk)
+        out_h = kops.flash_attention(
+            q, _kv_for_heads(k, k_all, heads, cfg, q_split, kv_split),
+            _kv_for_heads(v, v_all, heads, cfg, q_split, kv_split),
+            causal=True, window=window, q_chunk=cfg.attn_chunk,
+            kv_chunk=cfg.attn_chunk)
         if mode == "train":
             new_cache = None
         elif window is not None:
-            new_cache = _ring_prefill_cache(k, v, window)
+            new_cache = _ring_prefill_cache(k_all, v_all, window)
         else:
-            new_cache = {"k": k, "v": v,
+            new_cache = {"k": k_all, "v": v_all,
                          "kpos": torch.arange(S, dtype=torch.int32,
                                               device=x.device)}
         if new_cache is not None:
             new_cache = _seq_block(new_cache, plan)
-    H, dh, D = attn.wo.shape
-    out = out_h.to(x.dtype).reshape(B * S, H * dh) @ attn.wo.reshape(H * dh, D)
+    if mode in ("chunk", "decode") and q_split:
+        out_h = out_h[:, :, heads[0]:heads[1]]
+    wo = sh.leaf(attn, "wo", plan)
+    H, dh, D = wo.shape
+    out = out_h.to(x.dtype).reshape(B * S, H * dh) @ wo.reshape(H * dh, D)
     return out.reshape(B, S, D), new_cache
 
 
@@ -415,29 +466,33 @@ def mla_params(cfg: ModelConfig, generator: torch.Generator, dtype,
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                   device):
+                   device, plan=None):
     """Compressed decode strip of one MLA layer: ``ckv`` (B, S, R) and the
     rope key ``krope`` (B, S, r) — R + r = 576 values a token at
     deepseek-v2's widths, against H * (nope + rope + v) = 40,960 for the
-    per-head K/V — with the shared position track ``kpos`` (-1 = empty)."""
+    per-head K/V — with the shared position track ``kpos`` (-1 = empty).
+    Under a sequence-sharded recipe, this rank's block of the rows."""
     a = cfg.attn
+    s = max_len // seq_shard(plan, max_len)[1]
     return {
-        "ckv": torch.zeros((batch, max_len, a.kv_lora_rank), dtype=dtype,
+        "ckv": torch.zeros((batch, s, a.kv_lora_rank), dtype=dtype,
                            device=device),
-        "krope": torch.zeros((batch, max_len, a.qk_rope_dim), dtype=dtype,
+        "krope": torch.zeros((batch, s, a.qk_rope_dim), dtype=dtype,
                              device=device),
-        "kpos": torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        "kpos": torch.full((s,), -1, dtype=torch.int32, device=device),
     }
 
 
-def _mla_q(attn: MLA, x, cfg: ModelConfig):
-    """(q_nope, q_rope), each (B, S, H, ·), before RoPE."""
+def _mla_q(attn: MLA, x, cfg: ModelConfig, plan=None):
+    """(q_nope, q_rope), each (B, S, H, ·) over this rank's heads, before
+    RoPE."""
     a = cfg.attn
     if a.q_lora_rank:
-        qa = rms_norm(x @ attn.wq_a, attn.q_norm, cfg.norm_eps)
-        q = _project(qa, attn.wq_b)
+        qa = rms_norm(x @ sh.leaf(attn, "wq_a", plan),
+                      sh.leaf(attn, "q_norm", plan), cfg.norm_eps)
+        q = _project(qa, sh.leaf(attn, "wq_b", plan))
     else:
-        q = _project(x, attn.wq)
+        q = _project(x, sh.leaf(attn, "wq", plan))
     return q[..., :a.qk_nope_dim], q[..., a.qk_nope_dim:]
 
 
@@ -455,6 +510,14 @@ def mla_apply(attn: MLA, x, positions, cfg: ModelConfig,
     ``mla_decode_attention`` scores q against the compressed rows, and
     wv_b lifts the context to the value heads.  A prefill chunk raises, as
     in the reference.  train: prefill's unabsorbed attention with no cache.
+
+    Under a ``plan``: ``wq_b``/``wk_b``/``wv_b`` and ``wo`` hold this
+    rank's heads (the output is its partial sum), ``wq_a``/``wkv_a`` are
+    gathered over the FSDP axis at use, and the compressed strip is this
+    rank's block over the sequence axes.  Sequence-sharded decode absorbs
+    this rank's heads, gathers the absorbed query over the model axis,
+    takes the partial over its block of the strip, combines the partials
+    over the sequence axes and keeps its heads for wv_b and o.
     Returns (out (B, S, D), new_cache), new_cache None in train."""
     a = cfg.attn
     B, S, _ = x.shape
@@ -465,11 +528,17 @@ def mla_apply(attn: MLA, x, positions, cfg: ModelConfig,
     if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"attention mode {mode!r} is not ported")
     per_slot, posb, rope_pos = _decode_positions(positions, B, cache, mode)
-    q_nope, q_rope = _mla_q(attn, x, cfg)
+    q_nope, q_rope = _mla_q(attn, x, cfg, plan)
     q_rope = apply_rope(q_rope, rope_pos, a.rope_base)
+    q_split = sh.split_on_model(plan, attn, "wk_b", 1)
+    heads = sh.tp_split(plan, cfg.num_heads) if q_split \
+        else (0, cfg.num_heads)
+    wk_b = sh.leaf(attn, "wk_b", plan)
+    wv_b = sh.leaf(attn, "wv_b", plan)
 
-    kv_a = x @ attn.wkv_a
-    ckv = rms_norm(kv_a[..., :a.kv_lora_rank], attn.kv_norm, cfg.norm_eps)
+    kv_a = x @ sh.leaf(attn, "wkv_a", plan)
+    ckv = rms_norm(kv_a[..., :a.kv_lora_rank], sh.leaf(attn, "kv_norm", plan),
+                   cfg.norm_eps)
     k_rope = apply_rope(kv_a[..., a.kv_lora_rank:][:, :, None, :], rope_pos,
                         a.rope_base)[:, :, 0]
     scale = (a.qk_nope_dim + a.qk_rope_dim) ** -0.5
@@ -478,23 +547,29 @@ def mla_apply(attn: MLA, x, positions, cfg: ModelConfig,
         if cache is None:
             raise ValueError("decode needs a cache")
         new_vals = {"ckv": ckv, "krope": k_rope}
+        shard = seq_shard(plan)
         if per_slot:
             new_cache = _slot_update(cache, new_vals, posb, False,
-                                     write_mask)
+                                     write_mask, shard)
             pos = posb
         else:
             pos = positions[0]
-            new_cache = _ring_update(cache, new_vals, pos, False)
-        ctx = mla_decode_attention(q_nope[:, 0], q_rope[:, 0],
-                                   new_cache["ckv"], new_cache["krope"],
-                                   new_cache["kpos"], pos, attn.wk_b,
-                                   scale=scale, plan=plan)   # (B, H, R)
-        out_h = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype),
-                             attn.wv_b)[:, None]
+            new_cache = _ring_update(cache, new_vals, pos, False, shard)
+        q_eff, qr = mla_absorb(q_nope[:, 0], wk_b), q_rope[:, 0]
+        gather = q_split and shard[1] > 1
+        if gather:
+            q_eff = sh.all_gather(plan, q_eff, plan.model_axis, 1)
+            qr = sh.all_gather(plan, qr, plan.model_axis, 1)
+        ctx = mla_decode_absorbed(q_eff, qr, new_cache["ckv"],
+                                  new_cache["krope"], new_cache["kpos"], pos,
+                                  scale=scale, plan=plan)   # (B, H, R)
+        if gather:
+            ctx = ctx[:, heads[0]:heads[1]]
+        out_h = torch.einsum("bhr,rhv->bhv", ctx.to(x.dtype), wv_b)[:, None]
     else:
-        H = cfg.num_heads
-        k_nope = _project(ckv, attn.wk_b)
-        v = _project(ckv, attn.wv_b)
+        H = wk_b.shape[1]
+        k_nope = _project(ckv, wk_b)
+        v = _project(ckv, wv_b)
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             B, S, H, a.qk_rope_dim)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
@@ -502,10 +577,11 @@ def mla_apply(attn: MLA, x, positions, cfg: ModelConfig,
                                      q_chunk=cfg.attn_chunk,
                                      kv_chunk=cfg.attn_chunk)
         del q, k, v, k_nope
-        new_cache = None if mode == "train" else {
+        new_cache = None if mode == "train" else _seq_block({
             "ckv": ckv, "krope": k_rope,
-            "kpos": torch.arange(S, dtype=torch.int32, device=x.device)}
-    H, dv, D = attn.wo.shape
-    out = out_h.to(x.dtype).reshape(B * S, H * dv) @ attn.wo.reshape(H * dv,
-                                                                     D)
+            "kpos": torch.arange(S, dtype=torch.int32, device=x.device)},
+            plan)
+    wo = sh.leaf(attn, "wo", plan)
+    H, dv, D = wo.shape
+    out = out_h.to(x.dtype).reshape(B * S, H * dv) @ wo.reshape(H * dv, D)
     return out.reshape(B, S, D), new_cache

@@ -11,9 +11,22 @@ Block kinds:
   mlstm / slstm  an xLSTM core on the normed input, to the residual; no
            second norm and no MLP (xlstm)
 
-A sharding recipe is threaded through to the attention layer; the Megatron
-sequence-parallel residual stream (``sp_enabled``) and expert parallelism
-are not ported."""
+Under a sharding recipe every block computes on this rank's pieces of its
+weights (``sharding.param_specs``), as the reference's GSPMD layout does:
+
+  * Megatron TP: attention's q/k/v and the MLPs' gate/up are
+    column-parallel, o and down row-parallel, and a mixer's partial output
+    is summed over the model axis (``sp_scatter``);
+  * Megatron SP in prefill (``sp_enabled``): the residual stream between
+    mixers is this rank's block of the sequence; ``sp_gather`` all-gathers
+    it at a mixer's input and ``sp_scatter`` turns the output's all-reduce
+    into a reduce-scatter;
+  * expert parallelism (``apply_moe``): each rank holds E / tp experts;
+    prefill ships tokens to their experts' ranks and back
+    (``moe.ep_moe_local``), decode runs the rank's own experts on every
+    token and sums over the model axis (``moe.ep_moe_decode_local``);
+  * FSDP: leaves split over the FSDP axis are all-gathered at use
+    (``sharding.leaf``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -21,6 +34,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -124,13 +138,19 @@ def block_params(cfg: ModelConfig, kind: str, generator: torch.Generator,
     return p
 
 
+# the reference's threshold for the sequence-parallel residual stream (SP
+# pays only for models of at least this many parameters); the reduced
+# configs' parity tests lower it to reach SP at a small width
+SP_MIN_PARAMS = 1_000_000_000
+
+
 def sp_enabled(cfg: ModelConfig, plan, seq_len: int,
                mode: str = "train") -> bool:
     """Whether the residual stream runs sequence-sharded for this cell (the
     reference's single source of truth for blocks, embedding and loss
     head): only over a model axis of more than one rank, for train or
     prefill, at a sequence length and a head count that axis divides, and
-    for models of at least 1 B parameters."""
+    for models of at least ``SP_MIN_PARAMS`` parameters."""
     if not (plan is not None and plan.mesh is not None
             and plan.model_axis is not None and mode in ("train", "prefill")):
         return False
@@ -139,76 +159,144 @@ def sp_enabled(cfg: ModelConfig, plan, seq_len: int,
         return False
     if cfg.num_heads % tp != 0:
         return False
-    return cfg.param_count() >= 1_000_000_000
+    return cfg.param_count() >= SP_MIN_PARAMS
 
 
-def apply_moe(moe: MoE, x, cfg: ModelConfig, plan=None):
-    """Routed experts (``dense_moe``) plus the shared experts as a gated
-    MLP.  Returns (y, aux_loss).  Where the reference would take expert
-    parallelism (a recipe whose model axis has more than one rank dividing
-    the experts; the reference's plans keep ``ep`` on) the port raises
-    instead of computing the dense path silently."""
-    m = cfg.moe
+def sp_gather(x, plan, sp: bool):
+    """The sequence-sharded residual (B, S/tp, D) to the full sequence at a
+    mixer's input: an all-gather over the model axis (``x`` as it is
+    without SP)."""
+    return sh.all_gather(plan, x, plan.model_axis, 1) if sp else x
+
+
+def sp_scatter(y, plan, sp: bool, partial: bool):
+    """A mixer's output (B, S, D) to the residual's layout.  ``partial``:
+    ``y`` is this rank's partial sum (its last product was row-parallel
+    over the model axis).  Under SP a reduce-scatter gives this rank its
+    block of the sequence (its block of ``y`` where ``y`` is whole);
+    otherwise an all-reduce (nothing where ``y`` is whole)."""
+    if plan is None or plan.mesh is None:
+        return y
+    model = plan.model_axis
+    if sp:
+        return sh.reduce_scatter(plan, y, model, 1) if partial \
+            else sh.own_block(plan, y, model, 1)
+    return sh.all_reduce(plan, y, model) if partial else y
+
+
+def _mlp(mod, h, plan, sp: bool, names=("w_gate", "w_up", "w_down")):
+    """Gated MLP on the full-sequence ``h`` (gate/up column-parallel, down
+    row-parallel over the model axis), to the residual's layout."""
+    wg, wu, wd = (sh.leaf(mod, n, plan) for n in names)
+    return sp_scatter(swiglu(h, wg, wu, wd), plan, sp,
+                      sh.split_on_model(plan, mod, names[2], 0))
+
+
+def moe_route(cfg: ModelConfig, plan, mode: str, seq_len: int) -> str:
+    """The reference's choice of MoE path: ``"dense"`` without expert
+    parallelism (no mesh, ``ep`` off, a model axis of one rank or one that
+    does not divide the experts); ``"ep_decode"`` in decode or where the
+    model axis does not divide the sequence; ``"ep_prefill"`` otherwise."""
     tp = plan.axis_size(plan.model_axis) \
         if plan is not None and plan.mesh is not None else 1
-    if tp > 1 and m.num_experts % tp == 0:
+    if not (tp > 1 and plan.ep and cfg.moe.num_experts % tp == 0):
+        return "dense"
+    if mode == "train":
         raise NotImplementedError(
-            "expert-parallel MoE over a model axis of more than one rank is "
-            "not ported (ROADMAP queue 1 item 5)")
-    routed = {k: getattr(moe, k)
-              for k in ("router", "we_gate", "we_up", "we_down")}
-    y, aux = moe_mod.dense_moe(routed, x, cfg)
+            "expert-parallel MoE in training is not ported: training under "
+            "a mesh is ROADMAP queue 1 item 5.4")
+    return "ep_decode" if mode == "decode" or seq_len % tp else "ep_prefill"
+
+
+def apply_moe(moe: MoE, x, cfg: ModelConfig, plan=None, mode="prefill",
+              sp: bool = False):
+    """Routed experts plus the shared experts as a gated MLP.  Returns (y,
+    aux_loss).  ``x`` is the normed residual in its layout (this rank's
+    block of the sequence under SP), and so is ``y``.
+
+    Routes (``moe_route``): ``dense_moe`` on this rank's tokens; EP decode,
+    where every rank runs its own experts on every token and the outputs
+    are summed over the model axis; EP prefill, where each rank routes its
+    block of the sequence, ships the tokens over ``all_to_all`` to their
+    experts' ranks and the outputs back (capacity-bounded, as in the
+    reference: an assignment past an expert's capacity is dropped), and
+    the blocks are all-gathered where the residual is whole.  The expert
+    weights are gathered over the FSDP axis at use.  The shared experts
+    run as a TP MLP on the full sequence.  The EP routes give no load loss
+    (0), as the reference's decode; training under a mesh raises."""
+    m = cfg.moe
+    # the route follows the whole sequence's length, as the reference's
+    S = x.shape[1] * (plan.axis_size(plan.model_axis) if sp else 1)
+    route = moe_route(cfg, plan, mode, S)
+    names = ("router", "we_gate", "we_up", "we_down")
+    aux = x.new_zeros((), dtype=torch.float32)
+    if route == "dense":
+        routed = {k: sh.leaf(moe, k, plan, full=True) for k in names}
+        y, aux = moe_mod.dense_moe(routed, x, cfg)
+    else:
+        routed = {k: sh.leaf(moe, k, plan) for k in names}
+        model = plan.model_axis
+        B, _, D = x.shape
+        if route == "ep_decode":
+            y = moe_mod.ep_moe_decode_local(routed, x.reshape(-1, D), cfg,
+                                            plan).reshape(x.shape)
+        else:
+            xs = x if sp else sh.own_block(plan, x, model, 1)
+            y, _ = moe_mod.ep_moe_local(routed, xs.reshape(-1, D), cfg, plan)
+            y = y.reshape(xs.shape)
+            if not sp:
+                y = sh.all_gather(plan, y, model, 1)
     if m.num_shared_experts:
-        y = y + swiglu(x, moe.ws_gate, moe.ws_up, moe.ws_down)
+        y = y + _mlp(moe, sp_gather(x, plan, sp), plan, sp,
+                     ("ws_gate", "ws_up", "ws_down"))
     return y, aux
 
 
 def apply_block(block: Block, x, positions, cfg: ModelConfig,
                 cache: Optional[Dict], mode: str, write_mask=None,
-                plan=None):
+                plan=None, sp: bool = False):
     """Returns (x, new_cache) in the serve modes, where an MoE block's aux
     loss is dropped; in ``"train"``, which builds no cache, (x, aux): the
     MoE load loss of ``"moe"`` / ``"mla_moe"`` blocks, a float32 0 for the
     others (the reference's third return value).  ``write_mask`` gates the
     attention caches' decode writes; recurrent states need none (a finished
     slot only corrupts its own state, which the engine replaces whole at
-    refill)."""
+    refill).  With ``sp`` (``sp_enabled``) ``x`` is this rank's block of
+    the sequence, gathered at each mixer's input and scattered after it,
+    as the reference's ``sp_gather`` / ``sp_scatter``."""
     eps = cfg.norm_eps
     kind = block.kind
     train = mode == "train"
-    h = rms_norm(x, block.ln1, eps)
-    if kind == "mlstm":
-        y, new_cache = ssm_mod.mlstm_apply(block.core, h, cfg, cache, mode)
-        return x + y, _zero(x) if train else new_cache
-    if kind == "slstm":
-        y, new_cache = ssm_mod.slstm_apply(block.core, h, cfg, cache, mode)
-        return x + y, _zero(x) if train else new_cache
+    h = sp_gather(rms_norm(x, sh.leaf(block, "ln1", plan), eps), plan, sp)
+    if kind in ("mlstm", "slstm"):
+        fn = ssm_mod.mlstm_apply if kind == "mlstm" else ssm_mod.slstm_apply
+        y, new_cache = fn(block.core, h, cfg, cache, mode, plan=plan)
+        x = x + sp_scatter(y, plan, sp, False)
+        return x, _zero(x) if train else new_cache
     if kind == "mla_moe":
         a, new_cache = attn_mod.mla_apply(block.attn, h, positions, cfg,
                                           cache, mode, write_mask=write_mask,
                                           plan=plan)
-    elif kind == "hybrid":
-        a, attn_cache = attn_mod.gqa_apply(
-            block.attn, h, positions, cfg, "local",
-            cache["attn"] if cache else None, mode, write_mask=write_mask,
-            plan=plan)
-        s, ssm_cache = ssm_mod.mamba_apply(block.ssm, h, cfg,
-                                           cache["ssm"] if cache else None,
-                                           mode)
-        a = 0.5 * (a + s)
-        new_cache = {"attn": attn_cache, "ssm": ssm_cache}
     else:
         a, new_cache = attn_mod.gqa_apply(
             block.attn, h, positions, cfg,
-            "local" if kind == "local" else "full", cache, mode,
+            "local" if kind in ("local", "hybrid") else "full",
+            cache["attn"] if kind == "hybrid" and cache else cache, mode,
             write_mask=write_mask, plan=plan)
+    a = sp_scatter(a, plan, sp, sh.split_on_model(plan, block.attn, "wo", 0))
+    if kind == "hybrid":
+        s, ssm_cache = ssm_mod.mamba_apply(block.ssm, h, cfg,
+                                           cache["ssm"] if cache else None,
+                                           mode, plan=plan)
+        a = 0.5 * (a + sp_scatter(s, plan, sp, False))
+        new_cache = {"attn": new_cache, "ssm": ssm_cache}
     x = x + a
-    h = rms_norm(x, block.ln2, eps)
+    h = rms_norm(x, sh.leaf(block, "ln2", plan), eps)
     aux = None
     if kind in _MOE_KINDS:
-        f, aux = apply_moe(block.moe, h, cfg, plan)
+        f, aux = apply_moe(block.moe, h, cfg, plan, mode, sp)
     else:
-        f = swiglu(h, block.mlp.w_gate, block.mlp.w_up, block.mlp.w_down)
+        f = _mlp(block.mlp, sp_gather(h, plan, sp), plan, sp)
     if not train:
         return x + f, new_cache
     return x + f, _zero(x) if aux is None else aux
@@ -235,11 +323,13 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return attn_mod.init_paged_gqa_cache(cfg, batch, num_pages, page_size,
                                              max_len, dtype, device)
     if kind == "mla_moe":
-        return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, device)
+        return attn_mod.init_mla_cache(cfg, batch, max_len, dtype, device,
+                                       plan)
     if kind == "hybrid":
         return {"attn": attn_mod.init_gqa_cache(cfg, "local", batch, max_len,
                                                 dtype, device, plan),
-                "ssm": ssm_mod.init_mamba_cache(cfg, batch, dtype, device)}
+                "ssm": ssm_mod.init_mamba_cache(cfg, batch, dtype, device,
+                                                plan)}
     if kind == "mlstm":
         return ssm_mod.init_mlstm_cache(cfg, batch, device)
     if kind == "slstm":

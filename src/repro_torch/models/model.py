@@ -20,12 +20,16 @@ Decode updates the pools, strips and recurrent states in place.
 ``plan`` is a ShardingRecipe (``repro_torch.sharding``) or None.  Under a
 recipe every rank of the mesh calls the entry point with the same global
 inputs; it computes its own batch rows (by its coordinate on the batch
-axes) against its caches, which hold its batch rows and, over the sequence
-axes, its block of each strip; the vocabulary lookups and the head go
-through the ISP paths of ``core/embedding.py``; and the (B,) next tokens
-are gathered back so that every rank returns the global result, as the
-reference's global arrays do.  An ``LM`` built with a recipe holds this
-rank's shard of the vocabulary tables.
+axes) on its pieces of the weights (``LM``, ``blocks``) against its
+caches, which hold its batch rows, every KV head, over the sequence axes
+its block of each dense strip and, for Mamba, its channels of the state
+(paged pools are whole on every rank, which reads its block of their
+strip view); prefill runs the Megatron-SP residual stream where
+``blocks.sp_enabled``; the vocabulary lookups and the head go through the
+ISP paths of ``core/embedding.py``; and the (B,) next tokens are gathered
+back so that every rank returns the global result, as the reference's
+global arrays do.  Training takes the local plan only (ROADMAP queue 1
+item 5.4).
 """
 from __future__ import annotations
 
@@ -64,28 +68,39 @@ class _Table(nn.Module):
         self.register_parameter(name, empty_param((rows, cols), dtype, device))
 
 
-def _slice_len(s: slice, n: int) -> int:
-    return len(range(n)[s])
-
-
 class LM(nn.Module):
     """Module state: ``embed.table``, ``blocks.{i}.*``, ``final_norm`` and
     (untied heads) ``head.w_head`` — the reference pytree, unstacked.  With
-    a sharding ``plan`` the two vocabulary tables are this rank's shard
-    (``sharding.vocab_slices``); every other weight is whole."""
+    a sharding ``plan`` every parameter is this rank's piece of it, as
+    ``sharding.param_specs`` cuts it; ``specs`` holds each parameter's spec
+    by name, and its owner module keeps the specs of its own leaves
+    (``_specs``), which the blocks read at use (``sharding.leaf``)."""
 
     def __init__(self, cfg: ModelConfig, device=None, plan=None):
         super().__init__()
         dtype = torch_dtype(cfg)
-        rows, cols = sh.vocab_slices(plan, cfg)
-        v = _slice_len(rows, cfg.padded_vocab)
-        dv = _slice_len(cols, cfg.d_model)
-        self.embed = _Table("table", v, dv, dtype, device)
+        meta = torch.device("meta")
+        self.embed = _Table("table", cfg.padded_vocab, cfg.d_model, dtype,
+                            meta)
         self.blocks = nn.ModuleList(
-            blk.Block(cfg, kind, dtype, device) for kind in cfg.layer_pattern)
-        self.final_norm = empty_param((cfg.d_model,), dtype, device)
+            blk.Block(cfg, kind, dtype, meta) for kind in cfg.layer_pattern)
+        self.final_norm = empty_param((cfg.d_model,), dtype, meta)
         if not cfg.tie_embeddings:
-            self.head = _Table("w_head", v, dv, dtype, device)
+            self.head = _Table("w_head", cfg.padded_vocab, cfg.d_model, dtype,
+                               meta)
+        meshed = plan is not None and plan.mesh is not None
+        self.specs = sh.param_specs(plan, {
+            n: tuple(p.shape) for n, p in self.named_parameters()}) \
+            if meshed else {}
+        # materialise this rank's pieces on the device
+        for name, p in list(self.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(owner) if owner else self
+            spec = self.specs.get(name)
+            shape = sh.local_shape(plan, spec, p.shape)
+            setattr(mod, leaf, empty_param(shape, p.dtype, device))
+            if sh.sharded(spec):
+                mod.__dict__.setdefault("_specs", {})[leaf] = spec
 
     def head_table(self) -> torch.Tensor:
         return self.head.w_head if hasattr(self, "head") else self.embed.table
@@ -102,24 +117,32 @@ def _flat(tree: Dict[str, Any], prefix: str = ""):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> LM:
+                device=None, plan=None) -> LM:
     """Random weights with the reference's distribution (truncated-normal
     fan-in init, zero norm scales, unit-std embedding; each block as
     ``blocks.block_params`` draws it), drawn from ``generator``, which
-    must live on ``device`` (default CUDA)."""
+    must live on ``device`` (default CUDA).  With a sharding ``plan`` each
+    rank draws the same global weights, a block at a time, and keeps its
+    pieces (``LM``), so every plan serves the same model."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
-    model = LM(cfg, dev)
+    model = LM(cfg, dev, plan)
     kw = dict(generator=generator, dtype=dtype, device=dev)
+
+    def put(name, t):
+        model.get_parameter(name).copy_(sh.cut(plan, model.specs.get(name),
+                                               t))
+
     with torch.no_grad():
-        model.embed.table.copy_(dense_init(model.embed.table.shape,
-                                           scale=1.0, **kw))
-        for b in model.blocks:
+        put("embed.table", dense_init((cfg.padded_vocab, cfg.d_model),
+                                      scale=1.0, **kw))
+        for i, b in enumerate(model.blocks):
             for name, t in _flat(blk.block_params(cfg, b.kind, **kw)):
-                b.get_parameter(name).copy_(t)
+                put(f"blocks.{i}.{name}", t)
         model.final_norm.zero_()
         if not cfg.tie_embeddings:
-            model.head.w_head.copy_(dense_init(model.head.w_head.shape, **kw))
+            put("head.w_head", dense_init((cfg.padded_vocab, cfg.d_model),
+                                          **kw))
     return model
 
 
@@ -157,11 +180,14 @@ def _stack(trees):
 
 
 def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
-               mode: str = "prefill", write_mask=None, plan=None):
+               mode: str = "prefill", write_mask=None, plan=None,
+               sp: bool = False):
     """x: (B, S, D).  Returns (x, caches): prefill builds stacked K/V
     caches, decode and chunk update ``caches`` in place.  ``"train"``
     builds none and returns (x, aux), the MoE load losses of all blocks
-    summed in float32.
+    summed in float32.  With ``sp`` (``blocks.sp_enabled``, prefill under
+    a plan) ``x`` and the returned x are this rank's block of the
+    sequence: the Megatron-SP residual stream.
 
     In train with ``cfg.remat`` "dots" or "full", each block runs under
     non-reentrant ``torch.utils.checkpoint``: its activations are dropped
@@ -170,10 +196,8 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
     with ``dots_with_no_batch_dims_saveable`` for "dots"; PyTorch has no
     such policy, so "dots" recomputes the products too.  The gradients
     are the same either way; only memory and time differ."""
-    if blk.sp_enabled(cfg, plan, x.shape[1], mode):
-        raise NotImplementedError("the sequence-parallel residual stream "
-                                  "(tp > 1, >= 1 B parameters) is not "
-                                  "ported")
+    if mode == "train":
+        _local_only(plan)
     if mode == "train":
         aux = x.new_zeros((), dtype=torch.float32)
         remat = cfg.remat in ("dots", "full")
@@ -195,7 +219,7 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
         if caches is not None:
             c = _tree_map(lambda t: t[g], caches[name])
         x, nc = blk.apply_block(block, x, positions, cfg, c, mode,
-                                write_mask=write_mask, plan=plan)
+                                write_mask=write_mask, plan=plan, sp=sp)
         if mode == "prefill":
             out.setdefault(name, []).append(nc)
     if mode == "prefill":
@@ -206,9 +230,9 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
 def _local_only(plan) -> None:
     if plan is not None and plan.mesh is not None:
         raise NotImplementedError(
-            "training under a mesh (FSDP/TP parameter sharding, the "
-            "vocab-sharded loss, the SP residual stream) is not ported "
-            "(ROADMAP queue 1 item 5); train on the local plan")
+            "training under a mesh (autograd through the collectives, the "
+            "vocab-sharded loss, sharded optimizer state) is not ported "
+            "(ROADMAP queue 1 item 5.4); train on the local plan")
 
 
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -256,16 +280,19 @@ def prefill_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     frontend = "embeddings" in batch
     B, S = batch["embeddings" if frontend else "tokens"].shape[:2]
     rows = sh.batch_rows(plan, B)
+    sp = blk.sp_enabled(cfg, plan, S, "prefill")
     if frontend:
         x = batch["embeddings"][rows].to(torch_dtype(cfg))
+        if sp:
+            x = sh.own_block(plan, x, plan.model_axis, 1)
     else:
-        sp = blk.sp_enabled(cfg, plan, S, "prefill")
         x = emb.embed_lookup(model.embed.table, batch["tokens"][rows], cfg,
                              plan, seq_sharded=sp)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     x, caches = run_blocks(model, x, positions, cfg, None, "prefill",
-                           plan=plan)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+                           plan=plan, sp=sp)
+    x = blk.sp_gather(x, plan, sp)
+    x = rms_norm(x, sh.leaf(model, "final_norm", plan), cfg.norm_eps)
     if "lengths" in batch:
         idx = batch["lengths"][rows].long() - 1
         last = x[torch.arange(x.shape[0], device=x.device), idx]
@@ -289,11 +316,12 @@ def decode_fn(model: LM, caches, token, pos, cfg: ModelConfig, plan=None,
         token = token[rows]
         pos = pos[rows] if pos.dim() == 1 else pos
         write_mask = None if write_mask is None else write_mask[rows]
-    x = emb.embed_lookup(model.embed.table, token, cfg, plan)
+    x = emb.embed_lookup(model.embed.table, token, cfg, plan,
+                         seq_sharded=False)
     positions = (pos[None] if pos.dim() == 0 else pos).to(torch.int32)
     x, caches = run_blocks(model, x, positions, cfg, caches, "decode",
                            write_mask=write_mask, plan=plan)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    x = rms_norm(x, sh.leaf(model, "final_norm", plan), cfg.norm_eps)
     nxt = emb.greedy_sample(x[:, -1], model.head_table(), cfg, plan)
     return sh.gather_batch(plan, nxt, B), caches
 
@@ -337,7 +365,7 @@ def decode_block_fn(model: LM, caches, tokens, positions, alive, remaining,
 
 
 def prefill_chunk_fn(model: LM, caches, tokens, qpos, last_idx,
-                     cfg: ModelConfig):
+                     cfg: ModelConfig, plan=None):
     """One chunk of a chunked prefill for a single slot.
 
     tokens: (1, C) int32 chunk token ids (pad rows 0); qpos: (1, C) int32
@@ -347,14 +375,17 @@ def prefill_chunk_fn(model: LM, caches, tokens, qpos, last_idx,
     ``pages`` leaves are the slot's page-table row ((num_groups, 1, maxp))
     over the shared kp/vp pools, which the chunk's rows are written into
     in place.  Needs a paged stack of full-attention layers (the engine
-    gates chunking on that).  Returns (next_token (1,), caches).
+    gates chunking on that).  Under a recipe (``plan``) every rank runs
+    the one slot's chunk on its weight pieces against its copy of the
+    pools.  Returns (next_token (1,), caches).
     """
-    x = emb.embed_lookup(model.embed.table, tokens, cfg)
+    x = emb.embed_lookup(model.embed.table, tokens, cfg, plan,
+                         seq_sharded=False)
     x, caches = run_blocks(model, x, qpos.to(torch.int32), cfg, caches,
-                           "chunk")
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+                           "chunk", plan=plan)
+    x = rms_norm(x, sh.leaf(model, "final_norm", plan), cfg.norm_eps)
     last = x[torch.arange(x.shape[0], device=x.device), last_idx.long()]
-    return emb.greedy_sample(last, model.head_table(), cfg), caches
+    return emb.greedy_sample(last, model.head_table(), cfg, plan), caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -379,16 +410,14 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     recurrent state per slot (no track).
 
     Under a recipe (``plan``) the caches are this rank's: its batch rows
-    and, over the sequence axes, its block of each dense strip."""
+    and, over the sequence axes, its block of each dense strip (the paged
+    pools and page tables whole, as the engine's host state is)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     ng = num_groups(cfg)
     if plan is not None:
         rows = sh.batch_rows(plan, batch)
         batch = rows.stop - rows.start
-        if paged and plan.mesh is not None and plan.seq_axes:
-            raise NotImplementedError("paged KV under a sequence-sharded "
-                                      "plan is not ported")
     if paged:
         per_slot = True
         if num_pages is None:

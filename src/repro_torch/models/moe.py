@@ -1,14 +1,18 @@
-"""Mixture-of-Experts FFN (port of the single-device half of
-``repro/models/moe.py``).
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``).
 
 ``dense_moe`` is the reference's oracle and single-device path: every
 expert runs on every token and the outputs are combined by the router's
 gates, zero for the experts a token was not routed to.  It costs O(E) in
 operations and reads every expert's weights on every call; routing tokens
-only to their experts (grouped products) is later work, as is the
-reference's expert-parallel path (``ep_moe_local``, ``ep_moe_decode_local``
-and ``_dispatch_indices``), which ships tokens over ``all_to_all`` to the
-rank that owns the expert.
+only to their experts (grouped products) is later work.
+
+Expert parallelism over the model axis (each rank holds E / tp experts):
+``ep_moe_local`` ships each rank's tokens (small) over ``all_to_all`` to
+the rank that owns their expert (big), in capacity-bounded per-expert
+buffers (``_dispatch_indices``), and only the FFN outputs come back;
+``ep_moe_decode_local`` runs each rank's own experts on every token and
+sums over the model axis, which at a few tokens a rank moves fewer bytes
+than the index traffic would.
 
 Parameters keep the reference's layouts and dtypes: ``router`` (D, E) in
 float32 whatever the model dtype, ``we_gate`` / ``we_up`` (E, D, F),
@@ -22,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import dense_init
 
@@ -106,3 +111,83 @@ def dense_moe(params: Dict[str, torch.Tensor], x: torch.Tensor,
                    gates.reshape(-1, m.top_k))
     y = torch.einsum("te,etd->td", w.to(x.dtype), outs)
     return y.reshape(shape), aux_load_loss(probs, experts, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+
+def _dispatch_indices(experts, gates, num_experts: int, capacity: int):
+    """Flatten (T, k) assignments into per-expert slots.  Returns (e_idx
+    (T*k,), slot (T*k,), keep (T*k,), gate (T*k,)): ``slot`` is the
+    assignment's place in its expert's buffer, in token order; past the
+    capacity it is dropped (``keep`` false, slot 0)."""
+    ef = experts.reshape(-1)
+    gf = gates.reshape(-1)
+    onehot = F.one_hot(ef, num_experts)                          # (T*k, E)
+    pos = torch.cumsum(onehot, dim=0) - onehot                   # exclusive
+    slot = pos.gather(1, ef[:, None])[:, 0]
+    keep = slot < capacity
+    return ef, torch.where(keep, slot, torch.zeros_like(slot)), keep, gf
+
+
+def ep_moe_local(params, x_local, cfg: ModelConfig, plan):
+    """One rank's part of the expert-parallel MoE (the reference's
+    shard_map body).  x_local: (T, D), this rank's tokens; ``params``: the
+    router whole and the expert stacks split on E over the model axis.
+    Returns (y (T, D), aux load loss averaged over the model axis)."""
+    m = cfg.moe
+    model = plan.model_axis
+    ep = plan.axis_size(model)
+    t_local, d = x_local.shape
+    capacity = max(1, int(t_local * m.top_k * m.capacity_factor
+                          / m.num_experts))
+
+    gates, experts, probs = _router(params["router"], x_local, cfg)
+    aux = sh.all_reduce(plan, aux_load_loss(probs, experts, cfg), model) / ep
+    e_idx, slot, keep, gate = _dispatch_indices(experts, gates,
+                                                m.num_experts, capacity)
+    # scatter the tokens into the (E, C, D) send buffer
+    xk = x_local.repeat_interleave(m.top_k, dim=0)               # (T*k, D)
+    buf = x_local.new_zeros((m.num_experts, capacity, d))
+    buf.index_put_((e_idx, slot), torch.where(keep[:, None], xk,
+                                              torch.zeros_like(xk)),
+                   accumulate=True)
+    # to the experts' ranks: (ep, E/ep, C, D) by source rank, then each
+    # local expert's rows of every source side by side
+    e_local = m.num_experts // ep
+    got = sh.all_to_all(plan, buf, model)
+    got = got.view(ep, e_local, capacity, d).transpose(0, 1).reshape(
+        e_local, ep * capacity, d)
+    y = _expert_ffn(params["we_gate"], params["we_up"], params["we_down"],
+                    got)
+    # and back: each source's rows of every local expert
+    y = y.view(e_local, ep, capacity, d).transpose(0, 1).contiguous()
+    y = sh.all_to_all(plan, y, model).view(m.num_experts, capacity, d)
+    rows = y[e_idx, slot]                                        # (T*k, D)
+    rows = torch.where(keep[:, None], rows, torch.zeros_like(rows))
+    rows = rows * gate[:, None].to(rows.dtype)
+    return rows.reshape(t_local, m.top_k, d).sum(dim=1), aux
+
+
+def ep_moe_decode_local(params, x, cfg: ModelConfig, plan):
+    """Decode-time expert parallelism: the same tokens x (T, D) on every
+    rank of the model axis; each rank runs only its own experts, masked by
+    the gates of the assignments it owns, and the outputs are summed over
+    the model axis (no all_to_all)."""
+    m = cfg.moe
+    model = plan.model_axis
+    e_local = m.num_experts // plan.axis_size(model)
+    lo = sh.axis_index(plan, model) * e_local
+    t, d = x.shape
+    gates, experts, _ = _router(params["router"], x, cfg)        # (T, k)
+    owned = (experts >= lo) & (experts < lo + e_local)
+    e_rel = torch.clamp(experts - lo, 0, e_local - 1)
+    w = torch.zeros((t, e_local), dtype=torch.float32, device=x.device)
+    w.scatter_add_(1, e_rel, torch.where(owned, gates,
+                                         torch.zeros_like(gates)))
+    outs = _expert_ffn(params["we_gate"], params["we_up"], params["we_down"],
+                       x[None].expand((e_local,) + tuple(x.shape)))
+    y = torch.einsum("te,etd->td", w.to(x.dtype), outs)
+    return sh.all_reduce(plan, y, model)

@@ -7,6 +7,21 @@ paper's in-storage data: at decode time the state never leaves the card.
 The reference has no Pallas kernel here, so neither does the port: these
 are plain tensor code on every device, and no launch is counted.
 
+Under a sharding recipe the leaves are stored as ``sharding.param_specs``
+cuts them (TP on the channel and projection dims, FSDP on the others), and
+Mamba's ``conv`` / ``ssm`` caches hold this rank's channels, as the
+reference's ``_cache_leaf_spec`` lays them out (the xLSTM states are
+whole).  The mixers take the second of the two routes a port could take:
+each leaf is gathered whole at use, every rank runs the whole recurrence
+on its batch rows, and a rank keeps only its channels of the Mamba state
+(gathered back whole at the next decode step).  Channel-parallel compute
+would not stay per channel: Mamba's ``w_x`` contracts all d_in channels
+into dt, B and C, ``w_in``'s split puts x on one rank and its gate z on
+the other, mLSTM's output norm spans d_in and sLSTM's recurrence mixes
+every gate of a head; each would need its own collective inside the
+recurrence, where these mixers are small.  The output is whole on every
+rank (no partial sum).
+
 Numerics:
   * Mamba: selective scan, chunk by chunk with the state carried across
     chunks, as the reference's ``lax.scan``; inside a chunk a doubling
@@ -39,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.models.layers import dense_init, empty_param, rms_norm
 
@@ -69,6 +85,33 @@ def _write_state(cache, new: Dict[str, torch.Tensor]):
     for name, t in new.items():
         cache[name].copy_(t)
     return cache
+
+
+class _Whole:
+    """A mixer's leaves at use, each gathered whole over the mesh
+    (``sharding.leaf``)."""
+
+    def __init__(self, p, plan):
+        self._p, self._plan = p, plan
+
+    def __getattr__(self, name):
+        return sh.leaf(self._p, name, self._plan, full=True)
+
+
+def _whole(p, plan):
+    return p if plan is None or plan.mesh is None else _Whole(p, plan)
+
+
+def _channels(plan, t, dim: int, d_in: int, gather: bool):
+    """Mamba state leaf ``t`` between its whole channels (``gather``: this
+    rank's block all-gathered over the model axis) and this rank's block
+    (the model axis splits the d_in channels where it divides them)."""
+    lo, hi = sh.tp_split(plan, d_in)
+    if hi - lo == d_in:
+        return t
+    if gather:
+        return sh.all_gather(plan, t, plan.model_axis, dim)
+    return t.narrow(dim, lo, hi - lo)
 
 
 # ---------------------------------------------------------------------------
@@ -138,23 +181,30 @@ def doubling_scan(a, b, inplace: bool = True):
 
 
 def mamba_apply(p: Mamba, x, cfg: ModelConfig, cache: Optional[Dict] = None,
-                mode: str = "prefill"):
+                mode: str = "prefill", plan=None):
     """x: (B, S, D).  Cache: {"conv": (B, W-1, d_in) model dtype, "ssm":
-    (B, d_in, N) float32}.  prefill starts from ``cache`` (zeros without
-    one) and returns the state after the last row; decode (S = 1) updates
-    ``cache`` in place; train is prefill out of place, with no state
-    returned.  Returns (out (B, S, D), new_cache)."""
+    (B, d_in, N) float32}, this rank's channels under a ``plan``.  prefill
+    starts from ``cache`` (zeros without one) and returns the state after
+    the last row; decode (S = 1) updates ``cache`` in place; train is
+    prefill out of place, with no state returned.  Returns (out (B, S, D),
+    new_cache)."""
     s = cfg.ssm
     B, S, D = x.shape
     d_in = s.expand * D
     N, W = s.state_dim, s.conv_width
+    p = _whole(p, plan)
+    if cache is not None:
+        whole = {"conv": _channels(plan, cache["conv"], 2, d_in, True),
+                 "ssm": _channels(plan, cache["ssm"], 1, d_in, True)}
+    else:
+        whole = None
 
     xz = _mm(x, p.w_in)
     xs, z = xz[..., :d_in], xz[..., d_in:]
     if mode == "decode":
         if cache is None:
             raise ValueError("decode needs a cache")
-        conv_in = torch.cat([cache["conv"], xs], dim=1)      # (B, W, d_in)
+        conv_in = torch.cat([whole["conv"], xs], dim=1)      # (B, W, d_in)
         new_conv = conv_in[:, 1:]
     else:
         conv_in = F.pad(xs, (0, 0, W - 1, 0))
@@ -173,7 +223,7 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     a = -torch.exp(p.a_log)                                   # (d_in, N)
     xdt = dt * xc.float()
 
-    h0 = cache["ssm"].float() if cache is not None else x.new_zeros(
+    h0 = whole["ssm"].float() if cache is not None else x.new_zeros(
         (B, d_in, N), dtype=torch.float32)
     if mode == "decode":
         h = torch.exp(dt[:, 0, :, None] * a) * h0 \
@@ -204,15 +254,18 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     out = _mm(y.to(x.dtype), p.w_out)
     if mode == "train":
         return out, None
-    new = {"conv": new_conv.to(x.dtype), "ssm": h_last.float()}
+    new = {"conv": _channels(plan, new_conv.to(x.dtype), 2, d_in, False),
+           "ssm": _channels(plan, h_last.float(), 1, d_in, False)}
     if mode == "decode":
         return out, _write_state(cache, new)
     return out, new
 
 
-def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device):
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device,
+                     plan=None):
     s = cfg.ssm
-    d_in = s.expand * cfg.d_model
+    lo, hi = sh.tp_split(plan, s.expand * cfg.d_model)
+    d_in = hi - lo
     return {"conv": torch.zeros((batch, s.conv_width - 1, d_in), dtype=dtype,
                                 device=device),
             "ssm": torch.zeros((batch, d_in, s.state_dim),
@@ -314,7 +367,7 @@ def _mlstm_chunk(state, q, k, v, li, lf):
 
 
 def mlstm_apply(p: MLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
-                mode: str = "prefill"):
+                mode: str = "prefill", plan=None):
     """xLSTM mLSTM block core (pre-up-projection).  Cache: {"C" (B, nh, dh,
     dh), "n" (B, nh, dh), "m" (B, nh)}, all float32.  prefill pads the
     prompt to whole chunks with input gates of -1e30 (the pads are no-ops
@@ -325,6 +378,7 @@ def mlstm_apply(p: MLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     d_in = s.expand * D
     nh = s.num_heads
     dh = d_in // nh
+    p = _whole(p, plan)
 
     up = _mm(x, p.w_up)
     xin, gate = up[..., :d_in], up[..., d_in:]
@@ -441,7 +495,7 @@ def _slstm_step(r_h, nh: int, dh: int, carry, x_t):
 
 
 def slstm_apply(p: SLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
-                mode: str = "prefill"):
+                mode: str = "prefill", plan=None):
     """sLSTM core and its gelu up-projection.  Cache: {"c", "n", "m", "h"},
     each (B, nh, dh) float32.  prefill steps through the S rows one by one
     (the reference's padded steps keep the carry, so stopping at S is the
@@ -450,6 +504,7 @@ def slstm_apply(p: SLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
     B, S, D = x.shape
     nh = s.num_heads
     dh = D // nh
+    p = _whole(p, plan)
     xg = _mm(x, p.w_x).float() + p.bias                     # (B, S, 4d)
     if cache is not None:
         carry = (cache["c"], cache["n"], cache["m"], cache["h"])

@@ -7,28 +7,43 @@
 own piece, and the helpers below say which piece and over which process
 group a collective runs:
 
+  param_specs / leaf_spec  the reference's ``_RULES``: which dimension of
+                           each parameter is split over the model axis
+                           (TP: heads, d_ff, experts, vocabulary) and which
+                           over the FSDP axis (storage), keyed on the
+                           parameter's last name; ``cut`` takes this rank's
+                           piece of a global array by such a spec;
   axis_index / axis_group  this rank's coordinate on, and the group of, an
                            axis or a tuple of axes;
   shard_range              this rank's block of a dimension split over axes
                            (the whole dimension where they do not divide it,
                            as the reference replicates then);
+  all_reduce / all_gather / reduce_scatter / all_to_all
+                           the collectives the blocks run over an axis
+                           group (no-ops over one rank);
+  leaf                     a module's parameter at use: its FSDP pieces
+                           all-gathered (the model-axis split kept, unless
+                           the caller wants the whole leaf);
   vocab_slices             the rows (model axis) and columns (FSDP axis) of
                            a vocabulary table this rank stores;
   gather_batch             per-rank batch rows back to the global batch.
 
 Axis roles:
-  data axis ("data")   — batch / FSDP storage sharding
-  model axis ("model") — vocabulary (table and head), KV spans at decode
+  data axes ("data")   — batch / FSDP storage sharding
+  model axis ("model") — TP (heads, d_ff, vocabulary), EP (experts), SP
+                         (the sequence of the residual stream in prefill),
+                         KV spans at decode
 
-Only the vocabulary tables are sharded in this port; every block weight is
-replicated on each rank, which computes the same function as the
-reference's GSPMD layout of the blocks.
+Every block weight is stored as ``param_specs`` cuts it, and the blocks
+compute on their pieces (``models/``): column-parallel inputs, a
+row-parallel output reduced over the model axis, experts by rank.
 """
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -36,6 +51,7 @@ import torch.distributed as dist
 from repro_torch.config import ModelConfig, ShapeConfig
 
 Axes = Union[str, Tuple[str, ...]]
+Spec = Tuple[Optional[Axes], ...]      # one entry (axis, axes or None) a dim
 
 
 def _axes(axes: Optional[Axes]) -> Tuple[str, ...]:
@@ -49,7 +65,8 @@ class ParallelPlan:
     mesh: Optional[object] = None            # torch DeviceMesh
     data_axes: Tuple[str, ...] = ()          # ("data",)
     model_axis: Optional[str] = None         # "model"
-    fsdp: bool = False                       # shard vocab columns over data
+    fsdp: bool = False                       # shard params over data
+    ep: bool = True                          # expert parallelism for MoE
     # process groups of axis tuples, made at first use
     _groups: Dict[Tuple[str, ...], object] = field(
         default_factory=dict, compare=False, repr=False, hash=False)
@@ -60,16 +77,40 @@ class ParallelPlan:
         return self.mesh.size(self.mesh.mesh_dim_names.index(name))
 
     @property
-    def fsdp_axis(self) -> Optional[str]:
-        # the innermost data axis, so that a leading "pod" axis would stay
-        # pure data parallelism (the ISP rule for slow links)
-        return self.data_axes[-1] if self.fsdp and self.data_axes else None
+    def fsdp_axis(self) -> Optional[Axes]:
+        # a "pod" axis stays pure data parallelism (the ISP rule for slow
+        # links); without a model axis the parameters shard over every
+        # other data axis, else over the innermost one
+        if not (self.fsdp and self.data_axes):
+            return None
+        inner = tuple(a for a in self.data_axes if a != "pod")
+        if self.model_axis is None and len(inner) > 1:
+            return inner
+        return self.data_axes[-1]
+
+    def _fits(self, dim: int, axis: Optional[Axes]) -> bool:
+        n = math.prod(self.axis_size(a) for a in _axes(axis))
+        return axis is not None and n > 1 and dim % n == 0
+
+    def shard_dims(self, shape: Sequence[int], prefs) -> Spec:
+        """prefs: ordered [(dim, axis)]; the first fit per dim and axis
+        wins, as in the reference."""
+        if self.mesh is None:
+            return (None,) * len(shape)
+        assign: Dict[int, Axes] = {}
+        used = set()
+        for dim, axis in prefs:
+            if dim < len(shape) and axis not in used and dim not in assign \
+                    and self._fits(shape[dim], axis):
+                assign[dim] = axis
+                used.add(axis)
+        return tuple(assign.get(i) for i in range(len(shape)))
 
 
 def make_plan(mesh, cfg: Optional[ModelConfig] = None, *,
               fsdp: Optional[bool] = None) -> ParallelPlan:
-    """The mesh's "model" axis holds the vocabulary and the KV spans; every
-    other axis is a data axis."""
+    """The mesh's "model" axis holds TP, EP, SP, the vocabulary and the KV
+    spans; every other axis is a data axis."""
     if mesh is None:
         return ParallelPlan()
     axes = tuple(mesh.mesh_dim_names)
@@ -134,6 +175,10 @@ class ShardingRecipe:
     def fsdp_axis(self):
         return self.plan.fsdp_axis
 
+    @property
+    def ep(self):
+        return self.plan.ep
+
     def axis_size(self, name: Optional[str]) -> int:
         return self.plan.axis_size(name)
 
@@ -152,6 +197,87 @@ def make_recipe(plan: ParallelPlan, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Parameter specs by name (the reference's _RULES)
+# ---------------------------------------------------------------------------
+
+# leaf-name regex -> preference list builder(shape) -> [(dim, role)]; roles:
+# "tp" = the model axis, "fsdp" = the FSDP data axis.  The port's parameters
+# are unstacked (one per layer), so dims index the reference's unstacked
+# shape directly.
+_RULES = [
+    # embeddings / output head: vocab over model, d_model over data
+    (r"(table|w_head)$", lambda s: [(0, "tp"), (1, "fsdp")]),
+    # attention projections
+    (r"wq$", lambda s: [(1, "tp"), (0, "fsdp")]),
+    (r"(wk|wv)$", lambda s: [(1, "tp"), (0, "fsdp")]),
+    (r"wo$", lambda s: [(0, "tp"), (2, "fsdp")]),
+    # MLA projections
+    (r"(wq_b|wk_b|wv_b)$", lambda s: [(1, "tp"), (0, "fsdp")]),
+    (r"(wq_a|wkv_a)$", lambda s: [(0, "fsdp")]),
+    # MLPs (swiglu + xlstm/ssm projections)
+    (r"(w_gate|w_up|ws_gate|ws_up|w_in|w_pf1|w_x)$",
+     lambda s: [(len(s) - 1, "tp"), (0, "fsdp")]),
+    (r"(w_down|ws_down|w_out|w_pf2|w_dt)$",
+     lambda s: [(0, "tp"), (len(s) - 1, "fsdp")]),
+    # MoE experts: E over model, D over data
+    (r"(we_gate|we_up|we_down)$", lambda s: [(0, "tp"), (1, "fsdp")]),
+    (r"router$", lambda s: []),
+    # mamba/xlstm channel-wise tensors: shard channel dim over model
+    (r"(conv_w|conv_b|a_log|d_skip|dt_bias)$",
+     lambda s: [(len(s) - 1 if s[-1] > 64 else 0, "tp")]),
+    (r"w_if$", lambda s: [(0, "tp")]),
+]
+
+
+def leaf_spec(plan, name: str, shape: Sequence[int]) -> Spec:
+    """Spec of the parameter ``name`` (a dotted state-dict name; the rules
+    key on its last part) of global ``shape``: the reference's
+    ``_leaf_spec`` on the unstacked leaf."""
+    base = _base(plan)
+    leaf = name.rsplit(".", 1)[-1]
+    for pat, prefs_fn in _RULES:
+        if re.search(pat, leaf):
+            prefs = [(dim, base.model_axis if role == "tp"
+                      else base.fsdp_axis)
+                     for dim, role in prefs_fn(tuple(shape))]
+            return base.shard_dims(shape, prefs)
+    # default: replicate; fsdp models shard the largest divisible dim over
+    # data
+    if base.fsdp_axis and len(shape) > 0:
+        dims = sorted(range(len(shape)), key=lambda i: -shape[i])
+        return base.shard_dims(shape, [(dims[0], base.fsdp_axis)])
+    return (None,) * len(shape)
+
+
+def param_specs(plan, shapes: Dict[str, Sequence[int]]) -> Dict[str, Spec]:
+    """``leaf_spec`` of every parameter, by name."""
+    return {name: leaf_spec(plan, name, shape)
+            for name, shape in shapes.items()}
+
+
+def sharded(spec: Optional[Spec]) -> bool:
+    return spec is not None and any(a is not None for a in spec)
+
+
+def local_shape(plan, spec: Optional[Spec], shape: Sequence[int]
+                ) -> Tuple[int, ...]:
+    """The shape of this rank's piece of a leaf of global ``shape``."""
+    if not sharded(spec):
+        return tuple(shape)
+    return tuple(n // axes_size(plan, a) if a is not None else n
+                 for n, a in zip(shape, spec))
+
+
+def cut(plan, spec: Optional[Spec], arr):
+    """This rank's piece of the global array ``arr`` (numpy or torch)."""
+    if not sharded(spec):
+        return arr
+    idx = tuple(slice(*shard_range(plan, a, n)) if a is not None
+                else slice(None) for n, a in zip(arr.shape, spec))
+    return arr[idx]
+
+
+# ---------------------------------------------------------------------------
 # This rank's piece
 # ---------------------------------------------------------------------------
 
@@ -161,6 +287,8 @@ def _base(plan) -> ParallelPlan:
 
 
 def axes_size(plan, axes: Optional[Axes]) -> int:
+    if plan is None:
+        return 1
     return math.prod(plan.axis_size(a) for a in _axes(axes))
 
 
@@ -213,6 +341,113 @@ def shard_range(plan, axes: Optional[Axes], n: int) -> Tuple[int, int]:
     return i * b, (i + 1) * b
 
 
+def tp_split(plan, n: int) -> Tuple[int, int]:
+    """This rank's block of a dimension of ``n`` split over the model axis
+    (all of it where the axis does not divide it)."""
+    if plan is None or plan.mesh is None:
+        return 0, n
+    return shard_range(plan, plan.model_axis, n)
+
+
+# ---------------------------------------------------------------------------
+# Collectives over an axis group
+# ---------------------------------------------------------------------------
+
+
+def _size(plan, axes) -> int:
+    if plan is None or plan.mesh is None or not _axes(axes):
+        return 1
+    return axes_size(plan, axes)
+
+
+def all_reduce(plan, x: torch.Tensor, axes, op=dist.ReduceOp.SUM
+               ) -> torch.Tensor:
+    """The sum (or ``op``) of ``x`` over ``axes``, in place."""
+    if _size(plan, axes) > 1:
+        dist.all_reduce(x, op=op, group=axis_group(plan, axes))
+    return x
+
+
+def all_gather(plan, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` over ``axes``, concatenated along ``dim`` in
+    coordinate order (the reference's tiled ``all_gather``)."""
+    n = _size(plan, axes)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(buf, x, group=axis_group(plan, axes))
+    return torch.cat(buf.chunk(n), dim=dim)
+
+
+def reduce_scatter(plan, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``x`` over ``axes``
+    (the reference's tiled ``psum_scatter``)."""
+    n = _size(plan, axes)
+    if n == 1:
+        return x
+    chunks = torch.stack(x.chunk(n, dim=dim)).contiguous()
+    out = chunks.new_empty(chunks.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), chunks.view(-1),
+                               group=axis_group(plan, axes))
+    return out
+
+
+def own_block(plan, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` over ``axes``."""
+    lo, hi = shard_range(plan, axes, x.shape[dim])
+    return x.narrow(dim, lo, hi - lo)
+
+
+def all_to_all(plan, x: torch.Tensor, axes) -> torch.Tensor:
+    """Block j of ``x``'s first dim goes to the rank of coordinate j over
+    ``axes``; the blocks received come back stacked along the first dim in
+    source order."""
+    if _size(plan, axes) == 1:
+        return x
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=axis_group(plan, axes))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Parameters at use
+# ---------------------------------------------------------------------------
+
+
+def spec_of(module, name: str) -> Optional[Spec]:
+    """The spec a module's parameter ``name`` was stored by (None where it
+    is whole)."""
+    return getattr(module, "_specs", {}).get(name)
+
+
+def split_on_model(plan, module, name: str, dim: int) -> bool:
+    """Whether dimension ``dim`` of the module's parameter is split over
+    the model axis."""
+    spec = spec_of(module, name)
+    return spec is not None and plan is not None and \
+        spec[dim] is not None and spec[dim] == plan.model_axis
+
+
+def leaf(module, name: str, plan, full: bool = False) -> torch.Tensor:
+    """The module's parameter ``name`` at use: every dimension split over
+    the FSDP axis all-gathered (the reference's storage gather), and with
+    ``full`` the model-axis splits too, so the whole leaf."""
+    t = getattr(module, name)
+    spec = spec_of(module, name)
+    if not sharded(spec):
+        return t
+    for dim, a in enumerate(spec):
+        if a is not None and (full or a != plan.model_axis):
+            t = all_gather(plan, t, a, dim)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Batch rows and vocabulary tables
+# ---------------------------------------------------------------------------
+
+
 def batch_rows(plan, n: int) -> slice:
     """This rank's rows of a global batch of ``n``."""
     axes = plan.batch_axes if plan is not None and plan.mesh is not None \
@@ -226,11 +461,7 @@ def gather_batch(plan, local: torch.Tensor, n: int) -> torch.Tensor:
     rows = batch_rows(plan, n)
     if rows.stop - rows.start == n:
         return local
-    size = n // (rows.stop - rows.start)
-    out = local.new_empty((size * local.shape[0],) + tuple(local.shape[1:]))
-    dist.all_gather_into_tensor(out, local.contiguous(),
-                                group=axis_group(plan, plan.batch_axes))
-    return out
+    return all_gather(plan, local, plan.batch_axes, 0)
 
 
 def vocab_sharded(plan, cfg: ModelConfig) -> bool:
@@ -245,16 +476,19 @@ def vocab_sharded(plan, cfg: ModelConfig) -> bool:
 def vocab_slices(plan, cfg: ModelConfig) -> Tuple[slice, slice]:
     """Rows and columns of a (padded_vocab, d_model) vocabulary table that
     this rank stores: rows by model rank, columns by FSDP rank (the
-    reference's ``P(model, fsdp)``); the whole table where the vocabulary
-    is not sharded."""
-    if not vocab_sharded(plan, cfg):
+    reference's ``P(model, fsdp)``), each whole where its axis does not
+    divide it."""
+    if plan is None or plan.mesh is None:
         return slice(None), slice(None)
-    rows = slice(*shard_range(plan, plan.model_axis, cfg.padded_vocab))
-    cols = slice(None)
-    fs = plan.fsdp_axis
-    if fs and plan.axis_size(fs) > 1:
-        if cfg.d_model % plan.axis_size(fs):
-            raise ValueError(f"FSDP axis {fs} ({plan.axis_size(fs)} ranks) "
-                             f"does not divide d_model {cfg.d_model}")
-        cols = slice(*shard_range(plan, fs, cfg.d_model))
-    return rows, cols
+    spec = leaf_spec(plan, "table", (cfg.padded_vocab, cfg.d_model))
+    return tuple(slice(*shard_range(plan, a, n)) if a is not None
+                 else slice(None)
+                 for n, a in zip((cfg.padded_vocab, cfg.d_model), spec))
+
+
+def table_spec(plan, cfg: ModelConfig) -> Optional[Spec]:
+    """The spec of a vocabulary table (None without a mesh)."""
+    if plan is None or plan.mesh is None:
+        return None
+    return leaf_spec(plan, "table", (cfg.padded_vocab, cfg.d_model))
+

@@ -38,6 +38,16 @@ paged-decode kernel on paged layers and the isp-decode kernel on strips
 and rings (``kernels/csrc``); the KV caches and the per-slot device state
 are updated in place where the reference donated buffers.
 
+``recipe`` (a ``sharding.ShardingRecipe``) serves under a mesh, as the
+reference's engine does: every rank runs the same engine on the same
+requests — the host state (page tables, ledgers, scheduler) is the same
+on every rank — over its pieces of the weights and the caches (its slots
+over the batch axes, its block of their strips over the sequence axes;
+the paged pools whole); prefill, the K-block and chunked prefill take the
+recipe.  Prefill builds each slot's whole rows, the bucket's caches are
+gathered over the batch axes, and each rank splices its slots' block of
+them.
+
 ``prewarm`` pays each kernel-launching site's first call before the
 first request (there is no per-shape compile on the card, so
 one call per site warms it); ``jit_donor`` checks that a replica's wiring
@@ -48,6 +58,7 @@ the engine's own ``torch.no_grad()``: grad mode is thread-local.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from collections import deque
@@ -57,6 +68,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
 from repro_torch.core.isp import choose_decode_plan, choose_embedding_plan
 from repro_torch.core.kv_pages import PageAllocator, pages_for
@@ -315,7 +327,8 @@ class ServeEngine:
     path).  The model's weights must live on that device.
     """
 
-    def __init__(self, cfg: ModelConfig, params, max_len: int = 256,
+    def __init__(self, cfg: ModelConfig, params, recipe=None,
+                 max_len: int = 256,
                  eos_id: Optional[int] = None, num_slots: int = 8,
                  bucket_quantum: int = 8, shards: int = 16,
                  admission: Optional[AdmissionController] = None,
@@ -338,6 +351,21 @@ class ServeEngine:
                              f"runs on {self.device}")
         self.cfg = cfg
         self.params = params
+        self.recipe = recipe if recipe is not None and \
+            recipe.mesh is not None else None
+        self._shard = (0, 1)             # (this rank's block, blocks)
+        # this rank's slots (the batch axes split them)
+        self._rows = sh.batch_rows(self.recipe, num_slots)
+        if self.recipe is not None:
+            if self.recipe.seq_axes:
+                self._shard = (sh.axis_index(self.recipe,
+                                             self.recipe.seq_axes),
+                               sh.axes_size(self.recipe,
+                                            self.recipe.seq_axes))
+        # prefill builds whole rows of the sequence; each rank splices its
+        # block of them
+        self._prefill_recipe = None if self.recipe is None else \
+            dataclasses.replace(self.recipe, seq_axes=())
         self.max_len = max_len
         self.eos_id = eos_id
         self.num_slots = num_slots
@@ -350,13 +378,15 @@ class ServeEngine:
             # replicas share the donor's warm sites and its built kernels
             # (the libraries are loaded once a process), which holds only
             # if the wiring is identical
-            same = (jit_donor.cfg == cfg and jit_donor.k_block == self.k_block
+            same = (jit_donor.cfg == cfg and jit_donor.recipe is self.recipe
+                    and jit_donor.k_block == self.k_block
                     and jit_donor.eos_id == eos_id
                     and jit_donor.max_len == max_len
                     and jit_donor.device == self.device)
             if not same:
                 raise ValueError(
-                    "jit_donor wiring (cfg/k_block/eos_id/max_len/device) "
+                    "jit_donor wiring (cfg/recipe/k_block/eos_id/max_len/"
+                    "device) "
                     "differs from this engine; replicas must be identical")
         self.kv_layout = kv_layout if self._has_paged_layers() else "strip"
         self.page_size = max(page_size, 1)
@@ -377,7 +407,8 @@ class ServeEngine:
             self.caches = M.init_caches(cfg, num_slots, max_len, paged=True,
                                         page_size=self.page_size,
                                         num_pages=num_pages,
-                                        device=self.device)
+                                        device=self.device,
+                                        plan=self.recipe)
             # the single device copy of the page table; every paged group's
             # ``pages`` leaf is a view of it, so row updates reach all
             # layers at once
@@ -390,7 +421,8 @@ class ServeEngine:
             self.page_table = None
             self._pages_dev = None
             self.caches = M.init_caches(cfg, num_slots, max_len,
-                                        per_slot=True, device=self.device)
+                                        per_slot=True, device=self.device,
+                                        plan=self.recipe)
         # per-slot decode state of the fused block, updated in place at
         # admission/finish and round-tripped through the block
         dev = self.device
@@ -452,11 +484,11 @@ class ServeEngine:
     def _sync_pages_leaves(self) -> None:
         """Point every paged group's ``pages`` leaf at (a view of) the
         device page table."""
+        mine = self._pages_dev[self._rows]
         for g, cache in self.caches.items():
             if "pages" in cache:
                 ng = cache["pages"].shape[0]
-                cache["pages"] = self._pages_dev[None].expand(
-                    (ng,) + tuple(self._pages_dev.shape))
+                cache["pages"] = mine[None].expand((ng,) + tuple(mine.shape))
 
     def _set_pages_rows(self, slot_ids: List[int]) -> None:
         """Copy the host table's rows for ``slot_ids`` to the device table."""
@@ -544,14 +576,15 @@ class ServeEngine:
         zeros = torch.zeros(n, dtype=torch.int32, device=self.device)
         with torch.no_grad():
             M.decode_fn(self.params, self.caches, zeros[:, None], zeros,
-                        self.cfg, write_mask=zeros.bool())
+                        self.cfg, self.recipe, write_mask=zeros.bool())
             self._warm_keys.add(("decode_block",) if self.k_block > 1
                                 else ("decode",))
             padded = self._bucket_len(1)
             M.prefill_fn(self.params, {
                 "tokens": torch.zeros((n, padded), dtype=torch.int32,
                                       device=self.device),
-                "lengths": torch.ones_like(zeros)}, self.cfg)
+                "lengths": torch.ones_like(zeros)}, self.cfg,
+                self._prefill_recipe)
             self._warm_keys.add(("prefill",))
             if self.chunk_prefill is not None:
                 c = self.chunk_prefill
@@ -562,7 +595,7 @@ class ServeEngine:
                                 device=self.device),
                     torch.full((1, c), -1, dtype=torch.int32,
                                device=self.device),
-                    zeros[:1], self.cfg)
+                    zeros[:1], self.cfg, self.recipe)
                 self._warm_keys.add(("chunk",))
             self._sync()
         dt = time.perf_counter() - t0
@@ -854,13 +887,17 @@ class ServeEngine:
             lens[i] = lengths[i]
         t0 = time.perf_counter()
         batch = {"tokens": self._dev(tokens), "lengths": self._dev(lens)}
-        nxt, pre_caches = M.prefill_fn(self.params, batch, self.cfg)
+        nxt, pre_caches = M.prefill_fn(self.params, batch, self.cfg,
+                                       self._prefill_recipe)
         nxt = nxt.cpu().numpy()
         t1 = time.perf_counter()
         dt = self._serving_time(("prefill",), t1 - t0)
+        if self._rows.stop - self._rows.start < self.num_slots:
+            pre_caches = _gather_rows(self.recipe, pre_caches)
         self.caches = _splice_slots(self.caches, pre_caches,
                                     [s.index for s in group], lengths,
-                                    self.page_table, self.page_size)
+                                    self.page_table, self.page_size,
+                                    self._shard, self._rows)
         del pre_caches
         self._sync()
         dt += time.perf_counter() - t1
@@ -906,7 +943,7 @@ class ServeEngine:
                                     self._dev(qpos),
                                     self._dev(np.asarray([real - 1],
                                                          np.int32)),
-                                    self.cfg)
+                                    self.cfg, self.recipe)
         nxt = nxt.cpu().numpy()
         dt = self._serving_time(("chunk",), time.perf_counter() - t0)
         self.clock += dt
@@ -952,7 +989,8 @@ class ServeEngine:
         t0 = time.perf_counter()
         nxt, self.caches = M.decode_fn(self.params, self.caches,
                                        self._dev(tokens),
-                                       self._dev(positions), self.cfg)
+                                       self._dev(positions), self.cfg,
+                                       self.recipe)
         nxt = nxt.cpu().numpy()
         dt = self._serving_time(("decode",), time.perf_counter() - t0)
         self.stats.decode_s += dt
@@ -989,7 +1027,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         out = M.decode_block_fn(self.params, self.caches, self._tok_dev,
                                 self._pos_dev, self._alive_dev,
-                                self._rem_dev, self.cfg,
+                                self._rem_dev, self.cfg, self.recipe,
                                 k_steps=self.k_block, eos_id=self.eos_id,
                                 max_len=self.max_len)
         block, n_steps, tok, pos, alive, rem, caches = out
@@ -1156,17 +1194,30 @@ def collect_results(engine, rids: List[int]) -> List[GenResult]:
     return [by_rid[r] for r in rids]
 
 
+def _gather_rows(recipe, tree):
+    """A prefill's caches, this rank's batch rows of each leaf (ng, b, ...),
+    all-gathered over the batch axes into every row (the position tracks,
+    (ng, S), have none)."""
+    return {k: _gather_rows(recipe, v) if isinstance(v, dict) else v
+            if k == "kpos" else sh.all_gather(recipe, v, recipe.batch_axes, 1)
+            for k, v in tree.items()}
+
+
 def _splice_slots(pool, pre, slot_ids: List[int], lengths: List[int],
-                  page_table=None, page_size: int = 0):
+                  page_table=None, page_size: int = 0, shard=(0, 1),
+                  rows: Optional[slice] = None):
     """Scatter a bucket's prefill caches into the engine's caches, per
     group and in place: paged groups into their allocated pages, strip and
-    ring groups into their slots' rows."""
+    ring groups into their slots' rows (``rows``: the slots this rank
+    holds; ``shard`` = (r, n): its strips are block r of n of each slot's
+    rows, and ``pre`` holds them whole)."""
     for gname, dst in pool.items():
         if "pages" in dst:
             _splice_paged_group(dst, pre[gname], slot_ids, lengths,
                                 page_table, page_size)
         else:
-            _splice_strip_group(dst, pre[gname], slot_ids, lengths)
+            _splice_strip_group(dst, pre[gname], slot_ids, lengths, shard,
+                                rows)
     return pool
 
 
@@ -1197,7 +1248,8 @@ def _splice_paged_group(dst, src, slot_ids: List[int], lengths: List[int],
     return dst
 
 
-def _splice_strip_group(dst, src, slot_ids: List[int], lengths: List[int]):
+def _splice_strip_group(dst, src, slot_ids: List[int], lengths: List[int],
+                        shard=(0, 1), rows: Optional[slice] = None):
     """Dense per-slot splice, in place, leaf by leaf of a possibly nested
     group (``"hybrid"``: ``{"attn", "ssm"}``).  ``dst`` leaves are (ng,
     num_slots, ...), ``src`` leaves (ng, bpad, ...) with the bucket's real
@@ -1206,26 +1258,39 @@ def _splice_strip_group(dst, src, slot_ids: List[int], lengths: List[int]):
     is everything past the copied span; the KV rows (``k``/``v``, MLA's
     ``ckv``/``krope``) are copied up to that span; recurrent leaves
     (Mamba's ``conv``/``ssm``, mLSTM's ``C``/``n``/``m``, sLSTM's
-    ``c``/``n``/``m``/``h``) replace the slot's row whole."""
-    b = len(slot_ids)
+    ``c``/``n``/``m``/``h``) replace the slot's row whole.  With ``rows``
+    ``dst`` holds only the slots ``rows.start .. rows.stop - 1``; with
+    ``shard`` = (r, n) a ``dst`` strip of s rows is block r of the slot's
+    n * s rows: it takes ``src``'s rows r * s .. r * s + s - 1 (those there
+    are)."""
+    lo, hi = (0, math.inf) if rows is None else (rows.start, rows.stop)
+    sel = [(i, sid - lo) for i, sid in enumerate(slot_ids) if lo <= sid < hi]
+    if not sel:
+        return dst
+    r, _ = shard
     for name, d in dst.items():
         s = src[name]
         if isinstance(d, dict):
-            _splice_strip_group(d, s, slot_ids, lengths)
+            _splice_strip_group(d, s, slot_ids, lengths, shard, rows)
             continue
-        slots = torch.as_tensor(slot_ids, dtype=torch.long, device=d.device)
+        src_i = torch.as_tensor([i for i, _ in sel], dtype=torch.long,
+                                device=d.device)
+        slots = torch.as_tensor([j for _, j in sel], dtype=torch.long,
+                                device=d.device)
         if name == "kpos":
-            lens = torch.as_tensor(lengths, dtype=torch.int32,
-                                   device=d.device)
-            n = min(s.shape[1], d.shape[2])
-            row = s[:, None, :n].expand(-1, b, -1)
+            lens = torch.as_tensor([lengths[i] for i, _ in sel],
+                                   dtype=torch.int32, device=d.device)
+            o = r * d.shape[2]
+            n = max(0, min(s.shape[1] - o, d.shape[2]))
+            row = s[:, None, o:o + n].expand(-1, len(sel), -1)
             row = torch.where((row >= 0) & (row < lens[None, :, None]), row,
                               -1)
             d[:, slots] = -1
             d[:, slots, :n] = row
         elif name in ("k", "v", "ckv", "krope"):
-            n = min(s.shape[2], d.shape[2])
-            d[:, slots, :n] = s[:, :b, :n].to(d.dtype)
+            o = r * d.shape[2]
+            n = max(0, min(s.shape[2] - o, d.shape[2]))
+            d[:, slots, :n] = s[:, src_i, o:o + n].to(d.dtype)
         else:
-            d[:, slots] = s[:, :b].to(d.dtype)
+            d[:, slots] = s[:, src_i].to(d.dtype)
     return dst
