@@ -74,7 +74,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   5. consistency — the same requests with k_block=1 give identical tokens;
      then two engine ticks under torch.profiler (CUDA activity) show where
      the device time goes and how much of a decode step the card sits idle;
-  6. chunked  — yi-9b at full width, its depth cut to CHUNK_LAYERS = 16
+  6. chunked  — yi-9b at full width, its depth cut to CHUNK_LAYERS = 8
                 of 48, on the same requests one-shot and then with
                 chunk_prefill=256 at chunk
                 budgets 1 and 2: all ok, a balanced free list, the kernels
@@ -85,7 +85,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 chunk call profiled;
   7. cluster  — four drives (ClusterEngine, 8 slots each, 256-row chunks)
                 over one yi-9b at full width, its depth cut to
-                CLUSTER_LAYERS = 8 of 48 layers: CLUSTER_REQUESTS = 16
+                CLUSTER_LAYERS = 4 of 48 layers: CLUSTER_REQUESTS = 16
                 requests (prompts 16..700, max_new 32; 32 before the train
                 phases came) served
                 serially give one engine's tokens with balanced
@@ -117,7 +117,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 them 1000-token prompts with max_new=64 so their rings wrap
                 while decoding, through ServeEngine(num_slots=8,
                 max_len=2048, page_size=16, k_block=8); all ok, a balanced
-                free list, the flash kernel on all 12 layers of every
+                free list, the flash kernel on every layer of every
                 prefill call, the isp-decode kernel on the 10 window layers
                 and the paged-decode kernel on the 2 global layers of every
                 step; k_block=1 gives identical tokens; one decode tick is
@@ -139,7 +139,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   11. llama4  — llama4-scout-17b-a16e in bfloat16 at every published width
                 (d_model 5120, 40/8 heads of dh 128, 16 experts of d_ff 8192
                 top-1 + one shared, vocabulary 202,048), its depth cut from
-                48 to LLAMA4_LAYERS = 8 layers to fit one card: 8 requests
+                48 to LLAMA4_LAYERS = 4 layers to fit one card and the
+                script's time: 8 requests
                 (prompts 16..700, max_new=32) through the same engine; all
                 ok, a balanced free list, flash and paged decode on every
                 layer of every prefill call and step, no isp decode;
@@ -172,11 +173,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 unabsorbed; layer 0's absorbed decode step in fp32 against
                 the unabsorbed computation (MLA_REL_TOL);
   14. hymba   — hymba-1.5b at full width, its depth cut to HYMBA_LAYERS
-                = 16 of 32 hybrid layers (window-1024 GQA at 25
+                = 8 of 32 hybrid layers (window-1024 GQA at 25
                 heads over 5 of dh 64 beside Mamba) in bfloat16: 8 requests
                 as above in exact-length buckets on strips; all ok, flash on
-                all 16 layers of every prefill call, isp decode on all 16
-                rings of every step; k_block=1 gives identical tokens; one
+                every layer of every prefill call, isp decode on every
+                ring of every step; k_block=1 gives identical tokens; one
                 decode tick profiled;
   15. xlstm   — xlstm-125m whole (6 mLSTM + 6 sLSTM blocks, no attention)
                 in bfloat16: 8 requests as above; all ok, no kernel
@@ -207,7 +208,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 a (1, 2) ("data", "model") mesh in a gloo group over CUDA
                 tensors: NCCL refuses two ranks on one device) and serve
                 through ServeEngine(recipe=...) (num_slots=8,
-                max_len=1024, k_block=8; mesh_cases): yi-9b whole in bf16
+                max_len=1024, k_block=8; mesh_cases): yi-9b at full width
+                and MESH_LAYERS = 16 of 48 layers in bf16
                 (TP 2 on the block weights, SP in prefill, the paged
                 engine, decode on the strips over the model axis) and at
                 MESH_FP32_LAYERS = 4 in fp32, deepseek-v2 at full width
@@ -226,11 +228,40 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 a yi-9b decode step's time in gloo collectives (through
                 the host, not NCCL) beside its profiled kernel time, on
                 a warm engine of MESH_TIMING_K = 2 steps a tick whose
-                8 requests are the first 16 tokens of the served ones.
+                8 requests are the first 16 tokens of the served ones;
+  19. mesh train — the same two ranks then train (mesh_train_cases,
+                steps.build_train_step under the (1, 2) mesh's plan, AdamW
+                at lr 1e-4 on one repeated seeded batch): yi-9b at full
+                width and MESH_TRAIN_LAYERS = 8 of 48 layers in bf16, 2 x
+                2048 tokens, 4 steps, TP 2 with SP, remat "dots", the
+                vocab-sharded lookup (isp_gather with its backward) and
+                loss head; llama4-scout at full width and 1 of 48 layers
+                in bf16, 2 x 256 tokens, 3 steps, EP 2 over 16 experts at
+                full capacity (the all_to_all backward); yi-9b at 2
+                layers in fp32, 2 x 256 tokens.  Step 0's gradients are
+                those the first step applies (its lr is 0).  Checks:
+                finite losses that fall, the same on both ranks; flash
+                twice a layer a step and isp_gather once a step on each
+                rank; the embedding's and head's gradient pieces nonzero;
+                step 0 against one rank (in this process, same seed and
+                batch): the bf16 loss (llama4's cross-entropy) within
+                MESH_TRAIN_LOSS_TOL and the embedding's and head's pieces
+                within MESH_TRAIN_GRAD_TOL of the leaf's max |grad|; in
+                fp32 (on each rank) the loss within 1e-5 and every piece
+                within 1e-4; optim.compressed_psum over the two ranks
+                within the reference test's bound (2 x 2 x amax / 127),
+                its mean error within 4 standard errors of 0.  Printed:
+                each rank's peak memory beside one rank's for the same
+                steps (llama4: one rank's forward), ms a step beside one
+                rank's, a yi-9b step's gloo ms against its profiled
+                kernel ms, and the launch counts a step.
 The kernel phase also holds flash, isp decode and isp_gather to their
 plain versions at one rank's shapes of the two-rank yi-9b path (16 of
 32 query heads over 2 of 4 KV heads; a 512-row block of a 1024-row strip
-view with every head; a 32000-row vocabulary shard) and times them.
+view with every head; a 32000-row vocabulary shard) and times them, and
+flash with lse and isp_gather at one rank's shapes of the two-rank yi-9b
+train path (16 of 32 heads over 2 of 4 at 2 x 2048 rows; the 32000-row
+shard for 2 x 2048 ids).
 The kernel phase also holds flash's log-sum-exp output (lse, what the
 training path's backward reads) to the plain version at the train shape
 (B=2, S=4096, H=32, Hkv=4, dh 128, causal, bf16 and fp32; LSE_TOL), the
@@ -262,7 +293,7 @@ contract before and after lse), one JSON line, for the same use.
 
     python3 chip_smoke.py --mesh
 
-builds the kernels and runs only the two-rank phase.
+builds the kernels and runs only the two-rank phase, serve and train.
 """
 from __future__ import annotations
 
@@ -1058,6 +1089,78 @@ def tp2_rows(dev, gen, flushes):
     return rows
 
 
+def tp2_train_rows(dev, gen, flushes):
+    """The kernels of the two-rank yi-9b train path at one rank's shapes
+    (MESH_TRAIN_SHAPE): flash with lse on the rank's 16 of 32 query heads
+    over its 2 of 4 KV heads, causal over 2048 rows, and isp_gather on
+    the rank's 32000 x 4096 vocabulary shard for the batch's 2 x 2048 ids
+    (the sequence-parallel lookup gathers every id; about half are on the
+    other shard).  Each held to its plain version, then timed beside it,
+    its bound and the library call (SDPA's forward, F.embedding)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import isp_gather as ig
+    from repro_torch.kernels import ref
+    flush = flushes[0]
+    path = "yi-9b tp2 train"
+    B, S = MESH_TRAIN_SHAPE
+    H, Hkv, dh = 16, 2, 128
+    ck = dict(q_chunk=TRAIN_CHUNK, kv_chunk=TRAIN_CHUNK)
+    errs, lerrs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)  # noqa
+        q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        want, wlse = ref.chunked_attention(q, k, v, return_lse=True, **ck)
+        errs[dtype] = max_err([out], [want], dtype)
+        lerrs[dtype] = lse_err(lse, wlse)
+        del out, lse, want, wlse
+    pairs = S * (S + 1) // 2
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * S * H * 4
+    bound_ms, bound_by = bound(nbytes, 4 * dh * pairs * B * H,
+                               torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = [dict(
+        name="flash_attention", kernel="flash_attention", path=path,
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:77", dtype="bfloat16",
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} causal, with lse (one "
+        f"rank's heads)", max_abs_err=errs[torch.bfloat16],
+        max_abs_err_fp32=errs[torch.float32],
+        lse_max_abs_err=lerrs[torch.bfloat16],
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True),
+                   flush),
+        plain_ms=time_ms(lambda: ref.chunked_attention(
+            q, k, v, return_lse=True, **ck), flush),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True), flush))]
+    del q, k, v, qt, kt, vt
+    table = torch.randn(32000, 4096, generator=gen).to(dev, torch.bfloat16)
+    idx = torch.randint(0, 64000, (B, S), generator=gen,
+                        dtype=torch.int32).to(dev)
+    got, want = ig.isp_gather(table, idx), ig.isp_gather_ref(table, idx)
+    assert torch.equal(got, want), "isp_gather tp2 train: not exact"
+    n, n_on = B * S, int((idx < 32000).sum())
+    nbytes = (n_on + n) * 4096 * 2 + 4 * n
+    bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+    lib_idx = idx.long().clamp(0, 31999)
+    rows.append(dict(
+        name="isp_gather", kernel="isp_gather", path=path, route="cuda",
+        source="src/repro_torch/kernels/csrc/isp_gather.cu",
+        replaces="src/repro/kernels/isp_gather.py:50", dtype="bfloat16",
+        shape=f"table (32000, 4096) offset 0 (rank 0's vocabulary shard), "
+        f"({B}, {S}) ids over 64000 ({n_on} on the shard)",
+        max_abs_err=0.0, max_abs_err_fp32=None,
+        ms=time_ms(lambda: ig.isp_gather(table, idx), flush),
+        plain_ms=time_ms(lambda: ig.isp_gather_ref(table, idx), flush),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(lambda: torch.nn.functional.embedding(
+            lib_idx, table), flush)))
+    del table, got, want
+    return rows
+
+
 def paged_edge_timing(dev, gen, flush):
     """paged_decode at hymba-1.5b's heads (25 over 5 at dh 64), an edge off
     every serve path (hymba's window layers decode on rings): held to the
@@ -1248,6 +1351,7 @@ def kernel_phase(dev):
 
     rows += gather_rows(dev, flushes)
     rows += tp2_rows(dev, gen, flushes)
+    rows += tp2_train_rows(dev, gen, flushes)
     del flushes
     for row in rows:
         row["kernel_ms"] = row["ms"]
@@ -1981,6 +2085,7 @@ def chunk_fp32_phase(cfg, params, dev, requests, want):
 
 # gemma3-12b's depth in its serve and plan phases, cut from 48 to keep the
 # script in its time: 10 window layers and 2 global ones, its 5:1 pattern
+# (3.661 B parameters: the plan phase needs FSDP's > 3 B default)
 GEMMA_LAYERS = 12
 
 
@@ -2198,9 +2303,10 @@ def times_phase(dev) -> dict:
     return out
 
 
-# yi-9b's depth in the chunked bf16 phase, cut from 48 to keep the script
-# in its time: chunking and its budgets do not depend on the depth
-CHUNK_LAYERS = 16
+# yi-9b's depth in the chunked bf16 phase, cut from 48 (to 16, then to 8
+# when the two-rank train phase came) to keep the script in its time:
+# chunking and its budgets do not depend on the depth
+CHUNK_LAYERS = 8
 
 
 def chunk_bf16_phase(dev, requests):
@@ -2268,10 +2374,10 @@ CLUSTER_MEM_MARGIN = 2 * 2**30
 # 32 to 16 to make room for the train phases; the crash run takes these
 # with 16 tokens each)
 CLUSTER_REQUESTS = 16
-# the cluster's yi-9b at full width, its depth cut from 48 to 8 layers to
-# keep the script in its time: the drives' routing, faults, threads and
+# the cluster's yi-9b at full width, its depth cut from 48 to 4 layers (8
+# before the two-rank train phase came) to keep the script in its time: the drives' routing, faults, threads and
 # schedules do not depend on the depth, each tick's time does
-CLUSTER_LAYERS = 8
+CLUSTER_LAYERS = 4
 
 
 def drive_cluster(cfg, params, dev, requests, shards=None, replay=None,
@@ -2562,9 +2668,10 @@ def cluster_phase(dev):
     free_device()
 
 
-# llama4-scout at full width: 8 of its 48 layers hold 19.69 B parameters
-# (39.4 GB in bf16); all 48 hold 107.8 B (215.6 GB), which no card holds
-LLAMA4_LAYERS = 8
+# llama4-scout at full width: all 48 layers hold 107.8 B parameters (215.6
+# GB in bf16), which no card holds; 8 (19.69 B, 39.4 GB) ran until the
+# two-rank train phase came, 4 keep the script in its time
+LLAMA4_LAYERS = 4
 # one layer's MoE in bf16 on the card against fp32 on the CPU, on the same
 # bf16 weights and inputs: bf16 rounds g, u, the silu cast, h and the
 # expert and shared outputs, each within 2**-8 of the value; independent
@@ -3081,8 +3188,9 @@ def deepseek_phase(dev):
     return launches
 
 
-# hymba-1.5b's depth, cut from 32 to keep the script in its time
-HYMBA_LAYERS = 16
+# hymba-1.5b's depth, cut from 32 (to 16, then to 8 when the two-rank
+# train phase came) to keep the script in its time
+HYMBA_LAYERS = 8
 
 
 def hymba_phase(dev):
@@ -3466,6 +3574,8 @@ def elastic_phase(dev):
 # reduce_scatter_tensor and all_to_all_single, which the port uses; it has
 # none for the list form of all_to_all, which the port does not use.
 MESH_REQUESTS = 8
+MESH_LAYERS = 16               # yi-9b in bf16, of 48 (whole before the
+#                                two-rank train phase came)
 MESH_FP32_LAYERS = 4           # yi-9b in fp32 at a cut depth: identical
 MESH_DEEPSEEK_LAYERS = 4       # deepseek-v2 in bf16, of 60
 MESH_DEEPSEEK_FP32_LAYERS = 2  # deepseek-v2 in fp32: identical
@@ -3484,7 +3594,8 @@ MESH_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
 
 
 def mesh_cases():
-    """(tag, config, requests) of the two-rank phase: yi-9b whole in bf16
+    """(tag, config, requests) of the two-rank phase: yi-9b at full width
+    and MESH_LAYERS in bf16
     (TP 2 on the block weights, SP in prefill, the paged engine, decode
     on the strips over the model axis) and at MESH_FP32_LAYERS in fp32;
     deepseek-v2 at full width in bf16 at MESH_DEEPSEEK_LAYERS and in fp32
@@ -3508,7 +3619,8 @@ def mesh_cases():
                             ).tolist(), 12) for _ in range(MESH_REQUESTS)]
     half = MESH_REQUESTS // 2
     return [
-        ("yi-9b bf16", yi, yi_req),
+        ("yi-9b bf16", dataclasses.replace(yi, num_layers=MESH_LAYERS),
+         yi_req),
         ("yi-9b fp32", dataclasses.replace(yi, num_layers=MESH_FP32_LAYERS,
                                            dtype="float32"), yi_req[:half]),
         ("deepseek-v2 bf16", dataclasses.replace(
@@ -3605,10 +3717,12 @@ def prefill_logits(model, cfg, plan, prompt, dev) -> torch.Tensor:
     return logits[0, :cfg.vocab_size].float().cpu()
 
 
-def mesh_rank(rank: int, world: int, work: str) -> None:
+def mesh_rank(rank: int, world: int, work: str,
+              parts=("serve", "train")) -> None:
     """One rank of the two-rank phase: every mesh case served through
-    ServeEngine(recipe=...) on this rank's pieces; what it saw goes to
-    ``rank{rank}.json`` under ``work``."""
+    ServeEngine(recipe=...) on this rank's pieces, then the train cases
+    (mesh_train_rank); what it saw goes to ``rank{rank}.json`` under
+    ``work``."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
     from repro_torch import sharding as sh
@@ -3628,7 +3742,8 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
         build.build()
         mesh = make_debug_mesh(1, world, device=dev)
         out = {}
-        for case, (tag, cfg, requests) in enumerate(mesh_cases()):
+        serve_cases = mesh_cases() if "serve" in parts else []
+        for case, (tag, cfg, requests) in enumerate(serve_cases):
             plan = sh.make_plan(mesh, cfg)
             recipe = sh.make_recipe(plan, cfg, ShapeConfig(1024, 8))
             free_device()
@@ -3704,6 +3819,8 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
                 f"{row['peak_gb']:.2f} GB, launches {launches}")
             del params
             free_device()
+        if "train" in parts:
+            out["train"] = mesh_train_rank(rank, world, work, mesh, dev)
         (Path(work) / f"rank{rank}.json").write_text(json.dumps(out))
     except BaseException:
         # the other rank's error is then only a closed connection
@@ -3715,7 +3832,7 @@ def mesh_rank(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def mesh_phase(dev):
+def mesh_phase(dev, parts=("serve", "train")):
     """Both ranks on the one card through the port's sharded serve path
     (mesh_cases), then every case with no plan in this process: the same
     tokens (fp32 identical; bf16 a flip only at a near-tie top-2 margin),
@@ -3723,7 +3840,8 @@ def mesh_phase(dev):
     every layer (flash on each rank's heads in prefill, isp decode on its
     block of the strips, isp_gather on its vocabulary shard), and the time
     a yi-9b decode step spends in gloo's collectives beside its kernel
-    time.  Returns yi-9b bf16's rank-0 launches."""
+    time.  Then the train cases (mesh_train_cases; mesh_train_report).
+    Returns the rank-0 launches of yi-9b bf16's serve and train runs."""
     import shutil
     import torch.multiprocessing as mp
     from repro_torch.models import model as M
@@ -3732,8 +3850,8 @@ def mesh_phase(dev):
     work.mkdir(parents=True)
     free_device()
     t0 = time.perf_counter()
-    ctx = mp.start_processes(mesh_rank, args=(2, str(work)), nprocs=2,
-                             join=False, start_method="spawn")
+    ctx = mp.start_processes(mesh_rank, args=(2, str(work), parts),
+                             nprocs=2, join=False, start_method="spawn")
     try:
         while not ctx.join(timeout=1.0):
             if time.perf_counter() - t0 > MESH_TIMEOUT:
@@ -3746,8 +3864,9 @@ def mesh_phase(dev):
              for r in range(2)]
     log(f"[mesh] two ranks on cuda:0 (gloo over CUDA tensors, through the "
         f"host; not NCCL) done in {time.perf_counter() - t0:.1f} s")
-    yi_launches = None
-    for case, (tag, cfg, requests) in enumerate(mesh_cases()):
+    yi_launches = train_launches = None
+    for case, (tag, cfg, requests) in enumerate(
+            mesh_cases() if "serve" in parts else []):
         got = [r[tag] for r in ranks]
         assert got[0]["tokens"] == got[1]["tokens"], f"{tag}: ranks differ"
         L = cfg.num_layers
@@ -3815,7 +3934,432 @@ def mesh_phase(dev):
                     + (f"{kern:.2f} ms of kernels (profiled)" if kern
                        else "kernels not measured on this rank")
                     + f"; unprofiled {g['step_ms']:.2f} ms a step")
-    return yi_launches
+    if "train" in parts:
+        train_launches = mesh_train_report([r["train"] for r in ranks], dev)
+    return yi_launches, train_launches
+
+
+# -- the two-rank train phase ------------------------------------------------
+# The same two ranks on cuda:0 (gloo over CUDA tensors), after the serve
+# cases: each train case's step-0 loss and gradient pieces (steps.
+# loss_and_grads) and its steps (steps.build_train_step) under the (1, 2)
+# mesh's plan, then in this process the same weights and batch on one
+# rank.  Depths are cut, widths are the published ones.
+MESH_TRAIN_LAYERS = 8          # yi-9b in bf16, of 48: 1.908 B parameters
+MESH_TRAIN_SHAPE = (2, 2048)   # (batch, tokens)
+MESH_TRAIN_STEPS = 4
+MESH_MOE_TRAIN_LAYERS = 1      # llama4-scout in bf16, of 48: 4.27 B
+MESH_MOE_TRAIN_SHAPE = (2, 256)
+MESH_MOE_TRAIN_STEPS = 3
+MESH_FP32_TRAIN_LAYERS = 2     # yi-9b in fp32
+MESH_FP32_TRAIN_SHAPE = (2, 256)
+MESH_FP32_TRAIN_STEPS = 2
+MESH_TRAIN_LR = 1e-4           # no warmup: see train_phase's repeated batch
+# two ranks against one rank at step 0, on the same weights and batch: the
+# loss (|difference|; for the MoE case the cross-entropy, as its load loss
+# is each rank's own tokens' by the reference's rule) and the gradient
+# pieces (max |difference| over the leaf's max |grad|: every leaf in fp32,
+# the embedding table and the head in bf16).  Read on the H100 (a whole
+# run of this script): bf16 losses 2.1e-5 (yi-9b) and 4.2e-5
+# (llama4-scout's cross-entropy), pieces 0.0128..0.0203; the bf16 bounds
+# are 12x and 2.5x the largest.  A lost collective or a wrong piece moves the loss by
+# ~0.1 and a gradient piece by the order of its largest element.
+MESH_TRAIN_LOSS_TOL = {"bfloat16": 5e-4, "float32": 1e-5}
+MESH_TRAIN_GRAD_TOL = {"bfloat16": 0.05, "float32": 1e-4}
+MESH_PSUM_N = 1 << 22          # elements of the compressed_psum check
+
+
+def mesh_train_cases():
+    """(tag, config, (batch, tokens), steps, SP on) of the two-rank train
+    phase:
+    yi-9b at full width and MESH_TRAIN_LAYERS in bf16 (TP 2, SP on: 1.908
+    B parameters >= SP_MIN_PARAMS, remat "dots", the vocab-sharded lookup
+    and loss head); llama4-scout at full width and MESH_MOE_TRAIN_LAYERS
+    in bf16, EP 2 over its 16 experts at full capacity (capacity_factor =
+    16: no assignment dropped, so the two ranks compute what the one-rank
+    dense route does), so the all_to_all backward runs; yi-9b at
+    MESH_FP32_TRAIN_LAYERS in fp32 (0.870 B parameters: under
+    SP_MIN_PARAMS, so TP without SP)."""
+    from repro_torch.config import get_config
+    yi = get_config("yi-9b")
+    scout = get_config("llama4-scout-17b-a16e")
+    scout = dataclasses.replace(
+        scout, num_layers=MESH_MOE_TRAIN_LAYERS, moe=dataclasses.replace(
+            scout.moe, capacity_factor=float(scout.moe.num_experts)))
+    return [
+        ("yi-9b bf16 train", dataclasses.replace(
+            yi, num_layers=MESH_TRAIN_LAYERS), MESH_TRAIN_SHAPE,
+         MESH_TRAIN_STEPS, True),
+        ("llama4-scout bf16 train", scout, MESH_MOE_TRAIN_SHAPE,
+         MESH_MOE_TRAIN_STEPS, True),
+        ("yi-9b fp32 train", dataclasses.replace(
+            yi, num_layers=MESH_FP32_TRAIN_LAYERS, dtype="float32"),
+         MESH_FP32_TRAIN_SHAPE, MESH_FP32_TRAIN_STEPS, False)]
+
+
+def train_batch(cfg, shape, dev, case: int):
+    """A seeded global batch of random tokens and labels (some masked)."""
+    B, Sq = shape
+    rng = np.random.default_rng(SEED + 100 + case)
+    labels = rng.integers(0, cfg.vocab_size, (B, Sq)).astype(np.int32)
+    labels[0, :7] = -1
+    return {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, Sq)).astype(np.int32)).to(dev),
+            "labels": torch.from_numpy(labels).to(dev)}
+
+
+def kernel_ms_in(fn) -> float:
+    """Device kernel time (the union of the kernel intervals, ms) of one
+    call of ``fn`` under torch.profiler; None where it recorded no device
+    event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "Command Buffer Full"),
+                  key=lambda e: e.time_range.start)
+    busy, end = 0.0, -1.0
+    for e in kern:
+        if e.time_range.end > end:
+            busy += e.time_range.end - max(e.time_range.start, end)
+            end = e.time_range.end
+    return busy / 1e3 if kern else None
+
+
+class first_grads:
+    """While active, the first ``adamw_update`` call's gradients (this
+    rank's pieces, after the sum over the mesh) are kept: those named in
+    ``names``, or all of them with None."""
+
+    def __init__(self, names=None):
+        self.names, self.grads = names, {}
+
+    def __enter__(self):
+        from repro_torch.launch import steps as S
+        self._orig = orig = S.adamw_update
+
+        def capture(params, grads, *a, **kw):
+            if not self.grads:
+                self.grads.update({n: g.detach().clone()
+                                   for n, g in grads.items()
+                                   if self.names is None or n in self.names})
+            return orig(params, grads, *a, **kw)
+        S.adamw_update = capture
+        return self.grads
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps as S
+        S.adamw_update = self._orig
+
+
+def train_state_in_turns(cfg, recipe, opt_cfg, dev, rank, world):
+    """``train_loop.build_state`` on each rank in turn (each draws every
+    global leaf before it keeps its pieces, and both share the card)."""
+    import torch.distributed as dist
+    from repro_torch.train import train_loop as TL
+    state = None
+    for r in range(world):
+        if r == rank:
+            state = TL.build_state(cfg, recipe, opt_cfg, SEED, dev)
+            torch.cuda.synchronize()
+            free_device()
+        dist.barrier()
+    return state
+
+
+def mesh_train_rank(rank: int, world: int, work: str, mesh, dev) -> dict:
+    """This rank's part of the two-rank train phase (mesh_train_cases):
+    step 0's loss and gradient pieces (in fp32 held here against one
+    rank's gradients, cut by the model's specs; in bf16 the embedding's
+    and the head's pieces saved for the parent), the case's steps on the
+    one repeated batch with the launch counts (step 0's gradients are
+    those the first step applies, whose learning rate is 0), and for
+    yi-9b bf16 the last step's gloo time (CollectiveTimer) and, on rank
+    0, its kernels profiled (that step is left out of the step times);
+    then compressed_psum against the exact sum on the card."""
+    import torch.distributed as dist
+    from repro_torch import sharding as sh
+    from repro_torch.config import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, compressed_psum
+    out = {}
+    opt_cfg = AdamWConfig(lr=MESH_TRAIN_LR)
+    sched = {"warmup": 0, "total": 10**6}
+    for case, (tag, cfg, shape, steps, _) in enumerate(mesh_train_cases()):
+        plan = sh.make_plan(mesh, cfg)
+        recipe = sh.make_recipe(plan, cfg, ShapeConfig(shape[1], shape[0]))
+        free_device()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = train_state_in_turns(cfg, recipe, opt_cfg, dev, rank, world)
+        model = state.params
+        batch = train_batch(cfg, shape, dev, case)
+        row = dict(init_s=time.perf_counter() - t0,
+                   sp=blk.sp_enabled(cfg, recipe, shape[1], "train"),
+                   route=blk.moe_route(cfg, recipe, "train", shape[1])
+                   if cfg.moe else None,
+                   state_gb=sum(t.numel() * t.element_size() for t in
+                                list(model.parameters())
+                                + list(state.opt_state["m"].values())
+                                + list(state.opt_state["v"].values())) / 1e9)
+        vocab = ("embed.table", "head.w_head")
+        keep = None if cfg.dtype == "float32" else vocab
+        step_fn, _ = S.build_train_step(cfg, recipe, opt_cfg, sched,
+                                        device=dev)
+        times, mets = [], []
+        ops.reset_launch_counts()
+        run = lambda: mets.append({  # noqa: E731
+            k: float(v) for k, v in step_fn(model, state.opt_state,
+                                            batch)[2].items()})
+        with first_grads(keep) as grads:
+            # the first step's learning rate is 0 (the schedule's warmup
+            # starts there): its gradients are step 0's
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if case == 0 and i == steps - 1:
+                    # the last yi-9b step: its gloo calls timed between
+                    # syncs and, on rank 0, its kernels profiled (the
+                    # other rank runs it unprofiled: the collectives pair)
+                    with CollectiveTimer() as ct:
+                        row["kernel_ms"] = kernel_ms_in(run) if rank == 0 \
+                            else run()
+                    torch.cuda.synchronize()
+                    row.update(timed_step_ms=(time.perf_counter() - t0) * 1e3,
+                               coll_ms=ct.s * 1e3, coll_calls=ct.calls)
+                    continue
+                run()
+                times.append((time.perf_counter() - t0) * 1e3)
+        losses = [m["loss"] for m in mets]
+        row.update(launches=ops.launch_counts(), losses=losses,
+                   grad_norms=[m["grad_norm"] for m in mets], step_ms=times,
+                   loss0=mets[0]["loss"], xent0=mets[0]["xent"],
+                   aux0=mets[0]["aux"],
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   vocab_grad_max={n: float(grads[n].float().abs().max())
+                                   for n in vocab})
+        if cfg.dtype == "float32":
+            # one rank's gradients of the same global weights, here
+            local = M.init_params(cfg, torch.Generator(
+                device=dev).manual_seed(SEED), dev)
+            local.requires_grad_(True)
+            one_loss, _, one = S.loss_and_grads(local, batch, cfg, None)
+            errs = {}
+            for n, g in grads.items():
+                want = sh.cut(recipe, model.specs.get(n), one[n])
+                errs[n] = float((g - want).abs().max()) / max(
+                    float(one[n].abs().max()), 1e-30)
+            row.update(one_loss0=float(one_loss), grad_errs=errs)
+            del local, one
+        else:
+            torch.save({n: grads[n].cpu() for n in vocab},
+                       Path(work) / f"train_grads{case}_r{rank}.pt")
+        grads.clear()
+        with torch.no_grad():
+            after = M.loss_fn(model, batch, cfg, recipe)[0]
+        row["loss_after"] = float(after)
+        out[tag] = row
+        log(f"[mesh train r{rank}] {tag}: losses {[round(x, 5) for x in losses]}"
+            f", step ms {[round(x, 1) for x in times]}, peak "
+            f"{row['peak_gb']:.2f} GB, launches {row['launches']}")
+        del state, model, step_fn, batch
+        free_device()
+    # compressed_psum against the exact sum over the model axis
+    plan = sh.make_recipe(sh.make_plan(mesh, None), mesh_train_cases()[0][1],
+                          ShapeConfig(16, 2))
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+    x = torch.randn(MESH_PSUM_N, generator=gen, device=dev)
+    exact = sh.all_reduce(plan, x.clone(), "model")
+    amax = sh.all_reduce(plan, x.abs().max().clone(), "model",
+                         dist.ReduceOp.MAX)
+    got = compressed_psum(x, plan, "model", torch.Generator(
+        device=dev).manual_seed(SEED + 1000 + rank))
+    err = got - exact
+    out["psum"] = dict(max_err=float(err.abs().max()), mean_err=float(
+        err.mean()), amax=float(amax), n=MESH_PSUM_N)
+    return out
+
+
+def mesh_train_report(ranks, dev) -> dict:
+    """The parent's half of the two-rank train phase: each bf16 case on
+    one rank from the same seed and batch (step 0's loss and, for yi-9b,
+    the embedding's and head's gradients, cut by the ranks' specs, then
+    the same steps for the one-rank step time and peak; llama4-scout's
+    forward only), the checks, and the lines.  Returns yi-9b bf16's rank-0
+    launches."""
+    from repro_torch import sharding as sh
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import train_loop as TL
+    opt_cfg = AdamWConfig(lr=MESH_TRAIN_LR)
+    work = ROOT / "build" / "mesh_phase"
+    for case, (tag, cfg, shape, steps, sp) in enumerate(
+            mesh_train_cases()):
+        got = [r[tag] for r in ranks]
+        for r, g in enumerate(got):
+            ln = g["launches"]
+            assert all(math.isfinite(x) for x in g["losses"] + g[
+                "grad_norms"]), (tag, r, g["losses"])
+            assert g["loss_after"] < g["losses"][0], (tag, r, g["losses"],
+                                                      g["loss_after"])
+            assert cfg.remat == "dots", cfg.remat   # flash twice a layer
+            assert ln["flash_attention"] == 2 * cfg.num_layers * steps, \
+                (tag, r, ln)
+            assert ln["isp_gather"] == steps, (tag, r, ln)
+            assert g["sp"] == sp, (tag, r, g["sp"])
+            assert min(g["vocab_grad_max"].values()) > 0, \
+                (tag, r, "a zero vocabulary gradient")
+        assert got[0]["losses"] == got[1]["losses"], f"{tag}: ranks differ"
+        if cfg.moe:
+            assert got[0]["route"] == "ep_prefill", got[0]["route"]
+        dtype = cfg.dtype
+        lines = [f"[mesh train] {tag}: {shape[0]} x {shape[1]} tokens, "
+                 f"{cfg.num_layers} layers, {M.count_params(cfg) / 1e9:.3f} "
+                 f"B parameters; losses {[round(x, 4) for x in got[0]['losses']]}"
+                 f" -> {got[0]['loss_after']:.4f} after the last step (the "
+                 f"first step's lr is 0), grad norms "
+                 f"{[round(x, 5) for x in got[0]['grad_norms']]}; "
+                 f"launches a rank {got[0]['launches']}"]
+        if dtype == "float32":
+            for r, g in enumerate(got):
+                d = abs(g["loss0"] - g["one_loss0"])
+                worst = max(g["grad_errs"].items(), key=lambda x: x[1])
+                lines.append(
+                    f"[mesh train] {tag} rank {r}: step-0 loss "
+                    f"{g['loss0']:.7f} against one rank's {g['one_loss0']:.7f}"
+                    f" (|difference| {d:.3g}, bound "
+                    f"{MESH_TRAIN_LOSS_TOL[dtype]:g}); every gradient piece "
+                    f"within {worst[1]:.3g} of its leaf's max |grad| (the "
+                    f"worst {worst[0]}; bound {MESH_TRAIN_GRAD_TOL[dtype]:g})")
+                assert d <= MESH_TRAIN_LOSS_TOL[dtype], (tag, r, d)
+                assert worst[1] <= MESH_TRAIN_GRAD_TOL[dtype], (tag, r, worst)
+        else:
+            free_device()
+            torch.cuda.reset_peak_memory_stats()
+            batch = train_batch(cfg, shape, dev, case)
+            local = sh.make_recipe(sh.make_plan(None, cfg), cfg,
+                                   ShapeConfig(shape[1], shape[0]))
+            state = TL.build_state(cfg, local, opt_cfg, SEED, dev)
+            if cfg.moe:
+                with torch.no_grad():
+                    _, met = M.loss_fn(state.params, batch, cfg)
+                one = dict(loss0=float(met["xent"]), aux0=float(met["aux"]))
+                key = "xent0"
+            else:
+                loss, met, grads = S.loss_and_grads(state.params, batch,
+                                                    cfg, local)
+                one = dict(loss0=float(loss))
+                key = "loss0"
+                errs = []
+                for r in range(2):
+                    pieces = torch.load(work / f"train_grads{case}_r{r}.pt")
+                    plan = _rank_plan(cfg, shape, r)
+                    for n, g in pieces.items():
+                        want = sh.cut(plan, sh.leaf_spec(
+                            plan, n, tuple(grads[n].shape)), grads[n])
+                        e = float((g.to(dev).float() - want.float()).abs()
+                                  .max()) / max(float(grads[n].float().abs()
+                                                      .max()), 1e-30)
+                        errs.append((e, r, n))
+                del grads, pieces
+                worst = max(errs)
+                lines.append(
+                    f"[mesh train] {tag}: the embedding's and head's "
+                    f"gradient pieces against one rank's cut by the specs: "
+                    f"max |difference| / max |grad| "
+                    f"{', '.join(f'{n} r{r} {e:.3g}' for e, r, n in errs)} "
+                    f"(bound {MESH_TRAIN_GRAD_TOL[dtype]:g})")
+                assert worst[0] <= MESH_TRAIN_GRAD_TOL[dtype], (tag, worst)
+                # the same steps on one rank, for its step time and peak
+                step_fn, _ = S.build_train_step(
+                    cfg, local, opt_cfg, {"warmup": 0, "total": 10**6},
+                    device=dev)
+                one_ms, one_losses = [], []
+                for _ in range(steps):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    m = step_fn(state.params, state.opt_state, batch)[2]
+                    one_losses.append(float(m["loss"]))
+                    one_ms.append((time.perf_counter() - t0) * 1e3)
+                one.update(step_ms=one_ms, losses=one_losses)
+            one["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            del state
+            free_device()
+            d = abs(got[0][key] - one["loss0"])
+            lines.append(
+                f"[mesh train] {tag}: step-0 "
+                f"{'cross-entropy' if cfg.moe else 'loss'} "
+                f"{got[0][key]:.5f} on two ranks against one rank's "
+                f"{one['loss0']:.5f} (|difference| {d:.3g}, bound "
+                f"{MESH_TRAIN_LOSS_TOL[dtype]:g})"
+                + (f"; load loss {got[0]['aux0']:.5f} (each rank's tokens, "
+                   f"averaged) against {one['aux0']:.5f} (all tokens)"
+                   if cfg.moe else ""))
+            assert d <= MESH_TRAIN_LOSS_TOL[dtype], (tag, d)
+            for r, g in enumerate(got):
+                med = float(np.median(g["step_ms"][1:]))
+                lines.append(
+                    f"[mesh train] {tag} rank {r}: {g['state_gb']:.2f} GB of "
+                    f"parameters and moments, peak {g['peak_gb']:.2f} GB "
+                    f"against one rank's {one['peak_gb']:.2f} GB "
+                    + ("(its forward only)" if cfg.moe else "(the same "
+                       "steps)")
+                    + f"; step ms {[round(x, 1) for x in g['step_ms']]}, "
+                    f"median after the first {med:.1f}"
+                    + ("" if cfg.moe else
+                       f" against one rank's {float(np.median(one['step_ms'][1:])):.1f}"
+                       f" (losses {[round(x, 4) for x in one['losses']]})")
+                    + f"; init {g['init_s']:.1f} s")
+            if case == 0:
+                for r, g in enumerate(got):
+                    kern = g["kernel_ms"]
+                    lines.append(
+                        f"[mesh train] {tag} rank {r} step: "
+                        f"{g['coll_ms']:.1f} ms in gloo collectives through "
+                        f"the host ({g['coll_calls']} calls, timed between "
+                        f"syncs, step {g['timed_step_ms']:.1f} ms) against "
+                        + (f"{kern:.1f} ms of kernels (profiled)" if kern
+                           else "kernels not measured on this rank"))
+        for line in lines:
+            log(line)
+    for r, rk in enumerate(ranks):
+        p = rk["psum"]
+        step = p["amax"] / 127.0
+        bound_err = 2 * 2 * p["amax"] / 127.0 + 1e-6
+        se = math.sqrt(2 * 0.25 * step ** 2 / p["n"])
+        log(f"[mesh train] compressed_psum rank {r} over {p['n']} fp32 "
+            f"elements: max |error| {p['max_err']:.4g} (bound "
+            f"{bound_err:.4g} = 2 x 2 x amax / 127), mean error "
+            f"{p['mean_err']:.3g} ({p['mean_err'] / se:.2f} standard errors)")
+        assert p["max_err"] <= bound_err, p
+        assert abs(p["mean_err"]) <= 4 * se, p
+    return ranks[0]["yi-9b bf16 train"]["launches"]
+
+
+def _rank_plan(cfg, shape, rank):
+    """A stand-in recipe of rank ``rank`` on the (1, 2) mesh, for cutting
+    a global array by its spec in this (meshless) process."""
+    from repro_torch import sharding as sh
+
+    class _Mesh:
+        mesh_dim_names = ("data", "model")
+
+        def size(self, i):
+            return (1, 2)[i]
+
+        def get_local_rank(self, name):
+            return rank if name == "model" else 0
+    plan = sh.make_plan(_Mesh(), cfg)
+    return sh.ShardingRecipe(plan=plan, batch_axes=("data",), seq_axes=())
 
 
 def build_kernels() -> None:
@@ -3844,8 +4388,8 @@ def main() -> int:
         "under both L2 flushes (and isp decode on the rings), and print "
         "them as one JSON line; for running two trees' kernels in turns"))
     parser.add_argument("--mesh", action="store_true", help=(
-        "only build the kernels and run the two-rank phase (both ranks on "
-        "the one card over gloo)"))
+        "only build the kernels and run the two-rank phase, serve and "
+        "train (both ranks on the one card over gloo)"))
     parser.add_argument("--flash-times", action="store_true", help=(
         "only time flash at its six serve paths' shapes without lse and "
         "print them as one JSON line; for running two trees in turns"))
@@ -3973,7 +4517,8 @@ def main() -> int:
     lap("train yi-9b")
     elastic_phase(dev)
     lap("kill and resume")
-    path_launches["yi-9b tp2 serve"] = mesh_phase(dev)
+    (path_launches["yi-9b tp2 serve"],
+     path_launches["yi-9b tp2 train"]) = mesh_phase(dev)
     lap("two ranks")
     for row in rows:
         row["launches"] = path_launches[row["path"]][row["kernel"]]

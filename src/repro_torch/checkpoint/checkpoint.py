@@ -21,7 +21,14 @@ with the dtype in the manifest, as the reference stores them.
     reference may take that copy on the thread, since JAX arrays never
     change; here the optimizer updates the parameters in place right
     after, so the snapshot must be complete first;
-  * restore: each leaf goes onto the template leaf's device and dtype.
+  * restore: each leaf goes onto the template leaf's device and dtype;
+  * re-sharding: under a sharding plan every leaf is saved as its global
+    array (each rank's piece all-gathered by the leaf's spec, then rank 0
+    writes, with the same two-phase commit), and ``restore(...,
+    plan=...)`` cuts each global leaf by that plan's spec of it
+    (``sharding.leaf_spec``, keyed on the leaf's parameter name), so a
+    checkpoint saved on one mesh restores on another, or on none — the
+    reference's ``restore_checkpoint(..., shardings=)``.
 """
 from __future__ import annotations
 
@@ -35,6 +42,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch import sharding as sh
 
 
 def _encode(t: torch.Tensor):
@@ -74,18 +84,48 @@ def _unflatten_like(template, flat: Dict[str, torch.Tensor],
     return out
 
 
-def _snapshot(tree) -> Dict[str, torch.Tensor]:
+def _meshed(plan) -> bool:
+    return plan is not None and plan.mesh is not None
+
+
+def _global(plan, spec, t: torch.Tensor) -> torch.Tensor:
+    """The global leaf of which ``t`` is this rank's piece (``spec``)."""
+    for dim, axes in enumerate(spec or ()):
+        if axes is not None:
+            t = sh.all_gather(plan, t, axes, dim)
+    return t
+
+
+def _snapshot(tree, plan=None, specs=None) -> Dict[str, torch.Tensor]:
     """Every leaf copied to host memory now (a blocking copy from the
-    card; a clone on the CPU), keyed by path."""
-    return {k: v.detach().to("cpu", copy=True)
-            for k, v in _flatten(tree).items()}
+    card; a clone on the CPU), keyed by path.  Under a mesh (``plan``)
+    each leaf is first gathered to its global array by its spec in
+    ``specs`` (a tree like ``tree``; a leaf without one is whole): every
+    rank takes part, in the same order."""
+    flat = _flatten(tree)
+    spec_of = _flatten(specs or {}) if _meshed(plan) else {}
+    with torch.no_grad():
+        return {k: _global(plan, spec_of.get(k), v.detach()).to(
+            "cpu", copy=True) for k, v in flat.items()}
+
+
+def _writer(plan) -> bool:
+    """Whether this process writes: every process without a mesh, rank 0
+    of the group under one."""
+    return not _meshed(plan) or dist.get_rank() == 0
 
 
 def save_checkpoint(directory, step: int, tree, *, host: str = "host0",
-                    extra: Optional[dict] = None) -> pathlib.Path:
-    """Synchronous sharded save with two-phase commit."""
-    return _write(pathlib.Path(directory), step, _snapshot(tree), host,
-                  extra)
+                    extra: Optional[dict] = None, plan=None,
+                    specs=None) -> Optional[pathlib.Path]:
+    """Synchronous sharded save with two-phase commit.  Under a mesh
+    (``plan``, with each leaf's spec in ``specs``) every rank calls it;
+    the global arrays are written by rank 0, which returns the step's
+    directory (the others None)."""
+    flat = _snapshot(tree, plan, specs)
+    if not _writer(plan):
+        return None
+    return _write(pathlib.Path(directory), step, flat, host, extra)
 
 
 def _write(directory: pathlib.Path, step: int,
@@ -137,10 +177,13 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory, template, *, step: Optional[int] = None):
+def restore_checkpoint(directory, template, *, step: Optional[int] = None,
+                       plan=None):
     """Restore into the template's structure (a nested dict of tensors),
-    each leaf on the template leaf's device and in its dtype.  Returns
-    (tree, manifest)."""
+    each leaf on the template leaf's device and in its dtype.  With a
+    sharding ``plan`` with a mesh, each leaf is this rank's piece of the
+    saved global array by the plan's spec of it (the template holds
+    pieces).  Returns (tree, manifest)."""
     directory = pathlib.Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -155,18 +198,26 @@ def restore_checkpoint(directory, template, *, step: Optional[int] = None):
             for k in z.files:
                 key = k.replace("__", "/")
                 meta = leaves_meta.get(key, {})
-                flat[key] = _decode(z[k], meta.get("dtype", str(z[k].dtype)))
+                t = _decode(z[k], meta.get("dtype", str(z[k].dtype)))
+                if _meshed(plan):
+                    name = key.rsplit("/", 1)[-1]
+                    t = sh.cut(plan, sh.leaf_spec(plan, name, t.shape), t)
+                flat[key] = t
     return _unflatten_like(template, flat), manifest
 
 
 class CheckpointManager:
     """Async manager: snapshot on the caller's thread, write off it, keep
-    the last ``keep``."""
+    the last ``keep``.  Under a mesh (``plan``) every rank calls
+    ``save_async`` with the leaves' specs; the snapshot is the global
+    arrays and rank 0 alone writes them."""
 
-    def __init__(self, directory, *, keep: int = 3, host: str = "host0"):
+    def __init__(self, directory, *, keep: int = 3, host: str = "host0",
+                 plan=None):
         self.directory = pathlib.Path(directory)
         self.keep = keep
         self.host = host
+        self.plan = plan
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -178,13 +229,15 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def save_async(self, step: int, tree,
-                   extra: Optional[dict] = None) -> None:
-        """Copy every leaf to host memory, then return; the writer thread
-        only writes those bytes, so the caller may update the tree in
-        place at once."""
+    def save_async(self, step: int, tree, extra: Optional[dict] = None,
+                   specs=None) -> None:
+        """Copy every leaf to host memory (its global array under a mesh,
+        by ``specs``), then return; the writer thread only writes those
+        bytes, so the caller may update the tree in place at once."""
         self.wait()                                 # one in flight at a time
-        snapshot = _snapshot(tree)
+        snapshot = _snapshot(tree, self.plan, specs)
+        if not _writer(self.plan):
+            return
 
         def work():
             try:
@@ -209,5 +262,8 @@ class CheckpointManager:
                     f.unlink()
                 sd.rmdir()
 
-    def restore(self, template, step: Optional[int] = None):
-        return restore_checkpoint(self.directory, template, step=step)
+    def restore(self, template, step: Optional[int] = None, plan=None):
+        """``restore_checkpoint`` from this manager's directory, cut by
+        ``plan`` (default: the manager's)."""
+        return restore_checkpoint(self.directory, template, step=step,
+                                  plan=self.plan if plan is None else plan)

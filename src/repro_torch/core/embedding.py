@@ -12,8 +12,12 @@ the link.  Collectives run on ``torch.distributed`` over the plan's groups.
 Tensors here are what this rank holds: its batch rows of activations and
 tokens, and its shard of a table (``sharding.vocab_slices``).
 
-The cross-entropy is the unsharded chunked path only (``sharded_xent`` on
-the local plan); the vocab-sharded loss head is ROADMAP queue 1 item 5.4.
+The loss head is the lookup's idea in reverse: per-shard logits and
+psum'd log-sum-exp scalars (``sharded_xent``), so the (tokens x
+vocabulary) logits never exist whole.  Lookups and the loss head are
+differentiable: ``ops.isp_gather`` scatters the rows' gradient back into
+the table shard, and the collectives carry their adjoints
+(``sharding``).
 """
 from __future__ import annotations
 
@@ -86,19 +90,73 @@ def _dense_chunked_xent(x, w_head, labels, vocab_size: int, chunk: int):
     return torch.cat(losses)[:t].reshape(b, s)
 
 
+def _xent_local(x, w_head, labels, cfg: ModelConfig, plan, chunk: int):
+    """Per-token cross-entropy (B, S) fp32 against this rank's vocabulary
+    shard (the reference's ``_xent_local``).  x: (B, S, D), every token of
+    this rank's batch rows; w_head: this rank's (V_loc, D[/f]) shard,
+    gathered to full columns first; labels (B, S) global ids.  ``chunk``
+    tokens at a time, each chunk's logits recomputed in the backward: its
+    fp32 logits against the shard, the row max taken over the model axis
+    (without a gradient, as the reference's ``stop_gradient``), the sum of
+    exponentials and the label's logit (from the shard that owns it, 0
+    from the others) summed over the model axis.  As in the reference's
+    sharded head, the padded vocabulary columns are not masked."""
+    tp = plan.model_axis
+    w = _full_columns(w_head, plan, cfg)
+    v_loc = w.shape[0]
+    off = sh.axis_index(plan, tp) * v_loc
+    b, s, d = x.shape
+    t = b * s
+    c = min(chunk, t)
+    pad = (-t) % c
+    xf = torch.nn.functional.pad(x.reshape(t, d), (0, 0, 0, pad))
+    lf = torch.nn.functional.pad(labels.reshape(t), (0, pad), value=0)
+
+    def body(x_c, l_c):
+        logits = _HeadLogits.apply(x_c, w)
+        lmax = sh.all_reduce(plan, logits.detach().amax(dim=-1), tp,
+                             dist.ReduceOp.MAX)
+        se = sh.all_reduce(plan, torch.exp(logits - lmax[:, None]).sum(-1),
+                           tp)
+        loc = l_c.long() - off
+        ok = (loc >= 0) & (loc < v_loc)
+        ll = logits.gather(1, loc.clamp(0, v_loc - 1)[:, None])[:, 0]
+        lab = sh.all_reduce(plan, torch.where(ok, ll, torch.zeros_like(ll)),
+                            tp)
+        return torch.log(se) + lmax - lab
+
+    losses = [checkpoint(body, xf[i:i + c], lf[i:i + c], use_reentrant=False)
+              for i in range(0, t + pad, c)]
+    return torch.cat(losses)[:t].reshape(b, s)
+
+
 def sharded_xent(x, w_head, labels, cfg: ModelConfig, plan=None,
-                 chunk: int = 4096, seq_sharded=None) -> torch.Tensor:
+                 chunk: int = 4096, seq_sharded: bool = False
+                 ) -> torch.Tensor:
     """Per-token cross-entropy (B, S) fp32 (the caller masks and means).
-    x: (B, S, D); w_head: (V_pad, D); labels: (B, S).  Without a
-    vocab-sharded plan this is ``_dense_chunked_xent``, as in the
-    reference; the sharded loss head (per-shard logits, psum'd
-    log-sum-exp) is not ported and raises.  ``seq_sharded`` only shapes
-    that sharded path."""
-    if sh.vocab_sharded(plan, cfg):
-        raise NotImplementedError(
-            "the vocab-sharded cross-entropy is not ported (ROADMAP queue 1 "
-            "item 5.4); training takes the local plan")
-    return _dense_chunked_xent(x, w_head, labels, cfg.vocab_size, chunk)
+    x: (B, S, D) this rank's rows; w_head: (V_pad, D), this rank's piece;
+    labels: (B, S), in x's layout.  Without a vocab-sharded plan this is
+    ``_dense_chunked_xent`` (on the head's full columns), as in the
+    reference.  Under one (``sharding.vocab_sharded``, the reference's
+    ``w_head.shape[0] % tp == 0`` rule) it is ``_xent_local`` on this
+    rank's vocabulary shard: the (tokens x vocabulary) logits never exist
+    whole, only per-token scalars cross the model axis.  With
+    ``seq_sharded`` (the Megatron-SP residual stream) x and labels are
+    this rank's block of the sequence: every vocabulary shard must see
+    every token, so the hidden block and the labels are all-gathered over
+    the model axis and the loss is sliced back to the block."""
+    if not sh.vocab_sharded(plan, cfg):
+        return _dense_chunked_xent(x, _full_columns(w_head, plan, cfg),
+                                   labels, cfg.vocab_size, chunk)
+    tp = plan.model_axis
+    if not (seq_sharded and plan.axis_size(tp) > 1):
+        return _xent_local(x, w_head, labels, cfg, plan, chunk)
+    s_loc = x.shape[1]
+    x_all = sh.all_gather(plan, x, tp, 1)
+    lab_all = sh.all_gather(plan, labels, tp, 1)
+    losses = _xent_local(x_all, w_head, lab_all, cfg, plan, chunk)
+    r = sh.axis_index(plan, tp)
+    return losses[:, r * s_loc:(r + 1) * s_loc]
 
 
 def _full_columns(table: torch.Tensor, plan, cfg: ModelConfig

@@ -15,6 +15,9 @@ kernel on the card (or the plain forward on the CPU) returning the rows'
 log-sum-exp as well, and whose backward is the plain
 ``ref.flash_attention_bwd`` on every device (the reference pairs its
 forward with a jnp backward; it has no Pallas backward kernel).
+``isp_gather`` is differentiable the same way (``_IspGather``: the
+kernel's forward, a plain masked scatter-add backward), for the
+vocab-sharded embedding lookup in training.
 
 Launches are counted per kernel in ``build.LAUNCHES`` (see
 ``launch_counts`` / ``reset_launch_counts``).
@@ -132,15 +135,65 @@ def chunk_prefill_attention(q, k, v, kpos, qpos, *,
     return ref.chunk_attention_masked(q, k, v, kpos, qpos, scale=scale)
 
 
-def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
-    """Masked shard-local row gather: ``table[id - shard_offset]`` for ids in
-    this shard's rows, zeros elsewhere.  table (V_loc, D); indices (...)
-    int; weights optional (...).  Returns (..., D) in the table's dtype."""
+def _isp_gather_fwd(table, indices, shard_offset, weights):
     if _on_cpu(table):
         return ig.isp_gather_ref(table, indices, shard_offset=shard_offset,
                                  weights=weights)
     return ig.isp_gather(table, indices, shard_offset=shard_offset,
                          weights=weights)
+
+
+class _IspGather(torch.autograd.Function):
+    """The masked shard-local gather with a gradient.  The forward is the
+    kernel on the card (or raises) and the plain version on the CPU.  The
+    backward is plain PyTorch on every device, as the reference has no
+    Pallas backward for it: the output's gradient rows, scaled by
+    ``weights`` where given, are summed into this shard's rows of the
+    table for the ids it owns (a masked scatter-add, accumulated in
+    float32 and cast to the table's dtype); ids outside the shard add
+    nothing.  ``weights`` gets the gradient rows' dot products with the
+    rows they scaled (zero outside the shard)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, shard_offset, weights):
+        ctx.off = int(shard_offset)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        ctx.save_for_backward(indices, weights,
+                              table if ctx.needs_input_grad[3] else None)
+        return _isp_gather_fwd(table, indices, shard_offset, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        indices, weights, table = ctx.saved_tensors
+        v_loc, d = ctx.table_shape
+        local = indices.reshape(-1).long() - ctx.off
+        ok = (local >= 0) & (local < v_loc)
+        rows = g.reshape(-1, d).float()
+        dtable = dw = None
+        if ctx.needs_input_grad[0]:
+            if weights is not None:
+                rows = rows * weights.reshape(-1, 1).float()
+            acc = torch.zeros((v_loc, d), dtype=torch.float32,
+                              device=g.device)
+            acc.index_add_(0, local[ok], rows[ok])
+            dtable = acc.to(ctx.table_dtype)
+        if ctx.needs_input_grad[3]:
+            plain = ref.isp_gather(table, indices, ctx.off).float()
+            dw = (g.float() * plain).sum(-1).to(weights.dtype)
+        return dtable, None, None, dw
+
+
+def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
+    """Masked shard-local row gather: ``table[id - shard_offset]`` for ids in
+    this shard's rows, zeros elsewhere.  table (V_loc, D); indices (...)
+    int; weights optional (...).  Returns (..., D) in the table's dtype.
+    Differentiable in ``table`` and ``weights``: with grad enabled and
+    either requiring it, the call goes through ``_IspGather`` (the same
+    forward, a plain backward); otherwise the forward alone runs."""
+    if torch.is_grad_enabled() and (table.requires_grad or (
+            weights is not None and weights.requires_grad)):
+        return _IspGather.apply(table, indices, shard_offset, weights)
+    return _isp_gather_fwd(table, indices, shard_offset, weights)
 
 
 def isp_gather_pool(table, indices, segment_ids, num_segments: int, *,

@@ -3,16 +3,19 @@ decode-block steps of one (arch, shape, mesh) cell (port of
 ``repro/launch/steps.py``).
 
 Each builder closes over the config and a ``ShardingRecipe`` and returns
-the step a server calls on every rank of the mesh with the same global
-inputs; the train step takes the local recipe only (no mesh).  ``jit``
-and ``NamedSharding`` have no counterpart: the steps run eagerly on what
-each rank holds.  ``params_sharding`` and ``cache_sharding`` give the
-reference's specs of the parameters and the caches, per dimension the
-axis (or axes) that splits it: the serve steps take a model whose pieces
-are cut by ``params_sharding`` (``LM(cfg, device, recipe)``,
-``bridge.params_from_jax(..., plan=recipe)``) and caches laid out as
-``cache_sharding`` says (``models.model.init_caches(..., plan=recipe)``),
-and check the model's specs at their first call.  Like every entry
+the step a trainer or a server calls on every rank of the mesh with the
+same global inputs.  ``jit`` and ``NamedSharding`` have no counterpart:
+the steps run eagerly on what each rank holds.  ``params_sharding``,
+``opt_sharding``, ``batch_sharding`` and ``cache_sharding`` give the
+reference's specs of the parameters, the optimizer state, the batch and
+the caches, per dimension the axis (or axes) that splits it: the steps
+take a model whose pieces are cut by ``params_sharding`` (``LM(cfg,
+device, recipe)``, ``models.model.init_params(..., plan=recipe)``,
+``bridge.params_from_jax(..., plan=recipe)``), the train step optimizer
+state cut the same way (``train.train_loop.build_state``) and the serve
+steps caches laid out as ``cache_sharding`` says
+(``models.model.init_caches(..., plan=recipe)``); each checks the
+model's specs at its first call.  Like every entry
 point of the port, a step runs on the card unless the builder is asked for
 the CPU; the builders raise without a CUDA device, and when the recipe's
 mesh lives on another device type.
@@ -23,7 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch import sharding as sh
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
@@ -45,6 +49,23 @@ def params_sharding(recipe: ShardingRecipe, cfg: ModelConfig
     meta = M.LM(cfg, "meta")
     return param_specs(recipe, {n: tuple(p.shape)
                                 for n, p in meta.named_parameters()})
+
+
+def opt_sharding(recipe: ShardingRecipe, cfg: ModelConfig) -> Dict:
+    """The optimizer state's specs: the moments as the parameters, the
+    step counter whole."""
+    ps = params_sharding(recipe, cfg)
+    return {"m": ps, "v": ps, "step": ()}
+
+
+def batch_sharding(recipe: ShardingRecipe, cfg: ModelConfig,
+                   shape: ShapeConfig) -> Dict[str, Spec]:
+    """The train batch's specs: its rows over the batch axes (each rank
+    passes the global batch and takes its rows, ``sharding.batch_rows``)."""
+    b = recipe.batch_axes or None
+    if cfg.frontend:
+        return {"embeddings": (b, None, None), "labels": (b, None)}
+    return {"tokens": (b, None), "labels": (b, None)}
 
 
 def _cache_leaf_spec(recipe: ShardingRecipe, name: str, shape) -> Spec:
@@ -103,14 +124,32 @@ def _check_model(model, cfg: ModelConfig, recipe: ShardingRecipe) -> None:
 
 def _grads(model, params, batch, cfg: ModelConfig, recipe):
     """(loss, metrics, grads by name) of one (micro)batch; a parameter the
-    loss does not reach gets a zero gradient, as ``jax.grad`` gives."""
+    loss does not reach gets a zero gradient, as ``jax.grad`` gives.
+    Under a mesh every rank holds the same (replicated) loss, and its
+    gradient is seeded with 1 / (ranks in the mesh): the gradients are
+    this rank's share, which ``sharding.sync_grads`` sums (the adjoint
+    convention of ``sharding``'s collectives)."""
     loss, metrics = M.loss_fn(model, batch, cfg, recipe)
     names = list(params)
+    seed = torch.full_like(loss, 1.0 / sh.mesh_size(recipe))
     gs = torch.autograd.grad(loss, [params[n] for n in names],
-                             allow_unused=True)
+                             grad_outputs=seed, allow_unused=True)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, {
         n: torch.zeros_like(params[n]) if g is None else g
         for n, g in zip(names, gs)}
+
+
+def loss_and_grads(model, batch, cfg: ModelConfig, recipe):
+    """(loss, metrics, grads): one batch's loss and metrics (the same on
+    every rank) and this rank's piece of every parameter's global
+    gradient, in the parameter's dtype, by name; ``batch`` is the global
+    batch as tensors on the model's device.  What the train step applies
+    with ``accum`` 1."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    loss, metrics, grads = _grads(model, params, batch, cfg, recipe)
+    return loss, metrics, sh.sync_grads(recipe, model.specs, grads)
 
 
 def build_train_step(cfg: ModelConfig, recipe: ShardingRecipe,
@@ -118,22 +157,26 @@ def build_train_step(cfg: ModelConfig, recipe: ShardingRecipe,
                      schedule_kwargs: Optional[dict] = None,
                      accum: Optional[int] = None, device=None):
     """Returns (train_step, opt_cfg).  ``train_step(model, opt_state,
-    batch)`` takes the batch's arrays (numpy or tensors) to the step's
-    device, computes the loss and its gradients (``accum`` microbatches:
-    float32 sums of the gradients divided by ``accum``, as the reference's
-    scan accumulates), scales the learning rate by
+    batch)`` takes the global batch's arrays (numpy or tensors) to the
+    step's device, computes the loss and this rank's pieces of its
+    gradients (``accum`` microbatches: float32 sums of each rank's shares
+    of the gradients, summed over the mesh once and divided by ``accum``,
+    as the reference's scan accumulates), scales the learning rate by
     ``cosine_schedule(opt_state["step"], **schedule_kwargs)`` and applies
-    ``adamw_update``, updating the model's parameters and ``opt_state`` in
-    place.  It returns (model, opt_state, metrics) with the reference's
-    metrics: loss, xent, aux, tokens, grad_norm (0-dim tensors).  A recipe
-    with a mesh raises (ROADMAP queue 1 item 5)."""
+    ``adamw_update`` with the global gradient norm, updating the model's
+    pieces and ``opt_state`` (cut as ``opt_sharding`` says) in place.  It
+    returns (model, opt_state, metrics) with the reference's metrics:
+    loss, xent, aux, tokens, grad_norm (0-dim tensors, the same on every
+    rank).  Under a mesh, a microbatch of B / accum rows takes the recipe
+    of its own shape, so its rows split as the batch axes allow."""
     dev = _device(recipe, device)
-    M._local_only(recipe)
+    check = _checked(cfg, recipe)
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.optimizer_state_dtype)
     sk = schedule_kwargs or {}
     accum = accum if accum is not None else cfg.grad_accum
 
     def train_step(model, opt_state, batch):
+        check(model)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         params = dict(model.named_parameters())
         for p in params.values():
@@ -142,17 +185,21 @@ def build_train_step(cfg: ModelConfig, recipe: ShardingRecipe,
             loss = aux = torch.zeros((), dtype=torch.float32, device=dev)
             grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
                      for n, p in params.items()}
+            B, S = batch["labels"].shape
+            micro = recipe if recipe.mesh is None else sh.make_recipe(
+                recipe.plan, cfg, ShapeConfig(S, B // accum))
             for i in range(accum):
                 mb = {k: v.reshape((accum, v.shape[0] // accum)
                                    + tuple(v.shape[1:]))[i]
                       for k, v in batch.items()}
                 mloss, mmetrics, mgrads = _grads(model, params, mb, cfg,
-                                                 recipe)
+                                                 micro)
                 for n, g in mgrads.items():
                     grads[n] += g.float()
                 del mgrads
                 loss = loss + mloss
                 aux = aux + mmetrics["aux"]
+            grads = sh.sync_grads(recipe, model.specs, grads)
             loss = loss / accum
             grads = {n: g / accum for n, g in grads.items()}
             metrics = {"xent": loss, "aux": aux / accum,
@@ -161,8 +208,10 @@ def build_train_step(cfg: ModelConfig, recipe: ShardingRecipe,
                            dtype=torch.float32, device=dev)}
         else:
             loss, metrics, grads = _grads(model, params, batch, cfg, recipe)
+            grads = sh.sync_grads(recipe, model.specs, grads)
         lr_scale = cosine_schedule(opt_state["step"], **sk)
-        om = adamw_update(params, grads, opt_state, opt_cfg, lr_scale)
+        om = adamw_update(params, grads, opt_state, opt_cfg, lr_scale,
+                          plan=recipe, specs=model.specs)
         return model, opt_state, {**metrics, **om, "loss": loss}
 
     return train_step, opt_cfg

@@ -193,18 +193,15 @@ def _mlp(mod, h, plan, sp: bool, names=("w_gate", "w_up", "w_down")):
 
 
 def moe_route(cfg: ModelConfig, plan, mode: str, seq_len: int) -> str:
-    """The reference's choice of MoE path: ``"dense"`` without expert
-    parallelism (no mesh, ``ep`` off, a model axis of one rank or one that
-    does not divide the experts); ``"ep_decode"`` in decode or where the
-    model axis does not divide the sequence; ``"ep_prefill"`` otherwise."""
+    """The reference's choice of MoE path, in every mode: ``"dense"``
+    without expert parallelism (no mesh, ``ep`` off, a model axis of one
+    rank or one that does not divide the experts); ``"ep_decode"`` in
+    decode or where the model axis does not divide the sequence;
+    ``"ep_prefill"`` otherwise (prefill and train)."""
     tp = plan.axis_size(plan.model_axis) \
         if plan is not None and plan.mesh is not None else 1
     if not (tp > 1 and plan.ep and cfg.moe.num_experts % tp == 0):
         return "dense"
-    if mode == "train":
-        raise NotImplementedError(
-            "expert-parallel MoE in training is not ported: training under "
-            "a mesh is ROADMAP queue 1 item 5.4")
     return "ep_decode" if mode == "decode" or seq_len % tp else "ep_prefill"
 
 
@@ -222,8 +219,15 @@ def apply_moe(moe: MoE, x, cfg: ModelConfig, plan=None, mode="prefill",
     reference: an assignment past an expert's capacity is dropped), and
     the blocks are all-gathered where the residual is whole.  The expert
     weights are gathered over the FSDP axis at use.  The shared experts
-    run as a TP MLP on the full sequence.  The EP routes give no load loss
-    (0), as the reference's decode; training under a mesh raises."""
+    run as a TP MLP on the full sequence.
+
+    The load loss is the reference's on its mesh.  The dense route's is
+    that of every token of the global batch: the routing fractions and
+    mean probabilities are summed over the axes that split the tokens
+    before their product.  EP prefill's is each rank's own (its tokens)
+    averaged over the model axis and then over the data axes, as the
+    reference's shard_map pmeans it; EP decode's is 0, as the
+    reference's."""
     m = cfg.moe
     # the route follows the whole sequence's length, as the reference's
     S = x.shape[1] * (plan.axis_size(plan.model_axis) if sp else 1)
@@ -232,7 +236,9 @@ def apply_moe(moe: MoE, x, cfg: ModelConfig, plan=None, mode="prefill",
     aux = x.new_zeros((), dtype=torch.float32)
     if route == "dense":
         routed = {k: sh.leaf(moe, k, plan, full=True) for k in names}
-        y, aux = moe_mod.dense_moe(routed, x, cfg)
+        # the serve modes drop the load loss: no collective for it there
+        y, aux = moe_mod.dense_moe(routed, x, cfg, plan, sh.token_axes(
+            plan, sp) if mode == "train" else ())
     else:
         routed = {k: sh.leaf(moe, k, plan) for k in names}
         model = plan.model_axis
@@ -242,7 +248,11 @@ def apply_moe(moe: MoE, x, cfg: ModelConfig, plan=None, mode="prefill",
                                             plan).reshape(x.shape)
         else:
             xs = x if sp else sh.own_block(plan, x, model, 1)
-            y, _ = moe_mod.ep_moe_local(routed, xs.reshape(-1, D), cfg, plan)
+            y, aux = moe_mod.ep_moe_local(routed, xs.reshape(-1, D), cfg,
+                                          plan)
+            if mode == "train":
+                aux = sh.all_reduce(plan, aux, plan.data_axes) \
+                    / sh.axes_size(plan, plan.data_axes)
             y = y.reshape(xs.shape)
             if not sp:
                 y = sh.all_gather(plan, y, model, 1)

@@ -28,8 +28,10 @@ strip view); prefill runs the Megatron-SP residual stream where
 ``blocks.sp_enabled``; the vocabulary lookups and the head go through the
 ISP paths of ``core/embedding.py``; and the (B,) next tokens are gathered
 back so that every rank returns the global result, as the reference's
-global arrays do.  Training takes the local plan only (ROADMAP queue 1
-item 5.4).
+global arrays do.  Training runs the same layouts (``loss_fn``: TP, SP,
+EP, FSDP and the vocab-sharded lookup and loss head), and every
+collective on the way carries its adjoint (``sharding``), so autograd
+gives each rank its share of every gradient.
 """
 from __future__ import annotations
 
@@ -185,26 +187,25 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
     """x: (B, S, D).  Returns (x, caches): prefill builds stacked K/V
     caches, decode and chunk update ``caches`` in place.  ``"train"``
     builds none and returns (x, aux), the MoE load losses of all blocks
-    summed in float32.  With ``sp`` (``blocks.sp_enabled``, prefill under
-    a plan) ``x`` and the returned x are this rank's block of the
-    sequence: the Megatron-SP residual stream.
+    summed in float32.  With ``sp`` (``blocks.sp_enabled``, prefill or
+    train under a plan) ``x`` and the returned x are this rank's block of
+    the sequence: the Megatron-SP residual stream.
 
     In train with ``cfg.remat`` "dots" or "full", each block runs under
     non-reentrant ``torch.utils.checkpoint``: its activations are dropped
     after the forward and recomputed in the backward (the flash kernel
-    launches again there).  The reference checkpoints each layer group,
+    launches again there, and the block's collectives run again, in the
+    same order on every rank).  The reference checkpoints each layer group,
     with ``dots_with_no_batch_dims_saveable`` for "dots"; PyTorch has no
     such policy, so "dots" recomputes the products too.  The gradients
     are the same either way; only memory and time differ."""
-    if mode == "train":
-        _local_only(plan)
     if mode == "train":
         aux = x.new_zeros((), dtype=torch.float32)
         remat = cfg.remat in ("dots", "full")
         for block in model.blocks:
             def run(h, block=block):
                 return blk.apply_block(block, h, positions, cfg, None,
-                                       "train", plan=plan)
+                                       "train", plan=plan, sp=sp)
             x, a = checkpoint(run, x, use_reentrant=False) if remat \
                 else run(x)
             aux = aux + a
@@ -227,14 +228,6 @@ def run_blocks(model: LM, x, positions, cfg: ModelConfig, caches=None,
     return x, caches
 
 
-def _local_only(plan) -> None:
-    if plan is not None and plan.mesh is not None:
-        raise NotImplementedError(
-            "training under a mesh (autograd through the collectives, the "
-            "vocab-sharded loss, sharded optimizer state) is not ported "
-            "(ROADMAP queue 1 item 5.4); train on the local plan")
-
-
 def loss_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             plan=None):
     """batch: {tokens (B, S) | embeddings (B, S, D), labels (B, S)}.
@@ -243,23 +236,43 @@ def loss_fn(model: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     rows clamped to 0), the MoE load loss summed over blocks and divided
     by the number of layer groups, and loss = xent + aux_loss_coef * aux.
     ``embeddings`` (a frontend's output) is cast to the model dtype and
-    used in place of the lookup.  The local plan only (``plan`` None or
-    without a mesh)."""
-    _local_only(plan)
-    if "embeddings" in batch:
-        x = batch["embeddings"].to(torch_dtype(cfg))
+    used in place of the lookup.
+
+    Under a recipe every rank passes the same global batch and computes
+    on its batch rows, with the Megatron-SP residual stream where
+    ``blocks.sp_enabled`` (the embedding arrives as this rank's block of
+    the sequence, the loss head takes the block and its labels) and the
+    vocab-sharded loss head; the masked sum and the token count are summed
+    over the axes that split the tokens (the batch axes, and the model
+    axis under SP), so the mean is the global one, as the reference's
+    ``denom`` is.  The loss and metrics come back the same on every rank;
+    the train step seeds each rank's loss with 1 / (ranks in the mesh)
+    (``launch.steps``)."""
+    frontend = "embeddings" in batch
+    B, S = batch["embeddings" if frontend else "tokens"].shape[:2]
+    rows = sh.batch_rows(plan, B)
+    sp = blk.sp_enabled(cfg, plan, S, "train")
+    if frontend:
+        x = batch["embeddings"][rows].to(torch_dtype(cfg))
+        if sp:
+            x = sh.own_block(plan, x, plan.model_axis, 1)
     else:
-        x = emb.embed_lookup(model.embed.table, batch["tokens"], cfg, plan)
-    S = x.shape[1]
+        x = emb.embed_lookup(model.embed.table, batch["tokens"][rows], cfg,
+                             plan, seq_sharded=sp)
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    x, aux = run_blocks(model, x, positions, cfg, None, "train", plan=plan)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    labels = batch["labels"]
+    x, aux = run_blocks(model, x, positions, cfg, None, "train", plan=plan,
+                        sp=sp)
+    x = rms_norm(x, sh.leaf(model, "final_norm", plan), cfg.norm_eps)
+    labels = batch["labels"][rows]
+    if sp:
+        labels = sh.own_block(plan, labels, plan.model_axis, 1)
     per_tok = emb.sharded_xent(x, model.head_table(),
-                               torch.clamp(labels, min=0), cfg, plan)
+                               torch.clamp(labels, min=0), cfg, plan,
+                               seq_sharded=sp)
     mask = (labels >= 0).float()
-    denom = torch.clamp(mask.sum(), min=1.0)
-    xent = (per_tok * mask).sum() / denom
+    axes = sh.token_axes(plan, sp)
+    denom = torch.clamp(sh.all_reduce(plan, mask.sum(), axes), min=1.0)
+    xent = sh.all_reduce(plan, (per_tok * mask).sum(), axes) / denom
     aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
     aux = aux / max(cfg.num_layers // cfg.group_size, 1)
     loss = xent + aux_coef * aux

@@ -74,12 +74,23 @@ def _router(router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
 
 
 def aux_load_loss(probs: torch.Tensor, experts: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
-    """Switch-style load-balancing loss: E * sum_e f_e * p_e."""
+                  cfg: ModelConfig, plan=None, axes=()) -> torch.Tensor:
+    """Switch-style load-balancing loss: E * sum_e f_e * p_e.  With
+    ``axes`` the tokens are split over them: the routing fractions f and
+    the mean probabilities p are those of every rank's tokens (sums and
+    counts over the axes) before their product."""
     m = cfg.moe
-    e1 = F.one_hot(experts, m.num_experts).float().sum(-2)
-    frac = e1.reshape(-1, m.num_experts).mean(0) / max(m.top_k, 1)
-    pbar = probs.reshape(-1, m.num_experts).mean(0)
+    e1 = F.one_hot(experts, m.num_experts).float().sum(-2).reshape(
+        -1, m.num_experts)
+    pf = probs.reshape(-1, m.num_experts)
+    if sh.axes_size(plan, axes) == 1:
+        frac = e1.mean(0) / max(m.top_k, 1)
+        pbar = pf.mean(0)
+    else:
+        n = sh.all_reduce(plan, torch.tensor(
+            float(pf.shape[0]), device=pf.device), axes)
+        frac = sh.all_reduce(plan, e1.sum(0), axes) / n / max(m.top_k, 1)
+        pbar = sh.all_reduce(plan, pf.sum(0), axes) / n
     return m.num_experts * (frac * pbar).sum()
 
 
@@ -94,9 +105,11 @@ def _expert_ffn(we_gate, we_up, we_down, xs: torch.Tensor) -> torch.Tensor:
 
 
 def dense_moe(params: Dict[str, torch.Tensor], x: torch.Tensor,
-              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+              cfg: ModelConfig, plan=None, axes=()
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All experts on all tokens, gate-masked combine.  x: (..., D).
-    Returns (y like x, aux load loss).  The gate weights are cast to the
+    Returns (y like x, aux load loss; over the tokens of every rank on
+    ``axes``, see ``aux_load_loss``).  The gate weights are cast to the
     activation dtype before the combine, as the reference does."""
     m = cfg.moe
     gates, experts, probs = _router(params["router"], x, cfg)
@@ -110,7 +123,7 @@ def dense_moe(params: Dict[str, torch.Tensor], x: torch.Tensor,
     w.scatter_add_(1, experts.reshape(-1, m.top_k),
                    gates.reshape(-1, m.top_k))
     y = torch.einsum("te,etd->td", w.to(x.dtype), outs)
-    return y.reshape(shape), aux_load_loss(probs, experts, cfg)
+    return y.reshape(shape), aux_load_loss(probs, experts, cfg, plan, axes)
 
 
 # ---------------------------------------------------------------------------

@@ -20,19 +20,24 @@ group a collective runs:
                            as the reference replicates then);
   all_reduce / all_gather / reduce_scatter / all_to_all
                            the collectives the blocks run over an axis
-                           group (no-ops over one rank);
+                           group (no-ops over one rank), each with its
+                           adjoint as its backward;
   leaf                     a module's parameter at use: its FSDP pieces
                            all-gathered (the model-axis split kept, unless
                            the caller wants the whole leaf);
   vocab_slices             the rows (model axis) and columns (FSDP axis) of
                            a vocabulary table this rank stores;
-  gather_batch             per-rank batch rows back to the global batch.
+  gather_batch             per-rank batch rows back to the global batch;
+  sync_grads / global_sumsq
+                           each parameter's gradient summed over the axes
+                           it is replicated on, and the global gradient
+                           norm's sum of squares from the pieces.
 
 Axis roles:
   data axes ("data")   — batch / FSDP storage sharding
   model axis ("model") — TP (heads, d_ff, vocabulary), EP (experts), SP
-                         (the sequence of the residual stream in prefill),
-                         KV spans at decode
+                         (the sequence of the residual stream in prefill
+                         and train), KV spans at decode
 
 Every block weight is stored as ``param_specs`` cuts it, and the blocks
 compute on their pieces (``models/``): column-parallel inputs, a
@@ -174,6 +179,10 @@ class ShardingRecipe:
     @property
     def fsdp_axis(self):
         return self.plan.fsdp_axis
+
+    @property
+    def data_axes(self):
+        return self.plan.data_axes
 
     @property
     def ep(self):
@@ -360,11 +369,115 @@ def _size(plan, axes) -> int:
     return axes_size(plan, axes)
 
 
+def _grad(x: torch.Tensor) -> bool:
+    """Whether a collective on ``x`` must be differentiable."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _gather(x: torch.Tensor, n: int, group, dim: int) -> torch.Tensor:
+    x = x.contiguous()
+    buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(buf, x, group=group)
+    return torch.cat(buf.chunk(n), dim=dim)
+
+
+def _scatter(x: torch.Tensor, n: int, group, dim: int) -> torch.Tensor:
+    chunks = torch.stack(x.chunk(n, dim=dim)).contiguous()
+    out = chunks.new_empty(chunks.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), chunks.view(-1), group=group)
+    return out
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
+# Each collective's backward is its adjoint over the ranks: every rank's
+# copy of a value that is replicated over an axis is its own node of the
+# global graph, so the gradient a rank holds of such a copy is only its
+# share, and the true gradient is the sum of the shares.  The train step
+# seeds each rank's (replicated) loss with 1 / (ranks in the mesh) and sums
+# each parameter's gradient over the axes it is replicated on
+# (``sync_grads``).  Under that convention the adjoints are exact at every
+# site, whatever the ranks do downstream — split work (a column-parallel
+# product) or the same work on each (Mamba on its gathered leaves):
+#   all_reduce     -> all_reduce (a row-parallel output's partial sums each
+#                     get the sum of every rank's share of the gradient;
+#                     this all-reduce stands where Megatron's "f" puts its
+#                     backward all-reduce, at the column-parallel entry:
+#                     one all-reduce of (B, S, D) a mixer either way)
+#   all_gather     -> reduce_scatter (each rank's block gets the sum of
+#                     every rank's share of its gradient)
+#   reduce_scatter -> all_gather
+#   all_to_all     -> the same all_to_all (block j of the gradient goes
+#                     back to the rank it came from)
+# and a rank's own block of a replicated value (``own_block``) is a slice,
+# whose gradient is that rank's share.
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, group, dim):
+        ctx.n, ctx.group, ctx.dim = n, group, dim
+        return _gather(x, n, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.n, ctx.group, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, group, dim):
+        ctx.n, ctx.group, ctx.dim = n, group, dim
+        return _scatter(x, n, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.n, ctx.group, ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
 def all_reduce(plan, x: torch.Tensor, axes, op=dist.ReduceOp.SUM
                ) -> torch.Tensor:
-    """The sum (or ``op``) of ``x`` over ``axes``, in place."""
-    if _size(plan, axes) > 1:
-        dist.all_reduce(x, op=op, group=axis_group(plan, axes))
+    """The sum (or ``op``) of ``x`` over ``axes``: in place without a
+    gradient, into a new tensor with one (sums only; see the adjoints
+    above)."""
+    if _size(plan, axes) == 1:
+        return x
+    group = axis_group(plan, axes)
+    if _grad(x):
+        if op != dist.ReduceOp.SUM:
+            raise ValueError("only the sum over ranks has a gradient")
+        return _AllReduce.apply(x, group)
+    dist.all_reduce(x, op=op, group=group)
     return x
 
 
@@ -374,10 +487,10 @@ def all_gather(plan, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     n = _size(plan, axes)
     if n == 1:
         return x
-    x = x.contiguous()
-    buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    dist.all_gather_into_tensor(buf, x, group=axis_group(plan, axes))
-    return torch.cat(buf.chunk(n), dim=dim)
+    group = axis_group(plan, axes)
+    if _grad(x):
+        return _AllGather.apply(x, n, group, dim)
+    return _gather(x, n, group, dim)
 
 
 def reduce_scatter(plan, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
@@ -386,11 +499,10 @@ def reduce_scatter(plan, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     n = _size(plan, axes)
     if n == 1:
         return x
-    chunks = torch.stack(x.chunk(n, dim=dim)).contiguous()
-    out = chunks.new_empty(chunks.shape[1:])
-    dist.reduce_scatter_tensor(out.view(-1), chunks.view(-1),
-                               group=axis_group(plan, axes))
-    return out
+    group = axis_group(plan, axes)
+    if _grad(x):
+        return _ReduceScatter.apply(x, n, group, dim)
+    return _scatter(x, n, group, dim)
 
 
 def own_block(plan, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
@@ -405,9 +517,10 @@ def all_to_all(plan, x: torch.Tensor, axes) -> torch.Tensor:
     source order."""
     if _size(plan, axes) == 1:
         return x
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=axis_group(plan, axes))
-    return out
+    group = axis_group(plan, axes)
+    if _grad(x):
+        return _AllToAll.apply(x, group)
+    return _exchange(x, group)
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +568,16 @@ def batch_rows(plan, n: int) -> slice:
     return slice(*shard_range(plan, axes, n))
 
 
+def token_axes(plan, sp: bool = False) -> Tuple[str, ...]:
+    """The axes that split a batch's tokens among the ranks, in mesh
+    order: the batch axes, and the model axis under the sequence-parallel
+    residual stream (``sp``)."""
+    if plan is None or plan.mesh is None:
+        return ()
+    axes = set(plan.batch_axes) | ({plan.model_axis} if sp else set())
+    return tuple(a for a in plan.mesh.mesh_dim_names if a in axes)
+
+
 def gather_batch(plan, local: torch.Tensor, n: int) -> torch.Tensor:
     """Every rank's ``batch_rows`` of a per-row result, concatenated back
     into the global batch of ``n`` rows on every rank."""
@@ -492,3 +615,97 @@ def table_spec(plan, cfg: ModelConfig) -> Optional[Spec]:
         return None
     return leaf_spec(plan, "table", (cfg.padded_vocab, cfg.d_model))
 
+
+
+# ---------------------------------------------------------------------------
+# Gradients of the pieces
+# ---------------------------------------------------------------------------
+
+
+def mesh_size(plan) -> int:
+    """The number of ranks in the plan's mesh (1 without one)."""
+    if plan is None or plan.mesh is None:
+        return 1
+    return math.prod(plan.axis_size(a) for a in plan.mesh.mesh_dim_names)
+
+
+def _split_axes(spec: Optional[Spec]) -> Tuple[str, ...]:
+    return tuple(a for entry in (spec or ()) for a in _axes(entry))
+
+
+def replicated_axes(plan, spec: Optional[Spec]) -> Tuple[str, ...]:
+    """The mesh axes, in mesh order, over which a leaf of ``spec`` is held
+    whole on every rank (every axis without a mesh: none)."""
+    if plan is None or plan.mesh is None:
+        return ()
+    split = _split_axes(spec)
+    return tuple(a for a in plan.mesh.mesh_dim_names
+                 if a not in split and plan.axis_size(a) > 1)
+
+
+_BUCKET = 1 << 20    # leaves of fewer elements share one all-reduce
+
+
+def _bucketed(plan, by_axes: Dict[Tuple[str, ...], list]) -> None:
+    """All-reduce (sum) each group of tensors over its axes, in place, in
+    float32: the small ones of a group in one collective, each large one
+    alone (groups and tensors in a fixed order)."""
+    for axes in sorted(by_axes):
+        if not axes:
+            continue
+        group = axis_group(plan, axes)
+        small = [t for t in by_axes[axes] if t.numel() < _BUCKET]
+        for t in by_axes[axes]:
+            if t.numel() >= _BUCKET:
+                f = t.float()
+                dist.all_reduce(f, group=group)
+                t.copy_(f)
+        if small:
+            flat = torch.cat([t.reshape(-1).float() for t in small])
+            dist.all_reduce(flat, group=group)
+            for t, part in zip(small, flat.split([t.numel()
+                                                   for t in small])):
+                t.copy_(part.view_as(t))
+
+
+@torch.no_grad()
+def sync_grads(plan, specs: Dict[str, Spec],
+               grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each rank's share of each parameter's gradient (the step seeds the
+    replicated loss with 1 / mesh_size) summed, in place, over the mesh
+    axes the parameter is replicated on: the data axes for every leaf
+    that FSDP does not split (whose gather's reduce-scatter sums over its
+    axis), the model axis for every leaf it does not split (norms,
+    routers, MLA's low-rank projections, and pieces of work every rank
+    repeats).  The result is this rank's piece of the global gradient,
+    the same on every rank that holds the piece; ``grads`` is returned.
+    Nothing to do without a mesh."""
+    if plan is None or plan.mesh is None:
+        return grads
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for n in sorted(grads):
+        by_axes.setdefault(replicated_axes(plan, specs.get(n)), []).append(
+            grads[n])
+    _bucketed(plan, by_axes)
+    return grads
+
+
+@torch.no_grad()
+def global_sumsq(plan, specs: Dict[str, Spec],
+                 tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The float32 sum of squares of the global leaves of which
+    ``tensors`` are this rank's pieces (each the same on the ranks that
+    hold it): each piece's sum summed over the axes that split its leaf,
+    and counted once over the axes it is replicated on."""
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for n in sorted(tensors):
+        axes = ()
+        if plan is not None and plan.mesh is not None:
+            split = _split_axes(specs.get(n))
+            axes = tuple(a for a in plan.mesh.mesh_dim_names if a in split)
+        by_axes.setdefault(axes, []).append(
+            tensors[n].float().square().sum())
+    sums = {axes: torch.stack(v).sum().reshape(1)
+            for axes, v in by_axes.items()}
+    _bucketed(plan, {a: [t] for a, t in sums.items()})
+    return torch.stack([t[0] for t in sums.values()]).sum()

@@ -11,9 +11,14 @@ loader's ``set_shares`` every ``rebalance_every`` steps.
 
 The parameters come from the port's ``init_params`` with a
 ``torch.Generator`` seeded with ``TrainConfig.seed`` on the training
-device; the step is ``launch.steps.build_train_step`` on the local plan.
-Like every entry point of the port, ``train`` runs on the card unless it
-is given ``device="cpu"``.
+device; the step is ``launch.steps.build_train_step``.  Under a ``mesh``
+(every rank calls ``train`` with the same arguments, in a process group
+the caller started) the plan is ``make_plan(mesh, cfg)``'s: each rank
+draws the same global weights and keeps its pieces, the optimizer state
+is cut the same way, and the checkpoints hold the global arrays (written
+by rank 0), so a run restores onto any mesh or none.  Like every entry
+point of the port, ``train`` runs on the card unless it is given
+``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager, latest_step
 from repro_torch.config import ModelConfig, ShapeConfig
@@ -59,11 +65,13 @@ class TrainState:
 def build_state(cfg: ModelConfig, recipe, opt_cfg: AdamWConfig, seed: int,
                 device=None) -> TrainState:
     """Fresh parameters from ``init_params`` with ``torch.Generator`` seeded
-    ``seed`` on the device, and zero AdamW state.  The local plan only."""
-    M._local_only(recipe)
+    ``seed`` on the device, and zero AdamW state.  Under a recipe with a
+    mesh, this rank's pieces (``params_sharding`` / ``opt_sharding``) of
+    the global weights every plan draws from the same seed, so a mesh and
+    no mesh start from the same model."""
     dev = resolve_device(device)
     model = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                          dev)
+                          dev, plan=recipe)
     model.requires_grad_(True)
     return TrainState(params=model, opt_state=adamw_init(
         dict(model.named_parameters()), opt_cfg), step=0)
@@ -72,6 +80,13 @@ def build_state(cfg: ModelConfig, recipe, opt_cfg: AdamWConfig, seed: int,
 def _ckpt_tree(state: TrainState) -> Dict:
     return {"params": dict(state.params.named_parameters()),
             "opt": state.opt_state}
+
+
+def _ckpt_specs(state: TrainState) -> Dict:
+    """The specs of ``_ckpt_tree``'s leaves (the model's pieces; the
+    moments as the parameters, the step whole)."""
+    ps = state.params.specs
+    return {"params": ps, "opt": {"m": ps, "v": ps, "step": ()}}
 
 
 @torch.no_grad()
@@ -94,7 +109,9 @@ def train(cfg: ModelConfig, data_cfg: DataConfig, tcfg: TrainConfig,
     """Train for ``tcfg.steps`` steps (resuming from ``tcfg.ckpt_dir``'s
     latest committed step when there is one).  ``metrics_cb(step,
     metrics)`` gets each step's float metrics and ``step_time_s``, the host
-    clock over the step and the read of its metrics."""
+    clock over the step and the read of its metrics.  With a ``mesh``,
+    every rank of it calls ``train`` alike; a rank returns once the last
+    checkpoint has been committed."""
     dev = resolve_device(device)
     shape = ShapeConfig(data_cfg.seq_len, data_cfg.global_batch)
     plan = make_plan(mesh, cfg)
@@ -111,7 +128,8 @@ def train(cfg: ModelConfig, data_cfg: DataConfig, tcfg: TrainConfig,
 
     mgr = None
     if tcfg.ckpt_dir:
-        mgr = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts)
+        mgr = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep_ckpts,
+                                plan=recipe)
         if latest_step(tcfg.ckpt_dir) is not None:
             tree, man = mgr.restore(_ckpt_tree(state))
             _load(state, tree)
@@ -147,11 +165,15 @@ def train(cfg: ModelConfig, data_cfg: DataConfig, tcfg: TrainConfig,
                 print(f"[train] step {state.step} loss={metrics['loss']:.4f} "
                       f"({dt:.2f}s)")
             if mgr and state.step % tcfg.ckpt_every == 0:
-                mgr.save_async(state.step, _ckpt_tree(state))
+                mgr.save_async(state.step, _ckpt_tree(state),
+                               specs=_ckpt_specs(state))
         if mgr:
             mgr.wait()
-            mgr.save_async(state.step, _ckpt_tree(state))
+            mgr.save_async(state.step, _ckpt_tree(state),
+                           specs=_ckpt_specs(state))
             mgr.wait()
+            if recipe.mesh is not None:
+                dist.barrier()      # rank 0 has committed the last save
     finally:
         signal.signal(signal.SIGTERM, old)
     return state

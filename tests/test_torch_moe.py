@@ -205,14 +205,14 @@ class _FakeMesh:
 def test_expert_parallel_recipe_is_refused(model_ranks, raises):
     """A recipe whose model axis has more than one rank dividing the
     experts is where the reference takes expert parallelism (its plans
-    keep ``ep`` on): the port takes it too in serving — the all_to_all
-    route for a prefill whose sequence the axis divides, the psum route in
-    decode or where it does not — and refuses it in training (training
-    under a mesh, ROADMAP queue 1 item 5.4).  Elsewhere (one rank, a rank
-    count that does not divide 8 experts) the reference runs dense_moe, and
-    so does the port, in every mode.  The expert-parallel routes' numbers
-    are held to the reference on gloo meshes in
-    ``test_torch_sharded_blocks.py``."""
+    keep ``ep`` on): the port takes it too, in serving and, no longer
+    refused, in training — the all_to_all route for a prefill or train
+    step whose sequence the axis divides, the psum route in decode or
+    where it does not.  Elsewhere (one rank, a rank count that does not
+    divide 8 experts) the reference runs dense_moe, and so does the port,
+    in every mode.  The expert-parallel routes' numbers are held to the
+    reference on gloo meshes in ``test_torch_sharded_blocks.py`` (serve)
+    and ``test_torch_sharded_train.py`` (the loss and its gradients)."""
     jcfg, tcfg = _cfgs(1)
     _, tp = _params(jcfg, DTYPES["float32"])
     moe = t_blocks.MoE(tcfg, torch.float32, "cpu")
@@ -224,13 +224,12 @@ def test_expert_parallel_recipe_is_refused(model_ranks, raises):
     recipe = sh.ShardingRecipe(plan=plan, batch_axes=(), seq_axes=())
     x = torch.zeros((2, 3, tcfg.d_model))
     if raises:
-        assert t_blocks.moe_route(tcfg, recipe, "prefill", 3) == "ep_decode"
-        assert t_blocks.moe_route(tcfg, recipe, "prefill",
-                                  model_ranks) == "ep_prefill"
+        for mode in ("prefill", "train"):
+            assert t_blocks.moe_route(tcfg, recipe, mode, 3) == "ep_decode"
+            assert t_blocks.moe_route(tcfg, recipe, mode,
+                                      model_ranks) == "ep_prefill"
         assert t_blocks.moe_route(tcfg, recipe, "decode",
                                   model_ranks) == "ep_decode"
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            t_blocks.apply_moe(moe, x, tcfg, recipe, "train")
     else:
         for mode in ("train", "prefill", "decode"):
             assert t_blocks.moe_route(tcfg, recipe, mode, 3) == "dense"

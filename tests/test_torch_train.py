@@ -38,6 +38,7 @@ from repro_torch.launch import train as t_train_cli
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                clip_by_global_norm, cosine_schedule)
 from repro_torch.sharding import make_plan, make_recipe
+from repro_torch.train import train_loop as t_train_loop
 from repro_torch.train.train_loop import TrainConfig, train
 
 # (B, Sq, Skv, H, Hkv, dh, dv, window, q_offset, chunk): GQA groups 1, 4
@@ -274,15 +275,72 @@ def test_dense_chunked_xent_matches_reference():
 
 
 def test_vocab_sharded_loss_head_raises():
-    """A plan whose model axis holds the vocabulary (here a stand-in with
-    one rank on it) takes the sharded loss head, which is not ported."""
-    cfg = dataclasses.replace(t_reduced("yi-9b"), dtype="float32")
-    plan = types.SimpleNamespace(mesh=object(), model_axis="model",
-                                 axis_size=lambda name: 1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_emb.sharded_xent(torch.zeros(1, 2, cfg.d_model),
-                           torch.zeros(cfg.padded_vocab, cfg.d_model),
-                           torch.zeros(1, 2, dtype=torch.int32), cfg, plan)
+    """A plan whose model axis holds the vocabulary (here a one-rank
+    stand-in, so no collective runs) takes the vocab-sharded loss head,
+    which once raised and now is the reference's ``sharded_xent`` on a
+    (1, 1) mesh: per-token losses within 1e-5 and the gradients of the
+    masked mean (x and the head) within 1e-5 of the largest, at a chunk
+    (4) that does not divide B * S (14) and a padded vocabulary (50 of 64
+    rows), whose pad columns the sharded head does not mask (the
+    reference's rule; the dense head masks them).  The sharded loss over
+    gloo ranks is held to the reference in test_torch_sharded_train.py."""
+    from jax.sharding import AxisType
+    from repro.sharding import make_plan as j_plan, make_recipe as j_recipe
+    from repro.config import ShapeConfig as JShape
+    from repro_torch import sharding as sh
+
+    jcfg = dataclasses.replace(j_reduced("yi-9b"), dtype="float32",
+                               vocab_size=50, d_model=16)
+    cfg = dataclasses.replace(t_reduced("yi-9b"), dtype="float32",
+                              vocab_size=50, d_model=16)
+    assert cfg.padded_vocab == 64
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 7, 16)).astype(np.float32)
+    w = rng.normal(size=(64, 16)).astype(np.float32) * 0.3
+    labels = rng.integers(0, 50, (2, 7)).astype(np.int32)
+    labels[1, 2] = labels[0, 6] = -1
+    mesh = jax.make_mesh((1, 1), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    jrec = j_recipe(j_plan(mesh, jcfg), jcfg, JShape("t", 7, 2, "train"))
+
+    def j_loss(x, w):
+        per = j_emb.sharded_xent(x, w, jnp.maximum(labels, 0), jrec, jcfg,
+                                 chunk=4, seq_sharded=False)
+        mask = (labels >= 0).astype(jnp.float32)
+        return (per * mask).sum() / mask.sum(), per
+
+    (jl, jper), jg = jax.value_and_grad(j_loss, argnums=(0, 1),
+                                        has_aux=True)(jnp.asarray(x),
+                                                      jnp.asarray(w))
+    plan = sh.ParallelPlan(mesh=_OneRankMesh(), data_axes=("data",),
+                           model_axis="model")
+    recipe = sh.ShardingRecipe(plan=plan, batch_axes=(), seq_axes=())
+    assert sh.vocab_sharded(recipe, cfg)
+    tx, tw = (torch.from_numpy(a).requires_grad_(True) for a in (x, w))
+    tl = torch.from_numpy(labels)
+    per = t_emb.sharded_xent(tx, tw, torch.clamp(tl, min=0), cfg, recipe,
+                             chunk=4)
+    mask = (tl >= 0).float()
+    loss = (per * mask).sum() / mask.sum()
+    np.testing.assert_allclose(per.detach().numpy(), np.asarray(jper),
+                               rtol=0, atol=1e-5)
+    assert abs(float(loss.detach()) - float(jl)) <= 1e-5
+    got = torch.autograd.grad(loss, (tx, tw))
+    for g, want in zip(got, jg):
+        _close_rel(g.numpy(), np.asarray(want), 1e-5, "sharded xent grad")
+    assert float(got[1][50:].abs().max()) > 0.0   # pad columns not masked
+
+
+class _OneRankMesh:
+    """A stand-in DeviceMesh with one rank on ("data", "model")."""
+    mesh_dim_names = ("data", "model")
+    device_type = "cpu"
+
+    def size(self, i):
+        return 1
+
+    def get_local_rank(self, name):
+        return 0
 
 
 # --- build_train_step --------------------------------------------------------
@@ -326,16 +384,46 @@ def test_train_step_matches_reference(accum):
 
 
 def test_train_step_refuses_a_mesh():
+    """A recipe with a mesh, which the train step once refused, now
+    trains: on the one-rank (1, 1) mesh of a gloo group (every collective
+    over one rank, the vocab-sharded head) three steps give the local
+    recipe's metrics within 1e-6 and its parameters within 1e-6.  Meshes
+    of several ranks are held to the reference in
+    test_torch_sharded_train.py."""
+    from repro_torch.launch import mesh as t_mesh
     cfg = dataclasses.replace(t_reduced("yi-9b"), dtype="float32")
-    recipe = make_recipe(make_plan(None, cfg), cfg, ShapeConfig(8, 2))
-    meshed = dataclasses.replace(recipe, plan=dataclasses.replace(
-        recipe.plan, mesh=_CpuMesh()))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_steps.build_train_step(cfg, meshed, device="cpu")
-
-
-class _CpuMesh:
-    device_type = "cpu"
+    dcfg = t_pipe.DataConfig(seq_len=16, global_batch=4,
+                             vocab_size=cfg.vocab_size, seed=3)
+    loader = t_pipe.ShardedLoader(
+        t_pipe.SyntheticTokenSource(dcfg.vocab_size, dcfg.seed), dcfg)
+    shape = ShapeConfig(16, 4)
+    opt = AdamWConfig(lr=1e-3)
+    runs = []
+    mesh = t_mesh.make_local_mesh(device="cpu")
+    try:
+        for m in (None, mesh):
+            recipe = make_recipe(make_plan(m, cfg), cfg, shape)
+            model = t_train_loop.build_state(cfg, recipe, opt, 0,
+                                             device="cpu").params
+            step, _ = t_steps.build_train_step(cfg, recipe, opt,
+                                               {"warmup": 2, "total": 10},
+                                               device="cpu")
+            state = adamw_init(dict(model.named_parameters()), opt)
+            ms = [step(model, state, loader.global_batch_at(i))[2]
+                  for i in range(3)]
+            runs.append((model, ms))
+    finally:
+        t_mesh.teardown()
+    (local, lm), (meshed, mm) = runs
+    assert meshed.specs and all(not any(s) for s in meshed.specs.values())
+    for a, b in zip(lm, mm):
+        for k in ("loss", "grad_norm", "xent", "tokens"):
+            assert abs(float(a[k]) - float(b[k])) <= 1e-6, k
+    want = dict(local.named_parameters())
+    for n, p in meshed.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(),
+                                   want[n].detach().numpy(), rtol=0,
+                                   atol=1e-6, err_msg=n)
 
 
 # --- data pipeline -----------------------------------------------------------
