@@ -195,6 +195,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 the plain attention backward, AdamW, GEMMs and the rest,
                 with the idle share; four steps on one repeated batch lower
                 its loss (a wrong but finite gradient would not);
+  16b. roofline — the port's analysis layer (repro_torch/analysis) on the
+                train phase's model: one yi-9b train step counted by its op
+                recorder, the next profiled, the next timed with its peak
+                memory; then one decode tick of the same model on the
+                paged layout (8 slots over 4096 rows) counted, timed and
+                profiled.  Printed for each: the counted FLOPs and HBM
+                bytes, the roofline step at the H100's peaks against the
+                measured step, the MFU (the reference's definition, and
+                the train phase's share for the train step), the kernels
+                by device time beside their counted bounds, the predicted
+                peak (arguments + counted temporaries) against
+                max_memory_allocated.  Asserted: no kernel site's and no
+                step's bound over 105% of its measured time, the peak
+                within 20%, each kernel launched as counted.  Meanwhile
+                three production cells dry-run on the CPU in their own
+                processes (yi-9b train_4k and prefill_32k, gemma3-12b
+                decode_32k, each one rank of the 16 x 16 pod): bytes a
+                rank against 80 GB, the three terms, the dominant one, the
+                MFU;
   17. elastic — launch.elastic.supervise runs the train CLI on xlstm-125m
                 at full width and ELASTIC_LAYERS = 4 of its 12 layers
                 (6 steps of 4 x 256, a checkpoint every 2) with
@@ -294,6 +313,10 @@ contract before and after lse), one JSON line, for the same use.
     python3 chip_smoke.py --mesh
 
 builds the kernels and runs only the two-rank phase, serve and train.
+
+    python3 chip_smoke.py --roofline
+
+builds the kernels and runs only the train phase and the roofline phase.
 """
 from __future__ import annotations
 
@@ -315,11 +338,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+# the card's peaks and the kernels' operation and byte counts are the
+# port's (analysis/roofline.py, analysis/op_trace.py)
+from repro_torch.analysis.op_trace import KERNEL_COSTS  # noqa: E402
+from repro_torch.analysis.roofline import bound, peak_flops  # noqa: E402
+
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
-# dense peaks (H100 SXM data sheet): bf16 and TF32 on the tensor cores,
-# fp32 on the CUDA cores
-PEAK_FLOPS = {torch.bfloat16: 989e12, "tf32": 495e12, torch.float32: 67e12}
 N_TIMED = 25
 SPIN_CYCLES = 10_000_000    # ~5 ms of GPU spin at the H100's ~1.98 GHz
 
@@ -461,12 +486,12 @@ def max_err(got, want, dtype) -> float:
     return err
 
 
-def bound(nbytes: float, flops: float, dtype):
-    """The least time the card could take: bytes over the memory rate or
-    operations over the peak rate of ``dtype``, whichever is larger."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def site_bound(name: str, *args, **kwargs):
+    """``bound`` of one kernel call from its site's operation and byte
+    counts (``analysis.op_trace.KERNEL_COSTS``, what the step counter
+    counts): (ms, bound_by, bytes)."""
+    c = KERNEL_COSTS[name](*args, **kwargs)
+    return bound(c.bytes, c.flops, c.dtype) + (c.bytes,)
 
 
 def bf16_ulps(a, b) -> int:
@@ -825,11 +850,8 @@ def flash_train_row(dev, gen, flush):
             f"{gerrs[dtype]:.3g} (bound {GRAD_REL_TOL[dtype]})")
         del qq, kk, vv, got, plain, want, wlse, out, lse
     # q/k/v/dout: the bf16 inputs of the last iteration
-    pairs = S * (S + 1) // 2
-    nbytes = (q.numel() + k.numel() + v.numel() + B * S * H * dh) * 2 \
-        + B * S * H * 4
-    bound_ms, bound_by = bound(nbytes, 4 * dh * pairs * B * H,
-                               torch.bfloat16)
+    bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
+                                       return_lse=True)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     row = dict(
         name="flash_attention", kernel="flash_attention", path="yi-9b train",
@@ -957,8 +979,8 @@ def gather_rows(dev, flushes):
     for n, (table, idx, err, err32) in gather_cases(dev).items():
         V, D = table.shape
         idx64 = idx.long()
-        nbytes = 2 * n * D * 2 + 4 * n          # rows read + written, ids
-        bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+        # rows read + written, ids
+        bound_ms, bound_by, nbytes = site_bound("isp_gather", table, idx)
         kern = lambda: ig.isp_gather(table, idx)   # noqa: E731
         lib = lambda: torch.nn.functional.embedding(idx64, table)  # noqa
         rows.append(dict(
@@ -1012,9 +1034,7 @@ def tp2_rows(dev, gen, flushes):
         q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh)
         errs[dtype] = max_err([fa.flash_attention(q, k, v)],
                               [ref.chunked_attention(q, k, v)], dtype)
-    pairs = S * (S + 1) // 2
-    bound_ms, bound_by = bound((2 * q.numel() + k.numel() + v.numel()) * 2,
-                               4 * dh * pairs * B * H, torch.bfloat16)
+    bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows.append(dict(
@@ -1045,9 +1065,7 @@ def tp2_rows(dev, gen, flushes):
         errs[dtype] = max_err(isp.decode_partial(*args, window=None),
                               isp.decode_partial_ref(*args, window=None),
                               dtype)
-    nbytes = (B * H * dh * 2 + 2 * valid * Hkv * dh * 2 + kpos.numel() * 4
-              + B * 4 + B * H * dh * 4 + 2 * B * H * 4)
-    bound_ms, bound_by = bound(nbytes, 4 * valid * H * dh, torch.bfloat16)
+    bound_ms, bound_by, _ = site_bound("isp_decode", *args, window=None)
     rows.append(dict(
         name="decode_partial", kernel="isp_decode", path=path, route="cuda",
         source="src/repro_torch/kernels/csrc/isp_decode.cu",
@@ -1069,9 +1087,8 @@ def tp2_rows(dev, gen, flushes):
     assert torch.equal(got, want), "isp_gather tp2: not exact"
     # an id off the shard reads no row (the kernel stores zeros): the
     # bytes are the on-shard rows read, every row written and the ids
-    n, n_on = 8, int((idx < 32000).sum())
-    nbytes = (n_on + n) * 4096 * 2 + 4 * n
-    bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+    n_on = int((idx < 32000).sum())
+    bound_ms, bound_by, _ = site_bound("isp_gather", table, idx)
     lib_idx = idx.long().clamp(0, 31999)
     rows.append(dict(
         name="isp_gather", kernel="isp_gather", path=path, route="cuda",
@@ -1114,10 +1131,8 @@ def tp2_train_rows(dev, gen, flushes):
         errs[dtype] = max_err([out], [want], dtype)
         lerrs[dtype] = lse_err(lse, wlse)
         del out, lse, want, wlse
-    pairs = S * (S + 1) // 2
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * S * H * 4
-    bound_ms, bound_by = bound(nbytes, 4 * dh * pairs * B * H,
-                               torch.bfloat16)
+    bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
+                                       return_lse=True)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = [dict(
@@ -1141,9 +1156,8 @@ def tp2_train_rows(dev, gen, flushes):
                         dtype=torch.int32).to(dev)
     got, want = ig.isp_gather(table, idx), ig.isp_gather_ref(table, idx)
     assert torch.equal(got, want), "isp_gather tp2 train: not exact"
-    n, n_on = B * S, int((idx < 32000).sum())
-    nbytes = (n_on + n) * 4096 * 2 + 4 * n
-    bound_ms, bound_by = bound(nbytes, 0, torch.bfloat16)
+    n_on = int((idx < 32000).sum())
+    bound_ms, bound_by, _ = site_bound("isp_gather", table, idx)
     lib_idx = idx.long().clamp(0, 31999)
     rows.append(dict(
         name="isp_gather", kernel="isp_gather", path=path, route="cuda",
@@ -1175,9 +1189,7 @@ def paged_edge_timing(dev, gen, flush):
     q, kp = args[0], args[1]
     B, H, dh = q.shape
     Hkv = kp.shape[2]
-    nbytes = (q.numel() * 2 + 2 * valid * Hkv * dh * 2 + args[3].numel() * 4
-              + B * 4 + B * H * dh * 4 + 2 * B * H * 4)
-    bound_ms, bound_by = bound(nbytes, 4 * valid * H * dh, torch.bfloat16)
+    bound_ms, bound_by, _ = site_bound("paged_decode", *args)
     ms = time_ms(lambda: pd.paged_decode_partial(*args), flush)
     plain = time_ms(lambda: pd.paged_decode_partial_ref(*args), flush)
     log(f"[kernels] paged_decode hymba heads (edge, off every path) B={B} "
@@ -1222,11 +1234,8 @@ def kernel_phase(dev):
         # q/kp/... are the bf16 inputs of the last iteration
         B, H, dh = q.shape
         Hkv = kp.shape[2]
-        nbytes = (q.numel() * 2 + 2 * valid * Hkv * dh * 2
-                  + pages.numel() * 4 + cur.numel() * 4 + B * H * dh * 4
-                  + 2 * B * H * 4)
-        bound_ms, bound_by = bound(nbytes, 4 * valid * H * dh,
-                                   torch.bfloat16)
+        bound_ms, bound_by, _ = site_bound("paged_decode", q, kp, vp, pages,
+                                           cur)
         rows.append(dict(
             name="paged_decode_partial", kernel="paged_decode", path=path,
             route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -1268,10 +1277,8 @@ def kernel_phase(dev):
         q, k, v, kpos, cur = args
         B, H, dh = q.shape
         S, Hkv = k.shape[1], k.shape[2]
-        nbytes = (q.numel() * 2 + 2 * valid * Hkv * dh * 2 + kpos.numel() * 4
-                  + cur.numel() * 4 + B * H * dh * 4 + 2 * B * H * 4)
-        bound_ms, bound_by = bound(nbytes, 4 * valid * H * dh,
-                                   torch.bfloat16)
+        bound_ms, bound_by, _ = site_bound("isp_decode", *args,
+                                           window=window)
         rows.append(dict(
             name="decode_partial", kernel="isp_decode", path=path,
             route="cuda", source="src/repro_torch/kernels/csrc/isp_decode.cu",
@@ -1309,11 +1316,9 @@ def kernel_phase(dev):
         # q/k/v are the bf16 inputs of the last iteration; (query, key)
         # pairs the causal mask and the window leave; q is read and the
         # output (B, S, H, dv) written once
+        bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
+                                           window=window)
         w = S if window is None else window
-        pairs = sum(min(i + 1, w) for i in range(S))
-        nbytes = (q.numel() + B * S * H * dv + k.numel() + v.numel()) * 2
-        bound_ms, bound_by = bound(nbytes, 2 * (dh + dv) * pairs * B * H,
-                                   torch.bfloat16)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if window is None:
             lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
@@ -1563,10 +1568,8 @@ def pool_rows(a, errs, flushes, want_ops=None):
     rows = []
     for name, (dt, w) in a.sent_cases.items():
         table = a.s_tab[dt]
-        nbytes = (8 * R * L + (0 if w is None else 4 * R * L)
-                  + int(torch.unique(a.s_idx).numel()) * E
-                  * table.element_size() + R * E * 4)
-        bound_ms, bound_by = bound(nbytes, 2 * R * L * E, torch.float32)
+        bound_ms, bound_by, nbytes = site_bound(
+            "isp_gather_pool", table, a.s_idx, a.s_seg, R, weights=w)
         kern = lambda: ig.isp_gather_pool(   # noqa: E731
             table, a.s_idx, a.s_seg, R, weights=w)
         lib = lib_clean = None
@@ -1591,10 +1594,8 @@ def pool_rows(a, errs, flushes, want_ops=None):
     # one shard of the sharded pool (shard 5: rows [20480, 24576))
     sh, off = a.shards[5], 5 * a.vloc
     inside = (a.p_idx >= off) & (a.p_idx < off + a.vloc)
-    nbytes = (8 * a.SN + int(torch.unique(a.p_idx[inside]).numel()) * a.SD * 4
-              + a.NSEG * a.SD * 4)
-    bound_ms, bound_by = bound(nbytes, 2 * int(inside.sum()) * a.SD,
-                               torch.float32)
+    bound_ms, bound_by, nbytes = site_bound(
+        "isp_gather_pool", sh, a.p_idx, a.p_seg, a.NSEG, shard_offset=off)
     kern = lambda: ig.isp_gather_pool(sh, a.p_idx, a.p_seg,  # noqa: E731
                                       a.NSEG, shard_offset=off)
     rows.append(dict(
@@ -1769,16 +1770,14 @@ def apps_phase(dev):
     norm = torch.nn.functional.normalize
     for (dt, q) in rec:
         qs, c = queries[q], corpus[dt]
-        flops = 2 * q * N * D
-        nbytes = q * D * 4 + c.numel() * c.element_size() + q * K * 8
         # the function's bound: its one product at the tensor cores' peak
         # for the corpus type (TF32 for fp32, bf16); beside it the route's
         # three products (3xTF32 or bf16x3) and the first design's one
         # fp32 product on the CUDA cores
-        tc = torch.bfloat16 if dt == torch.bfloat16 else "tf32"
-        bound_ms, bound_by = bound(nbytes, flops, tc)
-        route_ms, _ = bound(nbytes, 3 * flops, tc)
-        cuda_core_ms, _ = bound(nbytes, flops, torch.float32)
+        cost = KERNEL_COSTS["topk_similarity"](qs, c, K)
+        bound_ms, bound_by = bound(cost.bytes, cost.flops, cost.dtype)
+        route_ms, _ = bound(cost.bytes, 3 * cost.flops, cost.dtype)
+        cuda_core_ms, _ = bound(cost.bytes, cost.flops, torch.float32)
         ms = time_ms(lambda: tk.topk_similarity(qs, c, K), flush)
         qn = norm(qs, dim=-1, eps=1e-9)
         cn = norm(c.float(), dim=-1, eps=1e-9)
@@ -2781,9 +2780,9 @@ def moe_phase(cfg, params, requests, dev):
         flops = 2 * n_rows * 3 * cfg.d_model * m.d_ff_expert
         log(f"[llama4 moe] one layer's dense MoE at {n_rows} rows: "
             f"{ms:.4f} ms on the card; bytes bound "
-            f"{dense_b / HBM_BYTES_PER_S * 1e3:.4f} ms for all "
+            f"{bound(dense_b, 0, torch.bfloat16)[0]:.4f} ms for all "
             f"{m.num_experts} experts ({dense_b / 1e9:.3f} GB), "
-            f"{grouped_b / HBM_BYTES_PER_S * 1e3:.4f} ms for the {used} "
+            f"{bound(grouped_b, 0, torch.bfloat16)[0]:.4f} ms for the {used} "
             f"experts routed to + the shared one ({grouped_b / 1e9:.3f} GB); "
             f"{flops * (m.num_experts + 1) / 1e9:.1f} GFLOP dense against "
             f"{flops * (m.top_k + 1) / 1e9:.1f} GFLOP routed")
@@ -3335,7 +3334,7 @@ def profile_train_step(step_fn, state, batch, step_ms):
     if not kern:
         log("[profile] train step: device time not measured (the profiler "
             "recorded no device events)")
-        return
+        return None, prof
     busy, end = 0.0, -1.0
     for e in sorted(kern, key=lambda e: e.time_range.start):
         s0, s1 = e.time_range.start, e.time_range.end
@@ -3382,7 +3381,7 @@ def profile_train_step(step_fn, state, batch, step_ms):
         for us, n, name in top:
             log(f"[profile] train step:   {us / 1e3:8.1f} ms x{n:<5d} "
                 f"[{cls.split(' (')[0]}] {name[:70]}")
-    return {k: v / 1e3 for k, v in parts.items()}
+    return {k: v / 1e3 for k, v in parts.items()}, prof
 
 
 def train_phase(dev):
@@ -3392,8 +3391,12 @@ def train_phase(dev):
     TRAIN_SEQ, no checkpoint.  Every step's loss and grad norm finite;
     flash launched on every layer twice a step (forward and the remat
     recompute), no other kernel; the median step, tokens/s, model FLOPs
-    against the bf16 peak, peak memory; one step profiled; then four
-    steps on one repeated batch at lr 1e-4 must lower its loss."""
+    against the bf16 peak, peak memory; one step counted by the port's
+    op recorder, the next profiled, the next timed for its peak memory
+    (the roofline phase reads the three, ``roofline_phase``); then four
+    steps on one repeated batch at lr 1e-4 must lower its loss.  The
+    roofline phase's dry-runs start first and trace on the CPU meanwhile.
+    Returns (launches, summary, what the roofline phase needs)."""
     from repro_torch.config import ShapeConfig, get_config
     from repro_torch.data import DataConfig, ShardedLoader, \
         SyntheticTokenSource
@@ -3403,6 +3406,7 @@ def train_phase(dev):
     from repro_torch.optim import AdamWConfig
     from repro_torch.sharding import make_plan, make_recipe
     from repro_torch.train import train_loop as TL
+    dryruns = start_dryruns()
     cfg = dataclasses.replace(get_config("yi-9b"), num_layers=TRAIN_LAYERS)
     assert cfg.remat == "dots" and cfg.optimizer_state_dtype == "float32"
     n = M.count_params(cfg)
@@ -3435,7 +3439,7 @@ def train_phase(dev):
     med_ms = float(np.median(step_s)) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops, blocks, head = train_flops(cfg, state.params)
-    share = flops / (med_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    share = flops / (med_ms / 1e3) / peak_flops(torch.bfloat16)
     log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
         f"losses {[round(m['loss'], 4) for m in mets]}, grad norms "
         f"{[round(m['grad_norm'], 3) for m in mets]}; launches {launches}")
@@ -3455,8 +3459,14 @@ def train_phase(dev):
         {"warmup": tcfg.warmup, "total": tcfg.steps}, device=dev)
     loader = ShardedLoader(SyntheticTokenSource(dcfg.vocab_size, dcfg.seed),
                            dcfg)
-    parts = profile_train_step(step_fn, state,
-                               loader.global_batch_at(TRAIN_STEPS), med_ms)
+    # the next three steps: counted, profiled, timed with its peak memory
+    counted = count_call(lambda: step_fn(state.params, state.opt_state,
+                                         loader.global_batch_at(TRAIN_STEPS)))
+    parts, prof = profile_train_step(
+        step_fn, state, loader.global_batch_at(TRAIN_STEPS + 1), med_ms)
+    timed = measure_call(lambda: step_fn(
+        state.params, state.opt_state,
+        loader.global_batch_at(TRAIN_STEPS + 2)))
     # a repeated batch: four steps on it must lower its loss (at lr 1e-4
     # with no warmup: AdamW moves each weight by about lr a step whatever
     # its gradient's scale, and 1e-3 overshoots by the third step, ~6% of
@@ -3473,12 +3483,262 @@ def train_phase(dev):
     assert all(math.isfinite(x) for x in fit) and fit[-1] < fit[0], fit
     log(f"[train] one repeated batch, 4 steps at lr 1e-4: loss {fit[0]:.4f} "
         f"-> {fit[-1]:.4f} ({[round(x, 4) for x in fit]})")
-    del state, step_fn, fit_fn
+    del step_fn, fit_fn
+    summary = dict(median_step_ms=med_ms, tokens_per_s=tokens / med_ms * 1e3,
+                   model_tflop=flops / 1e12, peak_share=share,
+                   peak_gb=peak / 1e9, profile_ms=parts)
+    return launches, summary, SimpleNamespace(
+        cfg=cfg, state=state, counted=counted, prof=prof, timed=timed,
+        med_ms=med_ms, train_flops=flops, dryruns=dryruns)
+
+
+# -- the roofline phase -------------------------------------------------------
+# the port's analysis layer on real steps: a step counted by its op
+# recorder (analysis/op_trace.py) held against the same step measured
+ROOFLINE_SLACK = 1.05        # a bound over 105% of its measured time means
+                             # the counter counts work the step does not do
+ROOFLINE_PEAK_TOL = 0.20     # predicted peak bytes against the measured peak
+# yi-9b's decode tick on the paged layout: 8 slots, pages of 16, a 4096-row
+# span a slot, positions drawn in [1024, 4096) from SEED
+DECODE_SLOTS, DECODE_SPAN = 8, 4096
+# the production cells dry-run on the CPU (fake group of 256 ranks, meta)
+DRYRUN_CELLS = (("yi-9b", "train_4k"), ("yi-9b", "prefill_32k"),
+                ("gemma3-12b", "decode_32k"))
+DRYRUN_DIR = ROOT / "build" / "dryrun_smoke"
+DRYRUN_TIMEOUT = 600
+_CHILDREN = []
+
+
+def _stop_children() -> None:
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_dryruns():
+    """One process a production cell (DRYRUN_CELLS) tracing its rank's
+    step on the CPU with no card visible; read by ``dryrun_report``."""
+    import atexit
+    import os
+    import shutil
+    if not _CHILDREN:
+        atexit.register(_stop_children)
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in DRYRUN_CELLS:
+        p = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "pod", "--out",
+             str(DRYRUN_DIR)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        _CHILDREN.append(p)
+        procs.append(((arch, shape), p))
+    return procs
+
+
+def dryrun_report(procs, smi) -> dict:
+    """Each dry-run's bytes a rank against the card's 80 GB, its three
+    roofline terms at the H100's peaks, the dominant one and its MFU:
+    counts, not times."""
+    out = {}
+    for (arch, shape), p in procs:
+        try:
+            text, _ = p.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise AssertionError(f"dry-run {arch} x {shape}: not done in "
+                                 f"{DRYRUN_TIMEOUT} s")
+        assert p.returncode == 0, f"dry-run {arch} x {shape}:\n{text[-4000:]}"
+        d = json.loads((DRYRUN_DIR / f"{arch}__{shape}__pod.json")
+                       .read_text())
+        rf = d["roofline"]
+        log(f"[roofline] dry-run {arch} x {shape} x pod (one of 256 ranks, "
+            f"counted on the CPU at the peaks of {smi}): "
+            f"{d['bytes_per_device'] / 1e9:.2f} GB a rank of 80 "
+            f"(arguments {d['memory']['argument_bytes'] / 1e9:.2f}, "
+            f"temporaries {d['memory']['temp_bytes'] / 1e9:.2f}); compute "
+            f"{rf['compute_s']:.4f} s, memory {rf['memory_s']:.4f} s, "
+            f"collective {rf['collective_s']:.4f} s, dominant "
+            f"{rf['dominant']}, MFU {rf['mfu']:.1%}; trace "
+            f"{d['trace_s']:.1f} s")
+        out[f"{arch} {shape}"] = dict(
+            gb_per_rank=d["bytes_per_device"] / 1e9, fits=d["fits"],
+            compute_s=rf["compute_s"], memory_s=rf["memory_s"],
+            collective_s=rf["collective_s"], dominant=rf["dominant"],
+            mfu=rf["mfu"], trace_s=d["trace_s"])
+    return out
+
+
+def count_call(fn):
+    """One call of ``fn`` under the port's op recorder, the card's
+    storages tracked: (records, temp peak bytes, kernel sites, launches)."""
+    from repro_torch.analysis.op_trace import OpRecorder, totals
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rec = OpRecorder(device="cuda")
+    with rec:
+        fn()
+    torch.cuda.synchronize()
+    records = rec.records
+    return SimpleNamespace(records=records, temp=rec.peak_bytes,
+                           sites=totals(records).kernel_sites,
+                           launches=ops.launch_counts())
+
+
+def measure_call(fn, reps: int = 1):
+    """Host-clock ms of ``fn`` to a synchronize (the median of ``reps``),
+    and the card's allocated bytes before it and at its peak."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return SimpleNamespace(ms=float(np.median(ts)), before=before,
+                           peak=torch.cuda.max_memory_allocated())
+
+
+def held_to_count(tag, cfg, shape, counted, timed, prof, args_bytes, smi,
+                  extra_mfu=None) -> dict:
+    """Counted against measured for one step: the roofline of its records
+    (chips 1) against its host-clock time, the kernel sites' counted
+    bounds against their profiled device time, the predicted peak (the
+    arguments' bytes plus the counted temporaries) against
+    ``max_memory_allocated``; each kernel site launched as counted."""
+    from repro_torch.analysis.roofline import from_records, model_flops_for
+    from repro_torch.analysis.top_ops import top_kernels
+    rf = from_records(counted.records, 1, model_flops_for(cfg, shape),
+                      dtype=cfg.dtype)
+    peak = peak_flops(cfg.dtype)
+    mfu_measured = rf.model_flops / (timed.ms / 1e3) / peak
+    by_dtype = {k: round(v / 1e12, 3)
+                for k, v in rf.dot_flops_by_dtype.items()}
+    log(f"[roofline] {tag} ({smi}): counted {rf.dot_flops / 1e12:.3f} "
+        f"TFLOP of products and kernel sites ({by_dtype}), "
+        f"{rf.elementwise_flops / 1e12:.3f} T elementwise, "
+        f"{rf.hbm_bytes / 1e9:.2f} GB of HBM traffic (counts: the card "
+        f"has no FLOP or byte counter here); roofline compute "
+        f"{rf.compute_s * 1e3:.2f} ms, memory {rf.memory_s * 1e3:.2f} ms, "
+        f"dominant {rf.dominant}, step {rf.step_s * 1e3:.2f} ms against "
+        f"the measured {timed.ms:.2f} ms ({rf.step_s * 1e3 / timed.ms:.1%});"
+        f" achieved {rf.dot_flops / (timed.ms / 1e3) / 1e12:.1f} TFLOP/s "
+        f"and {rf.hbm_bytes / (timed.ms / 1e3) / 1e12:.3f} TB/s")
+    log(f"[roofline] {tag}: MFU (the reference's: 6·N·D or 2·N·D, N "
+        f"without embedding and head, at the roofline step) {rf.mfu:.1%}; "
+        f"the same model FLOPs over the measured step {mfu_measured:.1%}"
+        + ("" if extra_mfu is None else f"; {extra_mfu}"))
+    rows = top_kernels(prof, counted.records, 10**6) if prof is not None \
+        else []
+    busy = sum(r["device_ms"] for r in rows)
+    log(f"[roofline] {tag}: profiled device time {busy:.2f} ms in "
+        f"{sum(r['kernels'] for r in rows)} kernels, against the measured "
+        f"step {timed.ms:.2f} ms ({busy / timed.ms:.1%}); by op, each "
+        f"beside its counted bound:")
+    rows = rows[:12] + [r for r in rows[12:] if r["op"].startswith("kernel:")]
+    for r in rows:
+        b = "none" if r["bound_ms"] is None else f"{r['bound_ms']:.3f} ms"
+        log(f"[roofline] {tag}: {r['device_ms']:9.3f} ms x{r['kernels']:<5d}"
+            f" {r['op'][:40]:40s} bound {b} ({r['records']} records)")
+    assert rows, f"{tag}: the profiler recorded no device time"
+    sites = [r for r in rows if r["op"].startswith("kernel:")]
+    assert {r["op"][7:] for r in sites} >= set(counted.sites), \
+        (tag, "a counted kernel site is missing from the profile", rows)
+    for r in sites:
+        assert r["bound_ms"] <= ROOFLINE_SLACK * r["device_ms"], (tag, r)
+    assert rf.step_s * 1e3 <= ROOFLINE_SLACK * timed.ms, (tag, rf.step_s,
+                                                          timed.ms)
+    want = {k: counted.sites.get(k, 0) for k in counted.launches}
+    assert counted.launches == want, (tag, counted.launches, want)
+    predicted = args_bytes + counted.temp
+    log(f"[roofline] {tag}: predicted peak {predicted / 1e9:.3f} GB "
+        f"(arguments {args_bytes / 1e9:.3f} + counted temporaries "
+        f"{counted.temp / 1e9:.3f}) against max_memory_allocated "
+        f"{timed.peak / 1e9:.3f} GB ({timed.before / 1e9:.3f} allocated "
+        f"before the step): {predicted / timed.peak - 1:+.1%}")
+    assert abs(predicted - timed.peak) <= ROOFLINE_PEAK_TOL * timed.peak, \
+        (tag, predicted, timed.peak)
+    return dict(counted_tflop=rf.dot_flops / 1e12,
+                elementwise_tflop=rf.elementwise_flops / 1e12,
+                hbm_gb=rf.hbm_bytes / 1e9, compute_ms=rf.compute_s * 1e3,
+                memory_ms=rf.memory_s * 1e3, roofline_ms=rf.step_s * 1e3,
+                dominant=rf.dominant, measured_ms=timed.ms, mfu=rf.mfu,
+                mfu_measured=mfu_measured, device_ms=busy,
+                predicted_peak_gb=predicted / 1e9,
+                measured_peak_gb=timed.peak / 1e9,
+                launches={k: v for k, v in counted.launches.items() if v},
+                kernels=[dict(op=r["op"], device_ms=r["device_ms"],
+                              bound_ms=r["bound_ms"], launches=r["kernels"])
+                         for r in rows])
+
+
+def roofline_phase(dev, tr, smi) -> dict:
+    """The train phase's counted, profiled and timed yi-9b steps (8 of 48
+    layers, 2 x 4096, bf16, remat "dots") held to their count; then one
+    decode tick of the same model on the paged layout (DECODE_SLOTS slots
+    over DECODE_SPAN rows, ``models.model.decode_fn`` with per-slot
+    positions) counted, timed (median of 10), profiled and held the same
+    way; then the dry-runs' report."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import ShapeConfig
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models import model as M
+    cfg, state = tr.cfg, tr.state
+    out = {"device": smi}
+    share = tr.train_flops / (tr.timed.ms / 1e3) / peak_flops(torch.bfloat16)
+    out["train"] = held_to_count(
+        f"yi-9b train step ({cfg.num_layers} layers, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ})", cfg,
+        ShapeConfig(TRAIN_SEQ, TRAIN_BATCH, "yi-9b train", "train"),
+        tr.counted, tr.timed, tr.prof,
+        tree_bytes(state.params) + tree_bytes(state.opt_state), smi,
+        extra_mfu="the train phase's share (6 x (block + head parameters) "
+        f"x tokens + attention, train_flops) over the measured step "
+        f"{share:.1%}")
+    # the decode tick: the optimizer state goes first
+    state.opt_state = None
+    params = state.params
+    tr.state = tr.prof = None
     free_device()
-    return launches, dict(median_step_ms=med_ms,
-                          tokens_per_s=tokens / med_ms * 1e3,
-                          model_tflop=flops / 1e12, peak_share=share,
-                          peak_gb=peak / 1e9, profile_ms=parts)
+    B, T = DECODE_SLOTS, DECODE_SPAN
+    rng = np.random.default_rng(SEED)
+    with torch.no_grad():
+        caches = M.init_caches(cfg, B, T, paged=True, device=dev)
+        maxp = caches["b0"]["pages"].shape[-1]
+        caches["b0"]["pages"].copy_(torch.arange(
+            B * maxp, dtype=torch.int32, device=dev).view(B, maxp))
+        pos = torch.as_tensor(rng.integers(1024, T, B), dtype=torch.int32,
+                              device=dev)
+        token = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 1)),
+                                dtype=torch.int32, device=dev)
+
+        def tick():
+            return M.decode_fn(params, caches, token, pos, cfg)
+        tick()
+        counted = count_call(tick)
+        timed = measure_call(tick, reps=10)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tick()
+            torch.cuda.synchronize()
+    out["decode"] = held_to_count(
+        f"yi-9b decode tick ({cfg.num_layers} layers, {B} slots, paged, "
+        f"positions {pos.min().item()}..{pos.max().item()})", cfg,
+        ShapeConfig(T, B, "yi-9b decode", "decode"), counted, timed, prof,
+        tree_bytes([params, caches, token, pos]), smi)
+    del caches, params, prof, state
+    tr.state = None
+    free_device()
+    out["dryrun"] = dryrun_report(tr.dryruns, smi)
+    return out
 
 
 # xlstm-125m's depth in the kill-and-resume phase, cut from 12 to keep the
@@ -3723,7 +3983,6 @@ def mesh_rank(rank: int, world: int, work: str,
     ServeEngine(recipe=...) on this rank's pieces, then the train cases
     (mesh_train_rank); what it saw goes to ``rank{rank}.json`` under
     ``work``."""
-    sys.path.insert(0, str(ROOT / "src"))
     import torch.distributed as dist
     from repro_torch import sharding as sh
     from repro_torch.config import ShapeConfig
@@ -4390,6 +4649,10 @@ def main() -> int:
     parser.add_argument("--mesh", action="store_true", help=(
         "only build the kernels and run the two-rank phase, serve and "
         "train (both ranks on the one card over gloo)"))
+    parser.add_argument("--roofline", action="store_true", help=(
+        "only build the kernels and run the train phase and the roofline "
+        "phase (the analysis layer's counts against the measured yi-9b "
+        "train step and decode tick, and three production dry-runs)"))
     parser.add_argument("--flash-times", action="store_true", help=(
         "only time flash at its six serve paths' shapes without lse and "
         "print them as one JSON line; for running two trees in turns"))
@@ -4398,7 +4661,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.config import get_config
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
@@ -4426,6 +4688,11 @@ def main() -> int:
     build_kernels()
     if args.mesh:
         mesh_phase(dev)
+        log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.roofline:
+        _, _, tr = train_phase(dev)
+        log(json.dumps({"roofline": roofline_phase(dev, tr, smi)}))
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -4513,8 +4780,11 @@ def main() -> int:
     lap("xlstm-125m")
 
     # -- training: yi-9b at 8 layers on the card, then kill and resume ------
-    path_launches["yi-9b train"], train = train_phase(dev)
+    path_launches["yi-9b train"], train, tr = train_phase(dev)
     lap("train yi-9b")
+    roofline = roofline_phase(dev, tr, smi)
+    del tr
+    lap("roofline")
     elastic_phase(dev)
     lap("kill and resume")
     (path_launches["yi-9b tp2 serve"],
@@ -4525,6 +4795,7 @@ def main() -> int:
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"train": train}))
+    log(json.dumps({"roofline": roofline}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -121,9 +121,27 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ShapeConfig:
     """One (sequence length, global batch) cell of a step: what a sharding
-    recipe is cut for."""
+    recipe is cut for.  ``name`` and ``kind`` (train | prefill | decode)
+    name a production cell (``SHAPES``); the reference's field order is
+    (name, seq_len, global_batch, kind), here the two come last, with
+    defaults, so a bare ``ShapeConfig(seq_len, global_batch)`` stays a
+    train cell."""
     seq_len: int
     global_batch: int
+    name: str = ""
+    kind: str = "train"           # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig(4_096, 256, "train_4k", "train"),
+    "prefill_32k": ShapeConfig(32_768, 32, "prefill_32k", "prefill"),
+    "decode_32k": ShapeConfig(32_768, 128, "decode_32k", "decode"),
+    "long_500k": ShapeConfig(524_288, 1, "long_500k", "decode"),
+}
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}
@@ -151,6 +169,22 @@ def get_config(name: str) -> ModelConfig:
 def list_configs() -> Tuple[str, ...]:
     _ensure_loaded()
     return tuple(sorted(_REGISTRY))
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a live cell: long_500k needs sub-quadratic
+    attention."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("skip(full-attn): long_500k requires sub-quadratic "
+                       "attention")
+    return True, ""
 
 
 def reduced_config(name_or_cfg) -> ModelConfig:

@@ -12,3 +12,16 @@ from repro_torch.configs import (  # noqa: F401
     xlstm_125m,
     yi_9b,
 )
+
+ASSIGNED = (
+    "xlstm-125m",
+    "hymba-1.5b",
+    "gemma3-12b",
+    "yi-9b",
+    "starcoder2-15b",
+    "llama3-405b",
+    "chameleon-34b",
+    "musicgen-large",
+    "llama4-scout-17b-a16e",
+    "deepseek-v2-236b",
+)

@@ -33,10 +33,10 @@ def _combine(acc, l, m, group):
     """Stable merge of the ranks' partials: max of ``m`` over the group,
     then one sum of the rescaled ``acc`` and ``l`` (packed together)."""
     m_glob = m.clone()
-    dist.all_reduce(m_glob, op=dist.ReduceOp.MAX, group=group)
+    sh.reduce_in_group(m_glob, group, dist.ReduceOp.MAX)
     w = torch.exp(m - m_glob)
     buf = torch.cat([acc * w[..., None], (l * w)[..., None]], dim=-1)
-    dist.all_reduce(buf, group=group)
+    sh.reduce_in_group(buf, group)
     acc, l = buf[..., :-1], buf[..., -1]
     l = torch.where(l == 0, torch.ones_like(l), l)
     return acc / l[..., None]

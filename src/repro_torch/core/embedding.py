@@ -38,9 +38,10 @@ def _logits_f32(x: torch.Tensor, w_head: torch.Tensor) -> torch.Tensor:
     """x @ w_headᵀ with fp32 output, like the reference's
     ``preferred_element_type=float32``: a bf16 product rounded to bf16
     before argmax would tie often at a 64k vocabulary.  On the card the
-    product accumulates in fp32 and is written as fp32; on the CPU, which
-    has no such kernel, the operands are widened first."""
-    if x.device.type == "cuda":
+    product accumulates in fp32 and is written as fp32 (on ``meta`` too,
+    where the dry-run counts the card's step); on the CPU, which has no
+    such kernel, the operands are widened first."""
+    if x.device.type in ("cuda", "meta"):
         return torch.mm(x, w_head.t(), out_dtype=torch.float32)
     return x.float() @ w_head.float().t()
 

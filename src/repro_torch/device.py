@@ -5,6 +5,11 @@ Entry points run on the card unless the caller asks for the CPU:
 than carry on on the CPU.  On CUDA, TF32 is switched off for matrix
 products and cuDNN so float32 math stays float32 (TF32 keeps about three
 decimal digits; the reference computes in full float32).
+
+``"meta"`` is accepted only where a caller names it (the dry-run,
+``launch/dryrun.py``, traces a step on tensors that hold no data); it
+never stands in for CUDA, and a ``meta`` tensor reaches a kernel entry
+point only under the dry-run's recorder (``analysis/op_trace.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +28,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "available; pass device='cpu' to run the plain PyTorch path")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

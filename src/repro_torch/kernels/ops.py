@@ -21,6 +21,13 @@ vocab-sharded embedding lookup in training.
 
 Launches are counted per kernel in ``build.LAUNCHES`` (see
 ``launch_counts`` / ``reset_launch_counts``).
+
+Each call that a hand-written kernel computes is a kernel site
+(``analysis.op_trace.kernel_site``): under the analysis layer's recorder
+it counts as one op with its kernel's operations and bytes.  Only there
+may a tensor be on ``meta`` (the dry-run): a site then builds its
+outputs' shapes and runs nothing.  Anywhere else a ``meta`` tensor
+raises.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.analysis import op_trace
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import isp_decode as isp
@@ -42,7 +50,22 @@ def _on_cpu(t) -> bool:
         return True
     if t.device.type == "cuda":
         return False
+    if t.device.type == "meta" and op_trace.active() is not None:
+        return True          # the plain version's shapes, under a recorder
     raise ValueError(f"no kernel or plain path for tensors on {t.device}")
+
+
+@op_trace.kernel_site("flash_attention")
+def _flash_fwd(q, k, v, causal, window, q_offset, scale, q_chunk, kv_chunk,
+               return_lse):
+    if _on_cpu(q):
+        return ref.chunked_attention(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            return_lse=return_lse)
+    return fa.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset, scale=scale,
+                              return_lse=return_lse)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -55,15 +78,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, scale, q_chunk,
                 kv_chunk):
-        if _on_cpu(q):
-            out, lse = ref.chunked_attention(
-                q, k, v, causal=causal, window=window, q_offset=q_offset,
-                scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                return_lse=True)
-        else:
-            out, lse = fa.flash_attention(q, k, v, causal=causal,
-                                          window=window, q_offset=q_offset,
-                                          scale=scale, return_lse=True)
+        out, lse = _flash_fwd(q, k, v, causal, window, q_offset, scale,
+                              q_chunk, kv_chunk, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = dict(causal=causal, window=window, q_offset=q_offset,
                       scale=scale, q_chunk=q_chunk, kv_chunk=kv_chunk)
@@ -90,14 +106,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset,
                                      scale, q_chunk, kv_chunk)
-    if _on_cpu(q):
-        return ref.chunked_attention(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, scale=scale,
-                                     q_chunk=q_chunk, kv_chunk=kv_chunk)
-    return fa.flash_attention(q, k, v, causal=causal, window=window,
-                              q_offset=q_offset, scale=scale)
+    return _flash_fwd(q, k, v, causal, window, q_offset, scale, q_chunk,
+                      kv_chunk, False)
 
 
+@op_trace.kernel_site("paged_decode")
 def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
                          window: Optional[int] = None,
                          scale: Optional[float] = None):
@@ -111,6 +124,7 @@ def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
                                    window=window, scale=scale)
 
 
+@op_trace.kernel_site("isp_decode")
 def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
                    scale: Optional[float] = None):
     """Decode partial over a dense strip with explicit key positions.
@@ -135,6 +149,7 @@ def chunk_prefill_attention(q, k, v, kpos, qpos, *,
     return ref.chunk_attention_masked(q, k, v, kpos, qpos, scale=scale)
 
 
+@op_trace.kernel_site("isp_gather")
 def _isp_gather_fwd(table, indices, shard_offset, weights):
     if _on_cpu(table):
         return ig.isp_gather_ref(table, indices, shard_offset=shard_offset,
@@ -151,7 +166,7 @@ class _IspGather(torch.autograd.Function):
     ``weights`` where given, are summed into this shard's rows of the
     table for the ids it owns (a masked scatter-add, accumulated in
     float32 and cast to the table's dtype); ids outside the shard add
-    nothing.  ``weights`` gets the gradient rows' dot products with the
+    zero.  ``weights`` gets the gradient rows' dot products with the
     rows they scaled (zero outside the shard)."""
 
     @staticmethod
@@ -175,7 +190,10 @@ class _IspGather(torch.autograd.Function):
                 rows = rows * weights.reshape(-1, 1).float()
             acc = torch.zeros((v_loc, d), dtype=torch.float32,
                               device=g.device)
-            acc.index_add_(0, local[ok], rows[ok])
+            # ids off the shard add a zero row to row 0: no mask of
+            # data-dependent length, so the dry-run can trace it
+            acc.index_add_(0, torch.where(ok, local, 0),
+                           torch.where(ok[:, None], rows, 0.0))
             dtable = acc.to(ctx.table_dtype)
         if ctx.needs_input_grad[3]:
             plain = ref.isp_gather(table, indices, ctx.off).float()
@@ -196,6 +214,7 @@ def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
     return _isp_gather_fwd(table, indices, shard_offset, weights)
 
 
+@op_trace.kernel_site("isp_gather_pool")
 def isp_gather_pool(table, indices, segment_ids, num_segments: int, *,
                     shard_offset: int = 0, weights=None):
     """Fused masked gather + weighted segment sum (the RecSSD embedding
@@ -210,6 +229,7 @@ def isp_gather_pool(table, indices, segment_ids, num_segments: int, *,
                               shard_offset=shard_offset, weights=weights)
 
 
+@op_trace.kernel_site("topk_similarity")
 def topk_similarity(queries, corpus, k: int):
     """Cosine top-k: queries (Q, D), corpus (N, D).  Returns (scores
     float32 (Q, k), ids int32 (Q, k)), the lower id first on equal

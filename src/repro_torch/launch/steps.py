@@ -18,7 +18,8 @@ steps caches laid out as ``cache_sharding`` says
 model's specs at its first call.  Like every entry
 point of the port, a step runs on the card unless the builder is asked for
 the CPU; the builders raise without a CUDA device, and when the recipe's
-mesh lives on another device type.
+mesh lives on another device type.  ``step_for`` gives the step of one
+production cell with ``meta`` arguments, for the dry-run.
 """
 from __future__ import annotations
 
@@ -27,16 +28,22 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch import sharding as sh
+from repro_torch.analysis import op_trace
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
-from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, \
+    cosine_schedule
 from repro_torch.sharding import ShardingRecipe, Spec, param_specs
 
 
 def _device(recipe: ShardingRecipe, device) -> torch.device:
+    """The step's device; it must be the mesh's device type, except for
+    ``meta`` (the dry-run's steps, whose mesh lives on a fake process
+    group)."""
     dev = resolve_device(device)
-    if recipe.mesh is not None and recipe.mesh.device_type != dev.type:
+    if recipe.mesh is not None and dev.type != "meta" \
+            and recipe.mesh.device_type != dev.type:
         raise ValueError(f"the recipe's mesh is on {recipe.mesh.device_type}"
                          f", the step on {dev.type}")
     return dev
@@ -223,7 +230,8 @@ def _checked(cfg: ModelConfig, recipe: ShardingRecipe):
 
     def check(model):
         if id(model) not in seen:
-            _check_model(model, cfg, recipe)
+            with op_trace.paused():
+                _check_model(model, cfg, recipe)
             seen.add(id(model))
     return check
 
@@ -269,3 +277,29 @@ def build_decode_block_step(cfg: ModelConfig, recipe: ShardingRecipe, *,
                                  max_len=max_len)
 
     return block_step
+
+
+def step_for(cfg: ModelConfig, shape: ShapeConfig, recipe: ShardingRecipe,
+             device="meta"):
+    """(step, args) of one (arch, shape, mesh) cell, the counterpart of
+    the reference's ``jitted_step_for``: ``step(*args)`` runs one train,
+    prefill or decode step (``shape.kind``) of this rank.  The arguments
+    are the model (``models.model.abstract_params`` cut by the recipe's
+    plan), with the optimizer state for train and the caches for decode,
+    and the inputs of ``models.model.input_specs``, all on ``meta``:
+    nothing is allocated, and a step on them computes shapes only."""
+    dev = _device(recipe, device)
+    if dev.type != "meta":
+        raise ValueError("step_for's arguments are meta stand-ins; build a "
+                         "model and the builders' steps to run on "
+                         f"{dev.type}")
+    specs = M.input_specs(cfg, shape, plan=recipe)
+    model = M.abstract_params(cfg, recipe)
+    if shape.kind == "train":
+        step, opt_cfg = build_train_step(cfg, recipe, device=dev)
+        opt_state = adamw_init(dict(model.named_parameters()), opt_cfg)
+        return step, (model, opt_state, specs)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, recipe, device=dev), (model, specs)
+    return build_decode_step(cfg, recipe, device=dev), (
+        model, specs["caches"], specs["token"], specs["pos"])

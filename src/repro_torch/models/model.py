@@ -35,6 +35,8 @@ gives each rank its share of every gradient.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -42,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as sh
+from repro_torch.analysis import op_trace
 from repro_torch.config import ModelConfig
 from repro_torch.core import embedding as emb
 from repro_torch.core.kv_pages import pages_for
@@ -148,13 +151,48 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return model
 
 
+def abstract_params(cfg: ModelConfig, plan=None) -> LM:
+    """The model on the ``meta`` device: every parameter of its global
+    shape or, under a sharding ``plan`` (a recipe with a mesh), of this
+    rank's piece as ``sharding.param_specs`` cuts it.  Nothing is
+    allocated (the reference's ``jax.eval_shape`` of ``init_params``)."""
+    return LM(cfg, "meta", plan)
+
+
+def _shapes(cfg: ModelConfig) -> Dict[str, torch.Size]:
+    """Every parameter's global shape by name (built on ``meta`` outside
+    any recorder: the counts below are not part of a step)."""
+    with op_trace.paused():
+        return {n: p.shape for n, p in
+                abstract_params(cfg).named_parameters()}
+
+
+@functools.lru_cache(maxsize=None)
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameters of the model; with ``active_only`` the routed experts'
     ``we_*`` count ``top_k / num_experts`` of their size, as in the
     reference."""
     total = 0
-    for name, p in LM(cfg, "meta").named_parameters():
-        n = p.numel()
+    for name, shape in _shapes(cfg).items():
+        n = math.prod(shape)
+        if active_only and cfg.moe and name.rsplit(".", 1)[-1].startswith(
+                "we_"):
+            n = n * cfg.moe.top_k // cfg.moe.num_experts
+        total += n
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def count_flops_params(cfg: ModelConfig, active_only: bool = True) -> int:
+    """The parameters that enter the 6·N·D estimate: every leaf but the
+    embedding table and the head, routed experts ``we_*`` at ``top_k /
+    num_experts`` of their size with ``active_only`` (the reference's
+    definition)."""
+    total = 0
+    for name, shape in _shapes(cfg).items():
+        if name.split(".", 1)[0] in ("embed", "head"):
+            continue
+        n = math.prod(shape)
         if active_only and cfg.moe and name.rsplit(".", 1)[-1].startswith(
                 "we_"):
             n = n * cfg.moe.top_k // cfg.moe.num_experts
@@ -451,3 +489,41 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
         out[f"b{j}"] = _tree_map(
             lambda t: t[None].repeat((ng,) + (1,) * t.dim()), one)
     return out
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, max_len: int,
+                    per_slot: bool = False, paged: bool = False,
+                    page_size: int = 16, num_pages: Optional[int] = None,
+                    plan=None):
+    """``init_caches`` on the ``meta`` device: the caches' shapes and
+    dtypes (this rank's under a ``plan``), nothing allocated."""
+    return init_caches(cfg, batch, max_len, per_slot, paged, page_size,
+                       num_pages, device="meta", plan=plan)
+
+
+def input_specs(cfg: ModelConfig, shape, plan=None) -> Dict[str, Any]:
+    """``meta`` stand-ins for every input of an (arch, shape) cell, with the
+    reference's keys and dtypes: ``tokens`` and ``labels`` (B, S) int32
+    for train (``embeddings`` (B, S, D) in the model dtype for a frontend
+    arch), ``tokens`` or ``embeddings`` for prefill, and for decode one
+    ``token`` (B, 1) int32 at one position ``pos`` () int32 against the
+    dense caches of S rows (this rank's under a ``plan``).  Every rank is
+    given the global batch, as the port's steps take it."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    i32 = torch.int32
+
+    def ids(*dims):
+        return torch.empty(dims, dtype=i32, device=meta)
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend:
+            out = {"embeddings": torch.empty((B, S, cfg.d_model),
+                                             dtype=torch_dtype(cfg),
+                                             device=meta)}
+        else:
+            out = {"tokens": ids(B, S)}
+        if shape.kind == "train":
+            out["labels"] = ids(B, S)
+        return out
+    return {"token": ids(B, 1), "pos": ids(),
+            "caches": abstract_caches(cfg, B, S, plan=plan)}

@@ -53,6 +53,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import op_trace
 from repro_torch.config import ModelConfig, ShapeConfig
 
 Axes = Union[str, Tuple[str, ...]]
@@ -374,9 +375,15 @@ def _grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
+# Every collective goes through the four helpers below, which record it
+# (kind, bytes, group size) under the analysis layer's recorder
+# (``analysis.op_trace.collective``); outside one that is a no-op.
+
+
 def _gather(x: torch.Tensor, n: int, group, dim: int) -> torch.Tensor:
     x = x.contiguous()
     buf = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    op_trace.collective("all-gather", x, buf, group)
     dist.all_gather_into_tensor(buf, x, group=group)
     return torch.cat(buf.chunk(n), dim=dim)
 
@@ -384,14 +391,22 @@ def _gather(x: torch.Tensor, n: int, group, dim: int) -> torch.Tensor:
 def _scatter(x: torch.Tensor, n: int, group, dim: int) -> torch.Tensor:
     chunks = torch.stack(x.chunk(n, dim=dim)).contiguous()
     out = chunks.new_empty(chunks.shape[1:])
+    op_trace.collective("reduce-scatter", chunks, out, group)
     dist.reduce_scatter_tensor(out.view(-1), chunks.view(-1), group=group)
     return out
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(x)
+    op_trace.collective("all-to-all", x, out, group)
     dist.all_to_all_single(out, x.contiguous(), group=group)
     return out
+
+
+def reduce_in_group(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """All-reduce ``x`` over ``group`` in place."""
+    op_trace.collective("all-reduce", x, x, group)
+    dist.all_reduce(x, op=op, group=group)
 
 
 # Each collective's backward is its adjoint over the ranks: every rank's
@@ -422,13 +437,13 @@ class _AllReduce(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
+        reduce_in_group(out, group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        reduce_in_group(g, ctx.group)
         return g, None
 
 
@@ -477,7 +492,7 @@ def all_reduce(plan, x: torch.Tensor, axes, op=dist.ReduceOp.SUM
         if op != dist.ReduceOp.SUM:
             raise ValueError("only the sum over ranks has a gradient")
         return _AllReduce.apply(x, group)
-    dist.all_reduce(x, op=op, group=group)
+    reduce_in_group(x, group, op)
     return x
 
 
@@ -658,11 +673,11 @@ def _bucketed(plan, by_axes: Dict[Tuple[str, ...], list]) -> None:
         for t in by_axes[axes]:
             if t.numel() >= _BUCKET:
                 f = t.float()
-                dist.all_reduce(f, group=group)
+                reduce_in_group(f, group)
                 t.copy_(f)
         if small:
             flat = torch.cat([t.reshape(-1).float() for t in small])
-            dist.all_reduce(flat, group=group)
+            reduce_in_group(flat, group)
             for t, part in zip(small, flat.split([t.numel()
                                                    for t in small])):
                 t.copy_(part.view_as(t))

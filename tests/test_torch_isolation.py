@@ -56,7 +56,10 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.optim.adamw", "repro_torch.optim.schedule",
               "repro_torch.checkpoint.checkpoint",
               "repro_torch.data.pipeline", "repro_torch.train.train_loop",
-              "repro_torch.launch.train", "repro_torch.launch.elastic"):
+              "repro_torch.launch.train", "repro_torch.launch.elastic",
+              "repro_torch.launch.dryrun", "repro_torch.analysis.op_trace",
+              "repro_torch.analysis.roofline", "repro_torch.analysis.top_ops",
+              "repro_torch.analysis.reanalyze"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
