@@ -30,7 +30,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 it has no instantiation for raise) and, for both decode and
                 flash, at the other families' head shapes (NEW_HEADS:
                 groups 5, 1 at dh 64, 12, 16, 8, hymba's 5 at dh 64; isp
-                decode's edges at hymba's heads too); paged decode at
+                decode's edges at hymba's heads too) and at the smoke head
+                dims (SMOKE_HEADS: dh 16 at groups 1 and 4, the reduced
+                MLA's qk 24 / v 16; rows at the smoke paths' shapes,
+                SMOKE_FLASH_PATHS, SMOKE_TRAIN_FLASH); paged decode at
                 hymba's heads timed as an edge off every path (logged, not
                 in the kernels record);
                 then timed with
@@ -63,7 +66,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 split by the profiler (one device operation each); off the
                 counted path, pools with shuffled segments, a shard no id
                 reaches and a call whose untouched segments lie in the
-                freed block of a full one (exactly 0);
+                freed block of a full one (exactly 0); then, for the
+                energy phase, recommender batches (Q = 256, fp32 corpus)
+                and sentiment batches (fp32) back to back for
+                ENERGY_WINDOW_S each, the card's joules read around them;
+  3b. smoke   — every reduced config of configs.ASSIGNED in bfloat16 (4
+                heads over 4 at dh 16; deepseek-v2's MLA at qk 16 + 8 / v
+                16) and reduced yi-9b in float32 (the reference's bench
+                cell) through ServeEngine with the serve CLI's defaults
+                (8 requests, prompts 4..32, max_new 32, max_len 256, 8
+                slots, paged, pages of 16, k_block 8), on the card and on
+                the CPU from the same weights: all ok, balanced free
+                lists, flash on every attention layer of every prefill
+                call and paged or isp decode on every attention layer of
+                every step (nothing launched on the CPU); fp32 tokens
+                identical, bf16 flips only below BF16_FLIP_MARGIN; then
+                three steps of the train CLI's path (train_loop.train, 8 x
+                256) for reduced yi-9b and deepseek-v2: finite losses,
+                flash (with lse, at (16, 16) and (24, 16)) on every layer
+                of every step, step 0's loss within SMOKE_LOSS_TOL of the
+                CPU's;
   4. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
                 max_new=32 through ServeEngine(num_slots=8, max_len=1024,
@@ -71,6 +93,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 page free list must balance, and the launch counters must
                 show the flash kernel on every layer of every prefill call
                 and the paged-decode kernel on every layer of every step;
+                the run is an energy window (joules a generated token);
   5. consistency — the same requests with k_block=1 give identical tokens;
      then two engine ticks under torch.profiler (CUDA activity) show where
      the device time goes and how much of a decode step the card sits idle;
@@ -213,7 +236,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 processes (yi-9b train_4k and prefill_32k, gemma3-12b
                 decode_32k, each one rank of the 16 x 16 pod): bytes a
                 rank against 80 GB, the three terms, the dominant one, the
-                MFU;
+                MFU; the same train step on the next batches and the same
+                decode tick are then each run back to back for
+                ENERGY_WINDOW_S, the card's joules read around them;
+  16c. energy — the card's energy counter (NVML's total-energy counter
+                through ctypes; nvidia-smi's power samples every 100 ms
+                integrated beside it) around four calibration windows of
+                ENERGY_WINDOW_S with known FLOPs and bytes (idle with the
+                context alive, bf16 GEMMs of 8192^3, device copies of a
+                4 GB buffer, the two in turns); the least-squares fit of
+                E = P0 t + a F + b B gives core/energy.py's CHIP_IDLE_W,
+                PJ_PER_FLOP and PJ_PER_HBM_BYTE; every calibration window
+                predicted within ENERGY_CAL_TOL and the roofline phase's
+                held-out windows (their counted FLOPs and bytes through
+                gpu_step_energy) within ENERGY_HELD_TOL; the joules a
+                generated token, a recommender query and a sentiment
+                review, beside the cluster phase's Table I line; every
+                joule figure with its source;
   17. elastic — launch.elastic.supervise runs the train CLI on xlstm-125m
                 at full width and ELASTIC_LAYERS = 4 of its 12 layers
                 (6 steps of 4 x 256, a checkpoint every 2) with
@@ -316,7 +355,8 @@ builds the kernels and runs only the two-rank phase, serve and train.
 
     python3 chip_smoke.py --roofline
 
-builds the kernels and runs only the train phase and the roofline phase.
+builds the kernels and runs only the train phase, the roofline phase and
+the energy phase (whose item windows then are none).
 """
 from __future__ import annotations
 
@@ -393,6 +433,20 @@ FLASH_PATHS = (
     ("musicgen-large serve", (8, 704, 32, 32, 64, 64, None)),
     ("deepseek-v2 serve", (8, 704) + MLA_HEADS + (None,)),
     ("hymba serve", (8, 704, 25, 5, 64, 64, 1024)))
+# the reduced (smoke) configs on the card: every reduced config of
+# configs.ASSIGNED has 4 heads over 4 kv heads at dh 16, and the reduced
+# MLA attends at qk 16 + 8 / v 16; flash at the serve CLI's prompt bucket
+# (8 x 32 rows) and the train CLI's batch (8 x 256, attn_chunk 32), paged
+# decode on pages of 16 under the CLI's max_len of 256, isp decode on
+# gemma3's local rings (window 32)
+SMOKE_FLASH_PATHS = (
+    ("smoke serve", (8, 32, 4, 4, 16, 16, None)),
+    ("smoke serve", (8, 32, 4, 4, 24, 16, None)))
+SMOKE_TRAIN_FLASH = (((8, 256, 4, 4, 16), 16), ((8, 256, 4, 4, 24), 16))
+SMOKE_CHUNK = 32
+# (H, Hkv, q/k head dim, v head dim) of the edges at the smoke head dims:
+# the reduced configs' heads, a group of 4, the reduced MLA
+SMOKE_HEADS = ((4, 4, 16, 16), (8, 2, 16, 16), (4, 4, 24, 16))
 # the train phase: yi-9b at every published width, its depth cut from 48
 # to 8 layers (1.908 B parameters: with bf16 weights and gradients and
 # fp32 AdamW moments, 22.9 GB; all 48 layers would need 106 GB), Yi's 4K
@@ -626,12 +680,20 @@ def strip_case(layout, dtype, dev, gen):
     "ring": gemma3-12b's window layers, per-slot rings kpos (8, 1024) with
     wrapped slots, an empty slot (3) and a slot with fewer keys than the
     window (7), window 1024.  "hymba ring": the same tracks at hymba-1.5b's
-    heads (25 over 5 at dh 64)."""
+    heads (25 over 5 at dh 64).  "smoke ring": the reduced gemma3's local
+    layers, rings kpos (8, 32) at window 32, 4 heads over 4 at dh 16,
+    wrapped slots, an empty slot (3) and a slot with fewer keys than the
+    window (7)."""
     if layout == "shared":
         B, H, Hkv, dh, S, window = 8, 32, 4, 128, 1024, None
         pos = torch.arange(S, dtype=torch.int32)
         kpos = torch.where(pos < S // 2, pos, -1)
         cur = torch.tensor(S // 2 - 1, dtype=torch.int32)
+    elif layout == "smoke ring":
+        B, S, window, H, Hkv, dh = 8, 32, 32, 4, 4, 16
+        now = [40, 63, 31, 0, 50, 32, 60, 5]
+        kpos = ring_tracks(now, S, empty=(3,))
+        cur = torch.tensor(now, dtype=torch.int32)
     else:
         B, S, window = 8, 1024, 1024
         H, Hkv, dh = (16, 8, 240) if layout == "ring" else (25, 5, 64)
@@ -647,8 +709,9 @@ def strip_case(layout, dtype, dev, gen):
 
 
 def paged_edges(dev, gen):
-    """Split-K edges of paged_decode at both serve shapes and at
-    NEW_HEADS, in both dtypes, against the plain version: slots whose
+    """Split-K edges of paged_decode at both serve shapes, at NEW_HEADS
+    and at the smoke head dim 16 (SMOKE_HEADS), in both dtypes, against
+    the plain version: slots whose
     lengths fill whole split spans (and one key more or less), an empty
     slot, a one-key slot, a full table; then a window whose edge falls
     inside a span."""
@@ -656,7 +719,9 @@ def paged_edges(dev, gen):
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for H, Hkv, dh, maxp, window in ((32, 4, 128, 64, 100),
                                      (16, 8, 240, 128, 300)) + tuple(
-            (H, Hkv, dh, 64, 100) for H, Hkv, dh in NEW_HEADS):
+            (H, Hkv, dh, 64, 100) for H, Hkv, dh in NEW_HEADS) + tuple(
+            (H, Hkv, dh, 64, 100) for H, Hkv, dh, dv in SMOKE_HEADS
+            if dh == dv):
         span, n_split = pd.split_plan(8, Hkv, maxp, n_sms)
         keys = span * 16
         lengths = tuple(min(n, maxp * 16) for n in (
@@ -687,8 +752,9 @@ def paged_edges(dev, gen):
 
 
 def isp_edges(dev, gen):
-    """Split-K edges of isp_decode at both strip shapes, in both dtypes,
-    with and without a window, against the plain version.  Per-slot tracks
+    """Split-K edges of isp_decode at both strip shapes, hymba's heads
+    and the smoke head dim 16, in both dtypes, with and without a window,
+    against the plain version.  Per-slot tracks
     kpos (8, 1024): slots whose valid rows fill whole spans (and one row
     more or less), an empty slot, a one-row slot (its later spans empty), a
     full strip, a ring whose valid rows wrap across a span edge; the same
@@ -698,7 +764,8 @@ def isp_edges(dev, gen):
     from repro_torch.kernels import isp_decode as isp
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     B, S = 8, 1024
-    for H, Hkv, dh in ((32, 4, 128), (16, 8, 240), (25, 5, 64)):
+    for H, Hkv, dh in ((32, 4, 128), (16, 8, 240), (25, 5, 64)) + tuple(
+            (H, Hkv, dh) for H, Hkv, dh, dv in SMOKE_HEADS if dh == dv):
         span, n_split = isp.split_plan(B, Hkv, S, n_sms)
         lengths = (span, 2 * span, span + 1, span - 1, 0, 1, S)
         kpos = torch.full((B, S), -1, dtype=torch.int32)
@@ -749,9 +816,11 @@ def isp_edges(dev, gen):
 
 
 def flash_edges(dev, gen):
-    """flash_attention edges at both serve head dims, at NEW_HEADS and at
+    """flash_attention edges at both serve head dims, at NEW_HEADS, at
     MLA's qk 192 / v 128 (MLA_HEADS: a wrong v stride or output width
-    shows only where the two dims differ), in both dtypes, against the
+    shows only where the two dims differ) and at the smoke head dims
+    (SMOKE_HEADS: dh 16, and qk 24 / v 16, padded to two k-steps of the
+    MMA in bf16 and read in float2 groups in fp32), in both dtypes, against the
     plain version: Sq not a multiple of the 64-row q tile, q_offset > 0
     with and without a window whose edge crosses the key tiles, and one
     query row over a long cache.  Then the pairs the kernel has no
@@ -762,7 +831,8 @@ def flash_edges(dev, gen):
     for H, Hkv, dh, dv, windows in ((32, 4, 128, 128, (None, 48)),
                                     (16, 8, 240, 240, (1024, 48)),
                                     MLA_HEADS + ((None, 48),)) + tuple(
-            (H, Hkv, dh, dh, (None, 48)) for H, Hkv, dh in NEW_HEADS):
+            (H, Hkv, dh, dh, (None, 48)) for H, Hkv, dh in NEW_HEADS) + \
+            tuple(h + ((None, 48),) for h in SMOKE_HEADS):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
@@ -815,23 +885,26 @@ def grad_rel_err(got, want, dtype, what) -> float:
     return worst
 
 
-def flash_train_row(dev, gen, flush):
-    """Flash with lse at the train phase's shape (TRAIN_FLASH: yi-9b at
-    4096 rows, causal), bf16 and fp32: out and lse against the plain
-    ``chunked_attention(return_lse=True)``; the differentiable op's
-    dq/dk/dv (the kernel's forward) against the plain forward's, both
+def flash_train_row(dev, gen, flush, path="yi-9b train", shape=TRAIN_FLASH,
+                    dv=None, chunk=TRAIN_CHUNK):
+    """Flash with lse at a train path's shape (by default TRAIN_FLASH:
+    yi-9b at 4096 rows, causal; ``dv`` the v head dim, dh's by default;
+    ``chunk`` the config's attn_chunk), bf16 and fp32: out and lse against
+    the plain ``chunked_attention(return_lse=True)``; the differentiable
+    op's dq/dk/dv (the kernel's forward) against the plain forward's, both
     through the plain backward; then timed with lse beside its bound, the
     plain version, SDPA's forward and the kernel without lse, and one
     layer's plain backward timed."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
-    B, S, H, Hkv, dh = TRAIN_FLASH
-    ck = dict(q_chunk=TRAIN_CHUNK, kv_chunk=TRAIN_CHUNK)
+    B, S, H, Hkv, dh = shape
+    dv = dh if dv is None else dv
+    ck = dict(q_chunk=chunk, kv_chunk=chunk)
     errs, lerrs, gerrs = {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
-        q, k, v, dout = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dh), \
-            r(B, S, H, dh)
+        q, k, v, dout = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv), \
+            r(B, S, H, dv)
         out, lse = fa.flash_attention(q, k, v, return_lse=True)
         want, wlse = ref.chunked_attention(q, k, v, return_lse=True, **ck)
         torch.cuda.synchronize()
@@ -843,8 +916,8 @@ def flash_train_row(dev, gen, flush):
                                   (qq, kk, vv), dout)
         plain = ref.flash_attention_bwd(q, k, v, want, wlse, dout, **ck)
         gerrs[dtype] = grad_rel_err(got, plain, dtype, "train shape")
-        log(f"[kernels] flash_attention yi-9b train {dtype} (B={B} S={S} "
-            f"H={H} Hkv={Hkv} dh={dh}, with lse): out max abs err "
+        log(f"[kernels] flash_attention {path} {dtype} (B={B} S={S} "
+            f"H={H} Hkv={Hkv} dh={dh} dv={dv}, with lse): out max abs err "
             f"{errs[dtype]:.3g}, lse {lerrs[dtype]:.3g}; dq/dk/dv with the "
             f"kernel's forward vs the plain forward's, max err / max |grad| "
             f"{gerrs[dtype]:.3g} (bound {GRAD_REL_TOL[dtype]})")
@@ -854,10 +927,10 @@ def flash_train_row(dev, gen, flush):
                                        return_lse=True)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     row = dict(
-        name="flash_attention", kernel="flash_attention", path="yi-9b train",
+        name="flash_attention", kernel="flash_attention", path=path,
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:77", dtype="bfloat16",
-        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} dv={dh} causal, with lse",
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} dv={dv} causal, with lse",
         max_abs_err=errs[torch.bfloat16],
         max_abs_err_fp32=errs[torch.float32],
         lse_max_abs_err=lerrs[torch.bfloat16],
@@ -877,7 +950,7 @@ def flash_train_row(dev, gen, flush):
     out, lse = fa.flash_attention(q, k, v, return_lse=True)
     row["plain_bwd_ms"] = time_ms(lambda: ref.flash_attention_bwd(
         q, k, v, out, lse, dout, **ck), flush)
-    log(f"[kernels] flash_attention yi-9b train: with lse {row['ms']:.4f} "
+    log(f"[kernels] flash_attention {path}: with lse {row['ms']:.4f} "
         f"ms, without {row['ms_no_lse']:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}), plain forward {row['plain_ms']:.4f} ms, SDPA "
         f"forward {row['library_ms']:.4f} ms; one layer's plain backward "
@@ -887,7 +960,7 @@ def flash_train_row(dev, gen, flush):
 
 def flash_lse_edges(dev, gen):
     """Flash with lse at the edge head shapes (both serve head dims, MLA's
-    qk 192 / v 128, NEW_HEADS), both dtypes: Sq not a multiple of the q
+    qk 192 / v 128, NEW_HEADS, SMOKE_HEADS), both dtypes: Sq not a multiple of the q
     tile, a window edge crossing the key tiles with q_offset, one row over
     a long cache, rows of which some and rows of which all see no key
     (q_offset past the window's reach).  Live rows: out and lse against
@@ -900,7 +973,7 @@ def flash_lse_edges(dev, gen):
     cases = ((100, 100, 0, None), (65, 200, 135, 48), (1, 300, 299, None),
              (16, 40, 36, 8), (16, 40, 60, 8))
     heads = ((32, 4, 128, 128), (16, 8, 240, 240), MLA_HEADS) + tuple(
-        (H, Hkv, dh, dh) for H, Hkv, dh in NEW_HEADS)
+        (H, Hkv, dh, dh) for H, Hkv, dh in NEW_HEADS) + SMOKE_HEADS
     n_empty = 0
     for H, Hkv, dh, dv in heads:
         errs = {}
@@ -1211,13 +1284,17 @@ def kernel_phase(dev):
     rows = []
 
     # -- paged decode: yi-9b (dh 128), gemma3-12b's global layers (dh 240),
-    # llama4-scout (group 5) and musicgen-large (MHA, dh 64)
+    # llama4-scout (group 5), musicgen-large (MHA, dh 64) and the reduced
+    # configs (dh 16, max_len 256)
     for path, kw in (("yi-9b serve", {}),
                      ("gemma3-12b serve", dict(
                          H=16, Hkv=8, dh=240, maxp=128,
                          lengths=(2048, 1500, 16, 0, 1031, 1, 700, 1990))),
                      ("llama4-scout serve", dict(H=40, Hkv=8, dh=128)),
-                     ("musicgen-large serve", dict(H=32, Hkv=32, dh=64))):
+                     ("musicgen-large serve", dict(H=32, Hkv=32, dh=64)),
+                     ("smoke serve", dict(
+                         H=4, Hkv=4, dh=16, maxp=16,
+                         lengths=(64, 40, 16, 0, 33, 1, 20, 63)))):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             (q, kp, vp, pages, cur), valid = decode_case(dtype, dev, gen,
@@ -1257,7 +1334,8 @@ def kernel_phase(dev):
     # phase) and gemma3-12b's per-slot window rings
     for path, layout in (("yi-9b strip", "shared"),
                          ("gemma3-12b serve", "ring"),
-                         ("hymba serve", "hymba ring")):
+                         ("hymba serve", "hymba ring"),
+                         ("smoke serve", "smoke ring")):
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             args, window, valid = strip_case(layout, dtype, dev, gen)
@@ -1300,8 +1378,10 @@ def kernel_phase(dev):
     # -- flash attention: yi-9b's prefill (dh 128, causal), gemma3-12b's
     # window layers (dh 240, window 1024), llama4-scout's and
     # musicgen-large's prefill, deepseek-v2's MLA prefill (qk 192 / v 128)
-    # and hymba-1.5b's window layers (25 heads over 5 at dh 64)
-    for path, (B, S, H, Hkv, dh, dv, window) in FLASH_PATHS:
+    # and hymba-1.5b's window layers (25 heads over 5 at dh 64); the
+    # reduced configs' prefill (dh 16, and the reduced MLA's qk 24 / v 16)
+    for path, (B, S, H, Hkv, dh, dv, window) in FLASH_PATHS + \
+            SMOKE_FLASH_PATHS:
         errs = {}
         for dtype in (torch.float32, torch.bfloat16):
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
@@ -1352,6 +1432,8 @@ def kernel_phase(dev):
         del q, k, v, qt, kt, vt, lib
     flash_edges(dev, gen)
     rows.append(flash_train_row(dev, gen, flush))
+    rows += [flash_train_row(dev, gen, flush, "smoke train", shape, dv,
+                             SMOKE_CHUNK) for shape, dv in SMOKE_TRAIN_FLASH]
     flash_lse_edges(dev, gen)
 
     rows += gather_rows(dev, flushes)
@@ -1668,7 +1750,7 @@ def pool_edges(a):
         f"the other {R - 100} segments exactly 0, max abs err {err:.3g}")
 
 
-def apps_phase(dev):
+def apps_phase(dev, meter):
     """The paper's NLP-query path (benchmarks/apps.py's two kernel apps and
     examples/isp_embedding_demo.py's pool) through ops.topk_similarity and
     ops.isp_gather_pool at the paper's batch sizes; the launch counters are
@@ -1807,6 +1889,17 @@ def apps_phase(dev):
             f"{batch_ms:.4f} ms, {R / batch_ms * 1e3:.4g} reviews/s")
         row.update(batch_ms=batch_ms, items_per_s=R / batch_ms * 1e3)
     rows += p_rows
+    # the energy an item: recommender batches of 256 queries over the fp32
+    # corpus, and sentiment batches of R reviews (fp32, no weights: pool,
+    # head and argmax), each back to back for a window of ``meter``'s
+    qs, c = queries[256], corpus[torch.float32]
+    for label, fn, per in (
+            ("apps recommender, a query (Q=256, fp32 corpus)",
+             lambda: tk.topk_similarity(qs, c, K), 256),
+            ("apps sentiment, a review (fp32, no weights)",
+             lambda: sentiment(torch.float32, None), R)):
+        n = back_to_back(fn)
+        meter.measure("item", label, lambda: repeat(fn, n), items=n * per)
     del flushes, flush
     for row in rows:
         row["kernel_ms"] = row["ms"]
@@ -1828,10 +1921,11 @@ def apps_phase(dev):
 
 
 def serve(cfg, params, requests, k_block, dev, max_len=1024,
-          kv_layout="paged", engine=None, **engine_kw):
+          kv_layout="paged", engine=None, meter=None, **engine_kw):
     """Serve ``requests`` through a fresh engine (or ``engine``, built with
     a telemetry hub) with the launch counters set to 0 just before and
-    read just after."""
+    read just after; with a ``meter`` the run is one of its item windows
+    (joules a generated token)."""
     from repro_torch.core.telemetry import TelemetryHub
     from repro_torch.kernels import ops
     from repro_torch.train.serve_loop import ServeEngine
@@ -1847,7 +1941,13 @@ def serve(cfg, params, requests, k_block, dev, max_len=1024,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    results = eng.run_until_complete()
+    if meter is None:
+        results = eng.run_until_complete()
+    else:
+        w = meter.measure("item", f"{cfg.name} serve, a generated token",
+                          eng.run_until_complete)
+        results = w.out
+        w.items = sum(len(r.tokens) for r in results)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -2444,7 +2544,9 @@ def drive_cluster(cfg, params, dev, requests, shards=None, replay=None,
     return run
 
 
-def cluster_log(tag, run):
+def cluster_log(tag, run) -> tuple:
+    """Log a cluster run; returns its Table I energy a query (mJ) and mean
+    active drives."""
     st, lat = run.clu.stats, run.clu.stats.latency
     log(f"[{tag}] {st.completed} ok / {st.shed_requests} shed / "
         f"{st.failed_requests} failed of {run.submitted}; "
@@ -2462,6 +2564,7 @@ def cluster_log(tag, run):
         f"active drives")
     for line in run.clu.summary().splitlines():
         log(f"[{tag}] {line}")
+    return st.energy_per_query_mj, st.mean_active
 
 
 def tpot_p(lat, q) -> float:
@@ -2502,7 +2605,8 @@ def cluster_phase(dev):
     """yi-9b bf16 at full width and CLUSTER_LAYERS layers served by a
     4-drive cluster over the one model: serial, then data_local over 4
     shards with a tick-based crash of drive 1, then on worker threads,
-    then open-loop bursty traffic FIFO and EDF."""
+    then open-loop bursty traffic FIFO and EDF.  Returns the serial run's
+    Table I energy a query (mJ) and mean active drives."""
     from repro_torch.config import get_config
     from repro_torch.core.faults import (DEAD, HEALTHY, FailureDetector,
                                          FaultSchedule)
@@ -2540,7 +2644,7 @@ def cluster_phase(dev):
                  for c in d.engine.caches.values() for leaf in ("kp", "vp"))
              for d in run.clu.drives]
     bound = weights + sum(pools) + CLUSTER_MEM_MARGIN
-    cluster_log("cluster serial", run)
+    table1 = cluster_log("cluster serial", run)
     assert [r.tokens for r in run.results] == want, \
         "the cluster's tokens differ from one engine's"
     assert not run.suspect, run.suspect
@@ -2665,6 +2769,7 @@ def cluster_phase(dev):
         f"requests both served")
     del params
     free_device()
+    return table1
 
 
 # llama4-scout at full width: all 48 layers hold 107.8 B parameters (215.6
@@ -3483,13 +3588,14 @@ def train_phase(dev):
     assert all(math.isfinite(x) for x in fit) and fit[-1] < fit[0], fit
     log(f"[train] one repeated batch, 4 steps at lr 1e-4: loss {fit[0]:.4f} "
         f"-> {fit[-1]:.4f} ({[round(x, 4) for x in fit]})")
-    del step_fn, fit_fn
+    del fit_fn
     summary = dict(median_step_ms=med_ms, tokens_per_s=tokens / med_ms * 1e3,
                    model_tflop=flops / 1e12, peak_share=share,
                    peak_gb=peak / 1e9, profile_ms=parts)
     return launches, summary, SimpleNamespace(
         cfg=cfg, state=state, counted=counted, prof=prof, timed=timed,
-        med_ms=med_ms, train_flops=flops, dryruns=dryruns)
+        med_ms=med_ms, train_flops=flops, dryruns=dryruns, step_fn=step_fn,
+        loader=loader)
 
 
 # -- the roofline phase -------------------------------------------------------
@@ -3679,13 +3785,16 @@ def held_to_count(tag, cfg, shape, counted, timed, prof, args_bytes, smi,
                          for r in rows])
 
 
-def roofline_phase(dev, tr, smi) -> dict:
+def roofline_phase(dev, tr, smi, meter) -> dict:
     """The train phase's counted, profiled and timed yi-9b steps (8 of 48
     layers, 2 x 4096, bf16, remat "dots") held to their count; then one
     decode tick of the same model on the paged layout (DECODE_SLOTS slots
     over DECODE_SPAN rows, ``models.model.decode_fn`` with per-slot
     positions) counted, timed (median of 10), profiled and held the same
-    way; then the dry-runs' report."""
+    way; then the dry-runs' report.  The same train step (on the next
+    batches) and the same decode tick each run back to back for
+    ENERGY_WINDOW_S as ``meter``'s held-out windows, with the counted
+    FLOPs and bytes, for the energy phase."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import ShapeConfig
     from repro_torch.launch.dryrun import tree_bytes
@@ -3702,6 +3811,18 @@ def roofline_phase(dev, tr, smi) -> dict:
         extra_mfu="the train phase's share (6 x (block + head parameters) "
         f"x tokens + attention, train_flops) over the measured step "
         f"{share:.1%}")
+    n = max(2, math.ceil(ENERGY_WINDOW_S / (tr.timed.ms / 1e3)))
+    t = out["train"]
+    meter.measure(
+        "held-out", f"yi-9b train steps ({cfg.num_layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}) x {n}",
+        lambda: [float(tr.step_fn(
+            state.params, state.opt_state,
+            tr.loader.global_batch_at(TRAIN_STEPS + 3 + i))[2]["loss"])
+            for i in range(n)],
+        flops=n * t["counted_tflop"] * 1e12, nbytes=n * t["hbm_gb"] * 1e9,
+        items=n)
+    tr.step_fn = tr.loader = None
     # the decode tick: the optimizer state goes first
     state.opt_state = None
     params = state.params
@@ -3729,11 +3850,17 @@ def roofline_phase(dev, tr, smi) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             tick()
             torch.cuda.synchronize()
+        n = max(2, math.ceil(ENERGY_WINDOW_S / (timed.ms / 1e3)))
+        ticks = meter.measure(
+            "held-out", f"yi-9b decode ticks ({cfg.num_layers} layers, "
+            f"{B} slots, paged) x {n}", lambda: repeat(tick, n), items=n)
     out["decode"] = held_to_count(
         f"yi-9b decode tick ({cfg.num_layers} layers, {B} slots, paged, "
         f"positions {pos.min().item()}..{pos.max().item()})", cfg,
         ShapeConfig(T, B, "yi-9b decode", "decode"), counted, timed, prof,
         tree_bytes([params, caches, token, pos]), smi)
+    ticks.flops = ticks.items * out["decode"]["counted_tflop"] * 1e12
+    ticks.nbytes = ticks.items * out["decode"]["hbm_gb"] * 1e9
     del caches, params, prof, state
     tr.state = None
     free_device()
@@ -4621,6 +4748,501 @@ def _rank_plan(cfg, shape, rank):
     return sh.ShardingRecipe(plan=plan, batch_axes=("data",), seq_axes=())
 
 
+# -- the smoke phase -----------------------------------------------------------
+# every reduced config of configs.ASSIGNED (bf16) and the reference's bench
+# cell of fig5-fig9 (reduced yi-9b in float32) served with the serve CLI's
+# defaults on the card, then on the CPU from the same weights; three steps
+# of the train CLI's path for reduced yi-9b and deepseek-v2 (flash with lse
+# at (16, 16) and (24, 16))
+SMOKE_SERVE = dict(requests=8, prompt_len=32, min_prompt=4, max_new=32,
+                   max_len=256, num_slots=8, page_size=16, k_block=8)
+SMOKE_TRAIN_ARCHS = ("yi-9b", "deepseek-v2-236b")
+SMOKE_TRAIN_STEPS = 3
+SMOKE_TRAIN_SHAPE = (8, 256)    # the train CLI's --global-batch, --seq-len
+SMOKE_TRAIN_LR = 3e-4           # the train CLI's --lr
+# step 0's loss on the card against the CPU's, same weights and batch:
+# fp32, the same sums in other orders (~1e-6 of a loss of ~5.5); bf16,
+# each side rounds to bf16 in other places (flash's bf16 probabilities
+# against the plain fp32 softmax; cuBLAS against the CPU's GEMMs), up to
+# 2**-8 of a unit-scale value through two layers into a mean over 2048
+# tokens
+SMOKE_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+ATTN_KINDS = ("attn", "local", "moe", "mla_moe", "hybrid")  # prefill: flash
+FULL_KINDS = ("attn", "moe")       # decode: paged pools (strips if none)
+RING_KINDS = ("local", "hybrid")   # decode: isp decode on window rings
+
+
+def smoke_requests(cfg):
+    """The serve CLI's requests at its defaults (launch/serve.py's _serve,
+    --seed 0)."""
+    s = SMOKE_SERVE
+    rng = np.random.default_rng(SEED)
+    hi = min(s["prompt_len"], s["max_len"] - 1)
+    out = []
+    for _ in range(s["requests"]):
+        n = int(rng.integers(min(s["min_prompt"], hi), hi + 1))
+        out.append((rng.integers(0, cfg.vocab_size, n).tolist(),
+                    s["max_new"]))
+    return out
+
+
+def smoke_serve(cfg, params, requests, device):
+    """``requests`` through a ServeEngine built as the serve CLI builds it,
+    the launch counters set to 0 just before the run and read just after:
+    (engine, results, launches, prefill calls)."""
+    from repro_torch.core.telemetry import TelemetryHub
+    from repro_torch.kernels import ops
+    from repro_torch.train.serve_loop import AdmissionController, ServeEngine
+    s = SMOKE_SERVE
+    eng = ServeEngine(
+        cfg, params, admission=AdmissionController(
+            s["num_slots"], host_rate=20.0, csd_rate=1.0, n_csds=1),
+        telemetry=TelemetryHub(), max_len=s["max_len"],
+        num_slots=s["num_slots"], kv_layout="paged",
+        page_size=s["page_size"], k_block=s["k_block"], device=device)
+    for prompt, max_new in requests:
+        eng.submit(prompt, max_new=max_new)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    results = eng.run_until_complete()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    assert len(results) == len(requests) and all(
+        r.status == "ok" for r in results), [r.status for r in results]
+    assert [len(r.tokens) for r in results] == [m for _, m in requests]
+    assert all(0 <= t < cfg.vocab_size for r in results for t in r.tokens)
+    if eng.pager is not None:
+        eng.pager.check_balanced()
+    return eng, results, launches, len(phases(eng.tele, "prefill"))
+
+
+def smoke_cells():
+    """(tag, config) of the smoke phase's serve cells."""
+    from repro_torch.config import reduced_config
+    from repro_torch.configs import ASSIGNED
+    return [(a, reduced_config(a)) for a in ASSIGNED] + [
+        ("yi-9b fp32", dataclasses.replace(reduced_config("yi-9b"),
+                                           dtype="float32"))]
+
+
+def smoke_phase(dev):
+    """Each smoke cell served on the card and on the CPU from the same
+    weights (drawn on the CPU, copied to the card): every request ok, free
+    lists balanced, on the card flash on every attention layer of every
+    prefill call and paged or isp decode on every attention layer of every
+    decode step, nothing launched on the CPU; fp32 tokens identical, bf16
+    tokens parting only where the top-2 margin is below BF16_FLIP_MARGIN.
+    Then SMOKE_TRAIN_STEPS steps of ``train_loop.train`` (the train CLI's
+    path) for each of SMOKE_TRAIN_ARCHS on the card: finite losses, flash
+    on every attention layer of every step, step 0's loss within
+    SMOKE_LOSS_TOL of the CPU's on the same weights and batch.  Returns the
+    serve cells' launches summed and the train runs'."""
+    from repro_torch.config import ShapeConfig, reduced_config
+    from repro_torch.data import DataConfig, ShardedLoader, \
+        SyntheticTokenSource
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import make_plan, make_recipe
+    from repro_torch.train import train_loop as TL
+    serve_total, train_total = {}, {}
+    for tag, cfg in smoke_cells():
+        t0 = time.perf_counter()
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        params = M.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        params.load_state_dict(cpu.state_dict())
+        requests = smoke_requests(cfg)
+        eng, res, ln, calls = smoke_serve(cfg, params, requests, dev)
+        steps, layout = eng.stats.decode_steps, eng.kv_layout
+        kinds = cfg.layer_pattern
+        n_attn = sum(k in ATTN_KINDS for k in kinds)
+        n_full = sum(k in FULL_KINDS for k in kinds)
+        n_ring = sum(k in RING_KINDS for k in kinds)
+        n_paged = n_full if layout == "paged" else 0
+        want = dict(flash_attention=n_attn * calls,
+                    paged_decode=n_paged * steps,
+                    isp_decode=(n_ring + n_full - n_paged) * steps)
+        assert {k: ln[k] for k in want} == want, (tag, ln, want)
+        assert steps > 0 and calls > 0, tag
+        for k, v in ln.items():
+            serve_total[k] = serve_total.get(k, 0) + v
+        del eng
+        _, res_cpu, ln_cpu, _ = smoke_serve(cfg, cpu, requests, "cpu")
+        assert not any(ln_cpu.values()), (tag, ln_cpu)
+        got = [r.tokens for r in res]
+        ref_tokens = [r.tokens for r in res_cpu]
+        if cfg.dtype == "float32":
+            assert got == ref_tokens, f"smoke {tag}: card and CPU disagree"
+            flips = 0
+        else:
+            flips = check_flips(f"smoke {tag}", requests, got, ref_tokens,
+                                params, cfg, dev, BF16_FLIP_MARGIN)
+        log(f"[smoke] {tag} ({cfg.dtype}, {'/'.join(sorted(set(kinds)))}, "
+            f"{cfg.num_layers} layers, H {cfg.num_heads}/{cfg.num_kv_heads} "
+            f"dh {cfg.resolved_head_dim}"
+            + (f", MLA qk {cfg.attn.qk_nope_dim}+{cfg.attn.qk_rope_dim} v "
+               f"{cfg.attn.v_head_dim}" if "mla_moe" in kinds else "")
+            + f"): {len(res)} requests ok on the card and the CPU, "
+            f"{layout} layout, {calls} prefill calls, {steps} decode steps; "
+            f"launches {want}; tokens "
+            + ("identical" if flips == 0 else f"{flips} near-tie flips")
+            + f" against the CPU's; {time.perf_counter() - t0:.2f} s")
+        del params, cpu
+    free_device()
+    B, S = SMOKE_TRAIN_SHAPE
+    for arch in SMOKE_TRAIN_ARCHS:
+        cfg = reduced_config(arch)
+        assert cfg.remat == "none", cfg.remat   # flash once a layer a step
+        dcfg = DataConfig(seq_len=S, global_batch=B,
+                          vocab_size=cfg.vocab_size, seed=SEED)
+        tcfg = TL.TrainConfig(steps=SMOKE_TRAIN_STEPS, lr=SMOKE_TRAIN_LR,
+                              log_every=1, ckpt_every=10**9, seed=SEED)
+        # step 0's loss on the CPU: the weights train() draws (its state
+        # from the same seed), copied to the CPU, and its first batch
+        recipe = make_recipe(make_plan(None, cfg), cfg, ShapeConfig(S, B))
+        first = TL.build_state(cfg, recipe, AdamWConfig(lr=tcfg.lr), SEED,
+                               dev).params
+        cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        cpu.load_state_dict(first.state_dict())
+        del first
+        batch = ShardedLoader(SyntheticTokenSource(dcfg.vocab_size,
+                                                   dcfg.seed),
+                              dcfg).global_batch_at(0)
+        with torch.no_grad():
+            cpu_loss = float(M.loss_fn(cpu, {
+                k: torch.as_tensor(v) for k, v in batch.items()}, cfg)[0])
+        del cpu
+        mets = []
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        TL.train(cfg, dcfg, tcfg, device=dev,
+                 metrics_cb=lambda step, m: mets.append(m))
+        torch.cuda.synchronize()
+        ln = ops.launch_counts()
+        losses = [m["loss"] for m in mets]
+        assert len(losses) == SMOKE_TRAIN_STEPS and all(
+            math.isfinite(x) for x in losses), (arch, losses)
+        n_attn = sum(k in ATTN_KINDS for k in cfg.layer_pattern)
+        assert ln["flash_attention"] == n_attn * SMOKE_TRAIN_STEPS, (arch,
+                                                                     ln)
+        d = abs(losses[0] - cpu_loss)
+        log(f"[smoke] train {arch} ({cfg.dtype}, {B} x {S}, "
+            f"{SMOKE_TRAIN_STEPS} steps): losses "
+            f"{[round(x, 5) for x in losses]}; step 0 against the CPU's "
+            f"{cpu_loss:.5f} on the same weights and batch (|difference| "
+            f"{d:.3g}, bound {SMOKE_LOSS_TOL[cfg.dtype]:g}); launches {ln}; "
+            f"{time.perf_counter() - t0:.2f} s")
+        assert d <= SMOKE_LOSS_TOL[cfg.dtype], (arch, losses[0], cpu_loss)
+        for k, v in ln.items():
+            train_total[k] = train_total.get(k, 0) + v
+    free_device()
+    return serve_total, train_total
+
+
+# -- the energy phase ----------------------------------------------------------
+# core/energy.py's H100 constants fitted on the card's own energy counter:
+# E = P0 t + a F + b B by least squares over calibration windows whose
+# FLOPs and bytes are known exactly, then held out on the roofline phase's
+# yi-9b train steps and decode ticks, whose counts it gives
+ENERGY_WINDOW_S = 2.5      # every window lasts at least this (> 2 s)
+ENERGY_CAL_TOL = 0.10      # each calibration window predicted within 10%
+ENERGY_HELD_TOL = 0.35     # each held-out window within 35% (PERF.md)
+ENERGY_GEMM_N = 8192       # the compute window's bf16 GEMM, 8192^3
+ENERGY_COPY_BYTES = 4 * 10**9   # each buffer of the byte window's copy
+SMI_PERIOD_MS = 100        # nvidia-smi's power samples beside the counter
+SMI_FIELDS = ("power.draw.instant", "power.draw")
+
+
+def smi_power_field() -> str:
+    """The first of SMI_FIELDS the installed nvidia-smi reads (on Ampere
+    and later, ``power.draw`` is a one-second average)."""
+    for field in SMI_FIELDS:
+        out = subprocess.run(
+            ["nvidia-smi", f"--query-gpu={field}",
+             "--format=csv,noheader,nounits", "-i", "0"],
+            capture_output=True, text=True, timeout=60)
+        try:
+            float(out.stdout.strip().splitlines()[0])
+            return field
+        except (ValueError, IndexError):
+            continue
+    return SMI_FIELDS[-1]
+
+
+class PowerMeter:
+    """The card's energy over windows of the host clock, from two sources:
+    NVML's total-energy counter (mJ since the GPU's kernel module loaded),
+    read through ctypes from libnvidia-ml.so.1, and nvidia-smi's power
+    samples every SMI_PERIOD_MS (a child process writing to a file under
+    build/), integrated over the same window.  The counter is the source
+    where it can be read; the integral otherwise, and every joule figure
+    names its source."""
+
+    def __init__(self):
+        import atexit
+        import ctypes
+        self.ctypes, self.lib, self.handle, self.why = ctypes, None, None, ""
+        try:
+            lib = ctypes.CDLL("libnvidia-ml.so.1")
+            for fn in ("nvmlInit_v2", "nvmlShutdown",
+                       "nvmlDeviceGetHandleByIndex_v2",
+                       "nvmlDeviceGetTotalEnergyConsumption"):
+                getattr(lib, fn).restype = ctypes.c_int    # nvmlReturn_t
+            lib.nvmlInit_v2.argtypes = lib.nvmlShutdown.argtypes = []
+            lib.nvmlDeviceGetHandleByIndex_v2.argtypes = [
+                ctypes.c_uint, ctypes.POINTER(ctypes.c_void_p)]
+            lib.nvmlDeviceGetTotalEnergyConsumption.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_ulonglong)]
+            handle = ctypes.c_void_p()
+            rc = lib.nvmlInit_v2()
+            if rc == 0:
+                rc = lib.nvmlDeviceGetHandleByIndex_v2(0, ctypes.byref(handle))
+            if rc == 0:
+                self.lib, self.handle = lib, handle
+                if self.counter_mj() is None:
+                    self.lib, self.why = None, "nvmlDeviceGetTotalEnergy" \
+                        "Consumption is not supported on this card"
+            else:
+                self.why = f"NVML returned {rc} at init"
+        except OSError as e:
+            self.why = f"libnvidia-ml.so.1 did not load: {e}"
+        self.field = smi_power_field()
+        self.path = ROOT / "build" / "power_samples.csv"
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        # line-buffered (stdbuf), so that each sample reaches the file as
+        # it is taken and not in blocks of a few kB
+        import shutil
+        line = ["stdbuf", "-oL"] if shutil.which("stdbuf") else []
+        with open(self.path, "w") as f:
+            self.proc = subprocess.Popen(
+                line + ["nvidia-smi", f"--query-gpu=timestamp,{self.field}",
+                        "--format=csv,noheader,nounits", "-lms",
+                        str(SMI_PERIOD_MS), "-i", "0"],
+                stdout=f, stderr=subprocess.DEVNULL)
+        atexit.register(self.close)
+        self.windows = []
+        log(f"[energy] sources: "
+            + ("NVML's total-energy counter (nvmlDeviceGetTotalEnergy"
+               "Consumption, mJ)" if self.lib else
+               f"no energy counter ({self.why}): nvidia-smi's integral")
+            + f"; beside it nvidia-smi {self.field} every {SMI_PERIOD_MS} ms")
+
+    @property
+    def source(self) -> str:
+        return "NVML counter" if self.lib else \
+            f"nvidia-smi {self.field} integral"
+
+    def counter_mj(self):
+        if self.lib is None:
+            return None
+        v = self.ctypes.c_ulonglong()
+        rc = self.lib.nvmlDeviceGetTotalEnergyConsumption(
+            self.handle, self.ctypes.byref(v))
+        return int(v.value) if rc == 0 else None
+
+    def measure(self, kind, label, fn, flops=0.0, nbytes=0.0, items=None):
+        """Run ``fn`` between two synchronizes and read both sources
+        around it: a window of ``kind`` ("calibration", "held-out" or
+        "item") with its known FLOPs and bytes; ``out`` keeps fn's
+        result."""
+        # the window's ends on the wall clock, which nvidia-smi's sample
+        # timestamps are on; its length on perf_counter
+        torch.cuda.synchronize()
+        e0, p0 = self.counter_mj(), time.perf_counter()
+        t0 = time.time()  # lint: disable=banned-api
+        out = fn()
+        torch.cuda.synchronize()
+        t1 = time.time()  # lint: disable=banned-api
+        p1, e1 = time.perf_counter(), self.counter_mj()
+        w = SimpleNamespace(kind=kind, label=label, t0=t0, t1=t1, s=p1 - p0,
+                            counter_j=None if e0 is None or e1 is None
+                            else (e1 - e0) / 1e3, smi_j=None, flops=flops,
+                            nbytes=nbytes, items=items, out=out)
+        self.windows.append(w)
+        return w
+
+    def integrate(self) -> None:
+        """nvidia-smi's integral (the samples' mean power times the
+        window) for every window, once the last sample has landed."""
+        import datetime
+        time.sleep(2 * SMI_PERIOD_MS / 1e3)
+        samples = []
+        for line in self.path.read_text().splitlines():
+            parts = [x.strip() for x in line.split(",")]
+            try:
+                t = datetime.datetime.strptime(
+                    parts[0], "%Y/%m/%d %H:%M:%S.%f").timestamp()
+                samples.append((t, float(parts[1])))
+            except (ValueError, IndexError):
+                continue
+        for w in self.windows:
+            p = [x for t, x in samples if w.t0 <= t <= w.t1]
+            w.smi_j = float(np.mean(p)) * w.s if len(p) >= 2 else None
+
+    def joules(self, w):
+        return w.counter_j if self.lib else w.smi_j
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        if self.lib is not None:
+            self.lib.nvmlShutdown()
+            self.lib = None
+
+
+def repeat(fn, n: int) -> None:
+    for _ in range(n):
+        fn()
+
+
+def back_to_back(fn, seconds=ENERGY_WINDOW_S) -> int:
+    """How many calls of ``fn`` back to back fill ``seconds`` (from three
+    timed calls after a warm one)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return max(3, math.ceil(seconds / ((time.perf_counter() - t0) / 3)))
+
+
+def fit_energy(windows):
+    """(P0 in W, pJ a FLOP, pJ a byte) by least squares of E = P0 t +
+    a F + b B over ``windows`` of (seconds, FLOPs, bytes, joules), each row
+    divided by its joules so that every window's relative error weighs
+    alike."""
+    a = np.array([[t, f * 1e-12, b * 1e-12] for t, f, b, _ in windows])
+    e = np.array([j for *_, j in windows], dtype=float)
+    x = np.linalg.lstsq(a / e[:, None], np.ones(len(e)), rcond=None)[0]
+    return tuple(float(v) for v in x)
+
+
+def predict_j(consts, flops, nbytes, s) -> float:
+    """``gpu_step_energy``'s total for one window with the constants
+    ``consts`` (P0, pJ a FLOP, pJ a byte) in place of the module's."""
+    from repro_torch.core import energy as E
+    saved = E.CHIP_IDLE_W, E.PJ_PER_FLOP, E.PJ_PER_HBM_BYTE
+    E.CHIP_IDLE_W, E.PJ_PER_FLOP, E.PJ_PER_HBM_BYTE = consts
+    try:
+        return E.gpu_step_energy(flops, nbytes, 0, s).total_j
+    finally:
+        E.CHIP_IDLE_W, E.PJ_PER_FLOP, E.PJ_PER_HBM_BYTE = saved
+
+
+def calibration_windows(meter, dev) -> None:
+    """The four calibration windows, each at least ENERGY_WINDOW_S: the
+    card idle with the context alive; bf16 GEMMs of ENERGY_GEMM_N^3
+    (2 N^3 FLOPs, 3 N^2 bf16 elements read or written a call); copies of
+    an ENERGY_COPY_BYTES buffer to another (read once, written once); the
+    two in turns."""
+    n3 = ENERGY_GEMM_N
+    a, b = (torch.randn(n3, n3, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    c = torch.empty_like(a)
+    src = torch.ones(ENERGY_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    gemm_f, gemm_b = 2 * n3 ** 3, 3 * n3 * n3 * 2
+    copy_b = 2 * ENERGY_COPY_BYTES
+
+    def gemm():
+        torch.matmul(a, b, out=c)
+
+    def copy():
+        dst.copy_(src)
+
+    def mix():
+        gemm()
+        copy()
+    meter.measure("calibration", "idle (context alive, time.sleep)",
+                  lambda: time.sleep(ENERGY_WINDOW_S))
+    for label, fn, f, nb in (
+            (f"bf16 GEMM {n3}^3", gemm, gemm_f, gemm_b),
+            (f"device copy of {ENERGY_COPY_BYTES / 1e9:g} GB", copy, 0,
+             copy_b),
+            ("GEMM and copy in turns", mix, gemm_f, gemm_b + copy_b)):
+        n = back_to_back(fn)
+        meter.measure("calibration", f"{label} x {n}",
+                      lambda: repeat(fn, n), flops=n * f,
+                      nbytes=n * nb, items=n)
+    del a, b, c, src, dst
+    free_device()
+
+
+def energy_phase(dev, meter, table1=None) -> dict:
+    """The calibration windows, the fit, each calibration window and each
+    held-out window (the roofline phase's) predicted against its measured
+    joules, then the joules an item of the paths measured earlier (the
+    yi-9b serve phase's tokens, the apps phase's queries and reviews)
+    beside ``table1``, the cluster phase's Table I line (mJ a query, mean
+    active drives)."""
+    from repro_torch.core import energy as E
+    calibration_windows(meter, dev)
+    meter.integrate()
+    src = meter.source
+    cal = [w for w in meter.windows if w.kind == "calibration"]
+    consts = fit_energy([(w.s, w.flops, w.nbytes, meter.joules(w))
+                         for w in cal])
+    log(f"[energy] fit of E = P0 t + a F + b B over {len(cal)} calibration "
+        f"windows ({src}): CHIP_IDLE_W {consts[0]:.4f} W, PJ_PER_FLOP "
+        f"{consts[1]:.6f} pJ, PJ_PER_HBM_BYTE {consts[2]:.4f} pJ")
+    assert all(math.isfinite(x) and x > 0 for x in consts), consts
+    out = {"source": src, "smi_field": meter.field,
+           "constants": dict(zip(("CHIP_IDLE_W", "PJ_PER_FLOP",
+                                  "PJ_PER_HBM_BYTE"), consts)),
+           "windows": []}
+    module = (E.CHIP_IDLE_W, E.PJ_PER_FLOP, E.PJ_PER_HBM_BYTE)
+    for w in sorted((w for w in meter.windows if w.kind != "item"),
+                    key=lambda w: w.kind != "calibration"):
+        got = meter.joules(w)
+        assert got is not None, (w.label, f"no joules from the {src}")
+        want = predict_j(consts, w.flops, w.nbytes, w.s)
+        err = want / got - 1
+        row = dict(kind=w.kind, label=w.label, s=w.s, flops=w.flops,
+                   bytes=w.nbytes, measured_j=got, counter_j=w.counter_j,
+                   smi_j=w.smi_j, predicted_j=want, err=err)
+        line = (f"[energy] {w.kind} {w.label}: {w.s:.3f} s, "
+                f"{w.flops / 1e12:.3f} TFLOP, {w.nbytes / 1e9:.2f} GB; "
+                f"measured {got:.2f} J ({src}; nvidia-smi {meter.field} "
+                f"integral {w.smi_j if w.smi_j is None else round(w.smi_j, 2)}"
+                f" J), predicted {want:.2f} J by this run's fit ({err:+.1%})")
+        if None not in module:
+            row["module_j"] = predict_j(module, w.flops, w.nbytes, w.s)
+            line += (f", {row['module_j']:.2f} J by core/energy.py's "
+                     f"constants ({row['module_j'] / got - 1:+.1%})")
+        log(line)
+        tol = ENERGY_CAL_TOL if w.kind == "calibration" else ENERGY_HELD_TOL
+        assert abs(err) <= tol, (w.label, got, want, tol)
+        assert w.s >= 2.0, (w.label, w.s)
+        out["windows"].append(row)
+    for w in meter.windows:
+        if w.kind == "item":
+            got = meter.joules(w)
+            assert got is not None, (w.label, f"no joules from the {src}")
+            log(f"[energy] {w.label}: {got:.2f} J over {w.s:.3f} s ({src}; "
+                f"nvidia-smi integral "
+                f"{w.smi_j if w.smi_j is None else round(w.smi_j, 2)} J), "
+                f"{got / w.items * 1e3:.4g} mJ an item over {w.items} "
+                f"items, {got / w.s:.1f} W mean")
+            out[w.label] = dict(j=got, items=w.items, s=w.s,
+                                mj_per_item=got / w.items * 1e3)
+    if table1 is not None:
+        log(f"[energy] beside them, the cluster serial run's Table I line: "
+            f"{table1[0]:.1f} mJ a query of the paper's 36-drive server "
+            f"model (core/energy.py's Table I half, not the card's power) "
+            f"at {table1[1]:.2f} mean active drives")
+    meter.close()
+    return out
+
+
 def build_kernels() -> None:
     """Build every kernel (one nvcc per source, in parallel) and print
     ptxas's register and spill lines for every instantiation."""
@@ -4686,24 +5308,31 @@ def main() -> int:
                         "device": smi}))
         return 0
     build_kernels()
+    meter = None if args.mesh else PowerMeter()
     if args.mesh:
         mesh_phase(dev)
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.roofline:
         _, _, tr = train_phase(dev)
-        log(json.dumps({"roofline": roofline_phase(dev, tr, smi)}))
+        roofline = roofline_phase(dev, tr, smi, meter)
+        del tr
+        energy = energy_phase(dev, meter)
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        log(json.dumps({"roofline": roofline}))
+        log(json.dumps({"energy": energy}))
         return 0
 
     def lap(phase):
         log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
 
     rows = kernel_phase(dev)
-    app_rows, app_launches = apps_phase(dev)
+    app_rows, app_launches = apps_phase(dev, meter)
     rows += app_rows
     free_device()
     lap("kernels and apps")
+    smoke_launches = smoke_phase(dev)
+    lap("smoke configs")
 
     # -- serve -------------------------------------------------------------
     cfg = get_config("yi-9b")
@@ -4718,13 +5347,15 @@ def main() -> int:
                               int(rng.integers(16, 701))).tolist(), 32)
                 for _ in range(16)]
     log(f"[serve] prompt lengths {[len(p) for p, _ in requests]}")
-    eng, results, wall, launches, prefill_calls = serve(cfg, params,
-                                                        requests, 8, dev)
+    eng, results, wall, launches, prefill_calls = serve(
+        cfg, params, requests, 8, dev, meter=meter)
     st = eng.stats
     check_serve("serve", cfg, eng, results, launches, prefill_calls,
                 requests)
     serve_report("serve", eng, results, wall, launches, prefill_calls)
-    path_launches = {"yi-9b serve": launches, "apps": app_launches}
+    path_launches = {"yi-9b serve": launches, "apps": app_launches,
+                     "smoke serve": smoke_launches[0],
+                     "smoke train": smoke_launches[1]}
 
     # -- consistency ---------------------------------------------------------
     eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)
@@ -4756,7 +5387,7 @@ def main() -> int:
     free_device()
     chunk_bf16_phase(dev, requests)
     lap("chunked bf16")
-    cluster_phase(dev)
+    table1 = cluster_phase(dev)
     lap("cluster")
 
     # -- strip layout, then gemma3-12b -----------------------------------------
@@ -4782,9 +5413,11 @@ def main() -> int:
     # -- training: yi-9b at 8 layers on the card, then kill and resume ------
     path_launches["yi-9b train"], train, tr = train_phase(dev)
     lap("train yi-9b")
-    roofline = roofline_phase(dev, tr, smi)
+    roofline = roofline_phase(dev, tr, smi, meter)
     del tr
     lap("roofline")
+    energy = energy_phase(dev, meter, table1)
+    lap("energy")
     elastic_phase(dev)
     lap("kill and resume")
     (path_launches["yi-9b tp2 serve"],
@@ -4796,6 +5429,7 @@ def main() -> int:
 
     log(json.dumps({"train": train}))
     log(json.dumps({"roofline": roofline}))
+    log(json.dumps({"energy": energy}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,7 +3,9 @@
 // and the v/out head dim DV are separate template parameters: (64, 64),
 // (128, 128) and (240, 240) for the GQA families, (192, 128) for
 // deepseek-v2's MLA prefill (128 nope + 64 rope dims against 128 value
-// dims), as the op's contract allows (k/v (B, Skv, Hkv, dh[v])).
+// dims), as the op's contract allows (k/v (B, Skv, Hkv, dh[v])); (16, 16)
+// and (24, 16) for the reduced (smoke) configs, whose head dim is 16 and
+// whose reduced MLA attends at 16 nope + 8 rope dims against 16.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas `_kernel`, grid (B, Hkv, G, nq, nk) with VMEM scratch carried
@@ -32,11 +34,22 @@
 //     sum over the quad's shuffles); P is rounded to bf16 in registers and
 //     becomes the A operand of P.V with no trip through shared memory;
 //   * tiles wholly outside the causal / window band are never visited, and
-//     element masks apply only on the tiles that a band edge or Skv crosses.
+//     element masks apply only on the tiles that a band edge or Skv crosses;
+//   * a DQK that is not a multiple of the MMA's k of 16 (24) is padded to
+//     the next one (DQK_P, 32) in shared memory: the Q and K copies of the
+//     pad columns take cp.async's zero-fill form, and zero columns add
+//     nothing to a dot product.  DV must be a multiple of 16 (O's n8 tiles
+//     are read in pairs by ldmatrix.x4.trans).  The padded row pitches
+//     (DQK_P + 8 and DV + 8 elements: 48 and 80 bytes at 16 and 32) keep
+//     ldmatrix's rows 16-byte aligned and their eight rows in distinct
+//     banks.
 // fp32: flash_fwd_fma, the CUDA-core kernel (TF32 products would not stay
 //   within the fp32 tolerance the port holds its kernels to):
 //   * one block per (64-row q tile, q head, batch row); four threads per
-//     query row, each owning a quarter of the head dims (float4 groups);
+//     query row, each owning a quarter of the head dims, in float4 groups
+//     where the dim is a multiple of 16 and in float2 groups otherwise (a
+//     DQK of 24: three float2 groups a thread), chosen for q/k and v/out
+//     each;
 //   * K/V tiles of 32 keys (16 above DQK 128) staged in shared memory and
 //     shared by the block's 64 rows.
 // Both: GQA maps q head h to kv head h / G, so no KV head is repeated in
@@ -119,14 +132,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 template <int DQK, int DV>
 struct TcShape {
+  static_assert(DQK % 8 == 0 && DV % 16 == 0, "head dims the tiles take");
+  static constexpr int DQK_P = (DQK + 15) / 16 * 16;  // DQK padded to k 16
   static constexpr int BK = DQK > 128 ? 32 : 64;  // keys per K/V tile
-  static constexpr int LD = DQK + 8;              // padded Q/K smem row
+  static constexpr int LD = DQK_P + 8;            // padded Q/K smem row
   static constexpr int LDV = DV + 8;              // padded V smem row
   static constexpr bool QREG = DQK <= 128;        // Q fragments in regs
-  static constexpr int KSTEPS = DQK / 16;         // k-steps of Q.K^T
+  static constexpr int KSTEPS = DQK_P / 16;       // k-steps of Q.K^T
   static constexpr int NT_O = DV / 8;             // n-tiles of O
   static constexpr int NT_S = BK / 8;             // n-tiles of S
-  static constexpr int CPR = DQK / 8;             // 16-byte copies a Q/K row
+  // 16-byte copies a Q/K row, the zero-filled pad columns included
+  static constexpr int CPR = DQK_P / 8;
   static constexpr int CPR_V = DV / 8;            // 16-byte copies a V row
   static constexpr int STAGE = BK * (LD + LDV);   // one K + V stage
   static constexpr size_t SMEM =
@@ -172,10 +188,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
   const __nv_bfloat16* kb = k + (size_t)b * Skv * k_row + (size_t)hk * DQK;
   const __nv_bfloat16* vb = v + (size_t)b * Skv * v_row + (size_t)hk * DV;
 
-  // Q tile; rows past Sq are zero-filled
+  // Q tile; rows past Sq and pad columns past DQK are zero-filled
   for (int i = tid; i < BQ * S::CPR; i += TC_THREADS) {
     const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
-    const bool in = q0 + r < Sq;
+    const bool in = q0 + r < Sq && (S::DQK_P == DQK || c < DQK);
     cp_async16(sq + r * LD + c, qb + (in ? (size_t)(q0 + r) * q_row + c : 0),
                in);
   }
@@ -184,7 +200,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
     __nv_bfloat16* vs = ks + BK * LD;
     // equal head dims keep the one loop of K and V rows they had before
     // the split, so their instantiations compile as they did
-    if constexpr (DQK == DV) {
+    if constexpr (DQK == DV && S::DQK_P == DQK) {
       for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
         const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
         const bool in = k0 + r < Skv;
@@ -195,7 +211,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
     } else {
       for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
         const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
-        const bool in = k0 + r < Skv;
+        const bool in = k0 + r < Skv && (S::DQK_P == DQK || c < DQK);
         cp_async16(ks + r * LD + c,
                    kb + (in ? (size_t)(k0 + r) * k_row + c : 0), in);
       }
@@ -379,6 +395,34 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 
 constexpr int TPR = 4;   // threads per query row
 
+// a thread's slice of a dot product and of p * v over V dims held at once
+// (float4 or float2 reads from shared memory)
+template <int V>
+__device__ __forceinline__ float dot_part(const float* q, const float* k) {
+  if constexpr (V == 4) {
+    const float4 kk = *reinterpret_cast<const float4*>(k);
+    return q[0] * kk.x + q[1] * kk.y + q[2] * kk.z + q[3] * kk.w;
+  } else {
+    const float2 kk = *reinterpret_cast<const float2*>(k);
+    return q[0] * kk.x + q[1] * kk.y;
+  }
+}
+template <int V>
+__device__ __forceinline__ void axpy_part(float* acc, float p,
+                                          const float* v) {
+  if constexpr (V == 4) {
+    const float4 vv = *reinterpret_cast<const float4*>(v);
+    acc[0] += p * vv.x;
+    acc[1] += p * vv.y;
+    acc[2] += p * vv.z;
+    acc[3] += p * vv.w;
+  } else {
+    const float2 vv = *reinterpret_cast<const float2*>(v);
+    acc[0] += p * vv.x;
+    acc[1] += p * vv.y;
+  }
+}
+
 template <int DQK, int DV>
 __global__ void __launch_bounds__(BQ * TPR)
 flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
@@ -388,8 +432,14 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
               float* __restrict__ lse,       // (B, Sq, H) or null
               int Sq, int Skv, int H, int Hkv, int causal, int window,
               int q_offset, float scale) {
-  constexpr int NG = DQK / 16;     // float4 groups of q/k per thread
-  constexpr int NGV = DV / 16;     // float4 groups of v/out per thread
+  // floats a thread reads at once: 4 where the dim is a multiple of 16,
+  // else 2 (DQK 24)
+  constexpr int VQ = DQK % (TPR * 4) == 0 ? 4 : 2;
+  constexpr int VV = DV % (TPR * 4) == 0 ? 4 : 2;
+  static_assert(DQK % (TPR * VQ) == 0 && DV % (TPR * VV) == 0,
+                "head dims the thread groups take");
+  constexpr int NG = DQK / (TPR * VQ);    // groups of q/k per thread
+  constexpr int NGV = DV / (TPR * VV);    // groups of v/out per thread
   constexpr int BK = DQK > 128 ? 16 : 32;  // keys per shared-memory tile
   __shared__ __align__(16) float ks[BK * DQK];
   __shared__ __align__(16) float vs[BK * DV];
@@ -402,17 +452,18 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
   const int qpos = q_offset + qi;
   const bool live = qi < Sq;
 
-  // thread's dims: 16 * g + 4 * part + {0..3}, g in [0, NG) for q/k and
-  // [0, NGV) for v/out
-  float qr[NG * 4], acc[NGV * 4];
+  // thread's dims: TPR * V * g + V * part + {0..V-1}, g in [0, NG) for
+  // q/k (V = VQ) and [0, NGV) for v/out (V = VV)
+  float qr[NG * VQ], acc[NGV * VV];
   const size_t qbase = (((size_t)b * Sq + (live ? qi : 0)) * H + h) * DQK;
 #pragma unroll
   for (int g = 0; g < NG; ++g)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      qr[g * 4 + e] = live ? q[qbase + 16 * g + 4 * part + e] : 0.f;
+    for (int e = 0; e < VQ; ++e)
+      qr[g * VQ + e] =
+          live ? q[qbase + TPR * VQ * g + VQ * part + e] : 0.f;
 #pragma unroll
-  for (int i = 0; i < NGV * 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NGV * VV; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
 
   // keys any row of this tile may see
@@ -463,14 +514,11 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
     float tmax = kNegInf;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks + j * DQK);
       float dot = 0.f;
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 kk = kr[4 * g + part];
-        dot += qr[g * 4 + 0] * kk.x + qr[g * 4 + 1] * kk.y +
-               qr[g * 4 + 2] * kk.z + qr[g * 4 + 3] * kk.w;
-      }
+      for (int g = 0; g < NG; ++g)
+        dot += dot_part<VQ>(qr + g * VQ,
+                            ks + j * DQK + (TPR * g + part) * VQ);
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int kp = k0 + j;
@@ -484,20 +532,14 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int i = 0; i < NGV * 4; ++i) acc[i] *= alpha;
+    for (int i = 0; i < NGV * VV; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
       const float p = s[j] == kNegInf ? 0.f : expf(s[j] - m_new);
       l += p;
-      const float4* vr = reinterpret_cast<const float4*>(vs + j * DV);
 #pragma unroll
-      for (int g = 0; g < NGV; ++g) {
-        const float4 vv = vr[4 * g + part];
-        acc[g * 4 + 0] += p * vv.x;
-        acc[g * 4 + 1] += p * vv.y;
-        acc[g * 4 + 2] += p * vv.z;
-        acc[g * 4 + 3] += p * vv.w;
-      }
+      for (int g = 0; g < NGV; ++g)
+        axpy_part<VV>(acc + g * VV, p, vs + j * DV + (TPR * g + part) * VV);
     }
     m = m_new;
   }
@@ -511,8 +553,8 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
 #pragma unroll
   for (int g = 0; g < NGV; ++g)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      out[obase + 16 * g + 4 * part + e] = acc[g * 4 + e] * inv;
+    for (int e = 0; e < VV; ++e)
+      out[obase + TPR * VV * g + VV * part + e] = acc[g * VV + e] * inv;
 }
 
 template <int DQK, int DV>
@@ -552,6 +594,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                           Skv, H, Hkv, causal, window,       \
                                           q_offset, scale, s));
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  REPRO_FA_LAUNCH(16, 16)
+  REPRO_FA_LAUNCH(24, 16)
   REPRO_FA_LAUNCH(64, 64)
   REPRO_FA_LAUNCH(128, 128)
   REPRO_FA_LAUNCH(240, 240)

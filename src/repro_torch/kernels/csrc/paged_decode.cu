@@ -48,8 +48,9 @@ namespace {
 
 using namespace split_decode;
 
-// LPK: lanes per key (dh / 8 rounded up to a power of two); GC: query heads
-// per block (2 or 8; a block with fewer heads leaves the rest idle).
+// LPK: lanes per key (dh / 8 rounded up to a power of two: 2 at dh 16, so a
+// warp holds 16 keys at once, a page of 16 keys per warp round); GC: query
+// heads per block (2 or 8; a block with fewer heads leaves the rest idle).
 template <typename T, int LPK, int GC>
 __global__ void __launch_bounds__(NT) paged_split_kernel(
     const T* __restrict__ q,        // (B, H, dh)
@@ -192,6 +193,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   return wide ? launch_split<T, LPK, 8>(REPRO_PD_ARGS)                       \
               : launch_split<T, LPK, 2>(REPRO_PD_ARGS)
   switch (dh) {
+    case 16: REPRO_PD_LPK(2);     // the reduced (smoke) configs
     case 32: REPRO_PD_LPK(4);
     case 64: REPRO_PD_LPK(8);
     case 128: REPRO_PD_LPK(16);

@@ -28,9 +28,11 @@ from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (q/k head dim, v head dim) pairs the kernel is instantiated for: the GQA
-# families' uniform head dims and deepseek-v2's MLA prefill (128 nope + 64
-# rope dims of q/k against 128 value dims)
-HEAD_DIMS = ((64, 64), (128, 128), (240, 240), (192, 128))
+# families' uniform head dims, deepseek-v2's MLA prefill (128 nope + 64
+# rope dims of q/k against 128 value dims), and the reduced (smoke)
+# configs' head dim 16 and reduced MLA (16 nope + 8 rope against 16)
+HEAD_DIMS = ((16, 16), (24, 16), (64, 64), (128, 128), (240, 240),
+             (192, 128))
 
 flash_attention_ref = ref.chunked_attention
 

@@ -58,6 +58,29 @@ def decode_partial_split_ref(q, k, v, kpos, cur_pos, *, span: int,
     return ref.merge_partials(*(torch.stack(x) for x in zip(*parts)))
 
 
+def check_shapes(q, k, v, kpos) -> None:
+    """Raise unless q (B, H, dh), k/v (B, S, Hkv, dh) with a contiguous
+    head dim and kpos (S,) or (B, S) fit the kernel: H a multiple of Hkv
+    and dh at most 256.  Reads only shapes and strides, so it runs on any
+    device."""
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"isp_decode: q must be 3-D and k/v 4-D, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    B, H, dh = q.shape
+    Bk, S, Hkv, dhk = k.shape
+    if v.shape != k.shape or Bk != B or dhk != dh or H % Hkv:
+        raise ValueError(f"isp_decode: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if dh > 256:
+        raise ValueError(f"isp_decode: head dim {dh} not supported by the "
+                         f"kernel")
+    if k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("isp_decode: k/v need a contiguous head dim")
+    if kpos.shape not in ((S,), (B, S)):
+        raise ValueError(f"isp_decode: kpos must be (S,) or (B, S), got "
+                         f"{tuple(kpos.shape)}")
+
+
 def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
                    scale: Optional[float] = None):
     """Launch the CUDA kernel.  Same arguments and results as
@@ -67,26 +90,16 @@ def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
     (float32 or bfloat16) on an sm_90 device.  Returns (acc (B,H,dh) f32,
     l (B,H) f32, m (B,H) f32)."""
     B, H, dh = q.shape
-    Bk, S, Hkv, dhk = k.shape
+    S, Hkv = k.shape[1], k.shape[2]
     build.check_device(q)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"isp_decode: q/k/v must share one dtype of "
                         f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if v.shape != k.shape or Bk != B or dhk != dh or H % Hkv:
-        raise ValueError(f"isp_decode: shapes q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if dh > 256:
-        raise ValueError(f"isp_decode: head dim {dh} not supported by the "
-                         f"kernel")
-    if k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("isp_decode: k/v need a contiguous head dim")
+    check_shapes(q, k, v, kpos)
     if window is not None and window <= 0:
         raise ValueError(f"isp_decode: window must be positive, got {window}")
     kpos = kpos.to(torch.int32).contiguous()
-    if kpos.shape not in ((S,), (B, S)):
-        raise ValueError(f"isp_decode: kpos must be (S,) or (B, S), got "
-                         f"{tuple(kpos.shape)}")
     cur = torch.as_tensor(cur_pos, dtype=torch.int32,
                           device=q.device).contiguous()
     if cur.shape not in ((), (B,)):

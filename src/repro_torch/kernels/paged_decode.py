@@ -34,6 +34,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPAN_FLOOR = 4            # logical pages a split covers at least
 BLOCKS_PER_SM = ref.SPLIT_BLOCKS_PER_SM
 SMEM_MAX = 232448         # shared memory one block may use on sm_90
+# head dims the kernel is instantiated for (csrc/paged_decode.cu's switch)
+HEAD_DIMS = (16, 32, 64, 128, 240, 256)
 
 
 # (span, n_split) over the logical pages: ref.split_plan, shared with
@@ -80,6 +82,31 @@ def paged_decode_partial_split_ref(q, kpool, vpool, pages, cur_pos, *,
     return ref.merge_partials(*(torch.stack(x) for x in zip(*parts)))
 
 
+def check_shapes(q, kpool, vpool, pages) -> None:
+    """Raise unless q (B, H, dh), kpool/vpool (P(+scratch), ps, Hkv, dh)
+    and pages (B, maxp) int32 fit the kernel: H a multiple of Hkv with a
+    group of at most 32, dh one of ``HEAD_DIMS``, and two stages of a
+    page's K and V within a block's shared memory.  Reads only shapes and
+    dtypes, so it runs on any device."""
+    if q.dim() != 3 or kpool.dim() != 4:
+        raise ValueError(f"paged_decode: q must be 3-D and the pools 4-D, "
+                         f"got {tuple(q.shape)}, {tuple(kpool.shape)}")
+    B, H, dh = q.shape
+    _, ps, Hkv, dhk = kpool.shape
+    if vpool.shape != kpool.shape or dhk != dh or H % Hkv:
+        raise ValueError(f"paged_decode: shapes q {tuple(q.shape)}, kpool "
+                         f"{tuple(kpool.shape)}, vpool {tuple(vpool.shape)}")
+    if dh not in HEAD_DIMS or H // Hkv > 32:
+        raise ValueError(f"paged_decode: head dim {dh} / group "
+                         f"{H // Hkv} not supported by the kernel")
+    if 4 * ps * dh * q.element_size() > SMEM_MAX:
+        raise ValueError(f"paged_decode: page_size {ps} too large for the "
+                         f"kernel's shared-memory page buffers")
+    if pages.dtype != torch.int32 or pages.dim() != 2 or pages.shape[0] != B:
+        raise ValueError(f"paged_decode: pages must be (B, maxp) int32, got "
+                         f"{tuple(pages.shape)} {pages.dtype}")
+
+
 def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
                          window: Optional[int] = None,
                          scale: Optional[float] = None):
@@ -88,29 +115,18 @@ def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
     tensor on an sm_90 device (q and pools float32 or bfloat16, pages and
     cur_pos int32).  The pools are read in place, by their layout."""
     B, H, dh = q.shape
-    P1, ps, Hkv, dhk = kpool.shape
     build.check_device(q)
     if q.dtype not in _DTYPES or kpool.dtype != q.dtype \
             or vpool.dtype != q.dtype:
         raise TypeError(f"paged_decode: q/kpool/vpool must share one dtype "
                         f"of {list(_DTYPES)}, got {q.dtype}, {kpool.dtype}, "
                         f"{vpool.dtype}")
-    if vpool.shape != kpool.shape or dhk != dh or H % Hkv:
-        raise ValueError(f"paged_decode: shapes q {tuple(q.shape)}, kpool "
-                         f"{tuple(kpool.shape)}, vpool {tuple(vpool.shape)}")
-    if dh not in (32, 64, 128, 240, 256) or H // Hkv > 32:
-        raise ValueError(f"paged_decode: head dim {dh} / group "
-                         f"{H // Hkv} not supported by the kernel")
-    if 4 * ps * dh * q.element_size() > SMEM_MAX:
-        raise ValueError(f"paged_decode: page_size {ps} too large for the "
-                         f"kernel's shared-memory page buffers")
+    check_shapes(q, kpool, vpool, pages)
+    ps, Hkv = kpool.shape[1], kpool.shape[2]
     cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=q.device)
     if cur.dim() == 0:
         cur = cur.expand(B)
     cur = cur.contiguous()
-    if pages.dtype != torch.int32 or pages.dim() != 2 or pages.shape[0] != B:
-        raise ValueError(f"paged_decode: pages must be (B, maxp) int32, got "
-                         f"{tuple(pages.shape)} {pages.dtype}")
     if window is not None and window <= 0:
         raise ValueError(f"paged_decode: window must be positive, got "
                          f"{window}")

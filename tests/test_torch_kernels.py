@@ -191,3 +191,75 @@ def test_build_keys_libraries_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         t_build.build()
     assert not (tmp_path / "kernels").exists()
+
+
+# the smoke configs' attention head dims: every reduced config attends at
+# dh 16, the reduced MLA at qk 16 + 8 / v 16 (the kernel pads qk 24 to two
+# k-steps of the MMA); the plain path at the configs' attn_chunk of 32
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dqk,dv", [(16, 16), (24, 16)])
+@pytest.mark.parametrize("shape", [
+    (2, 40, 40, 4, 4, None, 0),       # causal, Sq not a multiple of 32
+    (1, 17, 70, 4, 2, 24, 53),        # window, q_offset, GQA group 2
+    (2, 1, 90, 4, 4, None, 89),       # one row over a long cache
+])
+def test_flash_plain_matches_jax_at_smoke_head_dims(rng, dtype, dqk, dv,
+                                                     shape):
+    B, Sq, Skv, H, Hkv, win, qoff = shape
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _both(rng.normal(size=s), dtype)
+        for s in ((B, Sq, H, dqk), (B, Skv, Hkv, dqk), (B, Skv, Hkv, dv)))
+    t_flash.check_shapes(tq, tk, tv)
+    got = t_flash.flash_attention_ref(tq, tk, tv, window=win, q_offset=qoff,
+                                      q_chunk=32, kv_chunk=32)
+    assert got.dtype == tq.dtype and got.shape == (B, Sq, H, dv)
+    want = j_ref.chunked_attention(jq, jk, jv, window=win, q_offset=qoff,
+                                   q_chunk=32, kv_chunk=32)
+    np.testing.assert_allclose(_np(got), _np(want), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", [
+    "xlstm-125m", "hymba-1.5b", "gemma3-12b", "yi-9b", "starcoder2-15b",
+    "llama3-405b", "chameleon-34b", "musicgen-large",
+    "llama4-scout-17b-a16e", "deepseek-v2-236b"])
+def test_reduced_configs_fit_the_kernels_shape_checks(monkeypatch, arch):
+    """Each reduced config served on the CPU through the engine (paged
+    layout, the serve CLI's page size): every flash, paged-decode and
+    isp-decode call its model makes passes that kernel's shape check (the
+    one the CUDA wrapper applies before it launches), so a config whose
+    shapes the card would refuse fails here."""
+    from repro_torch.config import reduced_config
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.kernels import isp_decode as t_isp
+    from repro_torch.models import model as M
+    from repro_torch.train.serve_loop import ServeEngine
+    assert arch in ASSIGNED
+    seen = {"flash": [], "paged": [], "isp": []}
+
+    def checked(name, check, key):
+        orig = getattr(t_ops, name)
+
+        def run(*args, **kw):
+            check(*args[:4])
+            seen[key].append(tuple(args[0].shape))
+            return orig(*args, **kw)
+        monkeypatch.setattr(t_ops, name, run)
+    checked("flash_attention", lambda q, k, v, *_: t_flash.check_shapes(
+        q, k, v), "flash")
+    checked("paged_decode_partial", t_paged.check_shapes, "paged")
+    checked("decode_partial", t_isp.check_shapes, "isp")
+    cfg = reduced_config(arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = ServeEngine(cfg, params, num_slots=2, max_len=64, page_size=16,
+                      k_block=2, device="cpu")
+    rng = np.random.default_rng(0)
+    for n in (5, 37):
+        eng.submit(rng.integers(0, cfg.vocab_size, n).tolist(), max_new=3)
+    assert all(r.status == "ok" for r in eng.run_until_complete())
+    kinds = set(cfg.layer_pattern)
+    if kinds & {"attn", "local", "moe", "mla_moe", "hybrid"}:
+        assert seen["flash"], arch
+    if kinds & {"attn", "moe"}:
+        assert seen["paged"], arch
+    if kinds & {"local", "hybrid"}:
+        assert seen["isp"], arch
