@@ -73,9 +73,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   3b. smoke   — every reduced config of configs.ASSIGNED in bfloat16 (4
                 heads over 4 at dh 16; deepseek-v2's MLA at qk 16 + 8 / v
                 16) and reduced yi-9b in float32 (the reference's bench
-                cell) through ServeEngine with the serve CLI's defaults
-                (8 requests, prompts 4..32, max_new 32, max_len 256, 8
-                slots, paged, pages of 16, k_block 8), on the card and on
+                cell) through ServeEngine as the serve CLI builds it for
+                --requests 8 at its other defaults (prompts 4..32,
+                max_new 32, max_len 256, 8 slots, paged, pages of 16,
+                k_block 8), on the card and on
                 the CPU from the same weights: all ok, balanced free
                 lists, flash on every attention layer of every prefill
                 call and paged or isp decode on every attention layer of
@@ -86,6 +87,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 flash (with lse, at (16, 16) and (24, 16)) on every layer
                 of every step, step 0's loss within SMOKE_LOSS_TOL of the
                 CPU's;
+  3c. cli     — the port's serve CLI (launch/serve.py's main, in this
+                process under a patched sys.argv, no --device) on the
+                card: yi-9b at full width and CLI_LAYERS = 8 of 48 layers
+                in bfloat16 with --trace FILE, a file written under build/
+                from seed 0 of CLI_REQUESTS = 8 prompts of 16..700 tokens,
+                four with a "| max_new" tail, a comment and a blank line
+                (--max-len 1024, --num-slots 8, paged, k_block 8,
+                --trace-out): exit 0, the file's requests submitted as
+                written, all ok with their own max_new tokens, flash on
+                every layer of every prefill call and paged decode on
+                every layer of every step, and the tokens of a ServeEngine
+                built as the CLI builds it on the same seed's weights and
+                fed the same list; then "--arch yi-9b --smoke" with no
+                other flag (the reference's defaults: 4 prompts of 32
+                tokens) exits 0, and an empty trace file exits 1;
   4. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
                 max_new=32 through ServeEngine(num_slots=8, max_len=1024,
@@ -352,6 +368,10 @@ contract before and after lse), one JSON line, for the same use.
     python3 chip_smoke.py --mesh
 
 builds the kernels and runs only the two-rank phase, serve and train.
+
+    python3 chip_smoke.py --cli
+
+builds flash and paged decode and runs only the cli phase.
 
     python3 chip_smoke.py --roofline
 
@@ -3811,17 +3831,17 @@ def roofline_phase(dev, tr, smi, meter) -> dict:
         extra_mfu="the train phase's share (6 x (block + head parameters) "
         f"x tokens + attention, train_flops) over the measured step "
         f"{share:.1%}")
-    n = max(2, math.ceil(ENERGY_WINDOW_S / (tr.timed.ms / 1e3)))
     t = out["train"]
-    meter.measure(
+    losses = []
+
+    def step():
+        batch = tr.loader.global_batch_at(TRAIN_STEPS + 3 + len(losses))
+        losses.append(float(tr.step_fn(state.params, state.opt_state,
+                                       batch)[2]["loss"]))
+    meter.measure_for(
         "held-out", f"yi-9b train steps ({cfg.num_layers} layers, "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ}) x {n}",
-        lambda: [float(tr.step_fn(
-            state.params, state.opt_state,
-            tr.loader.global_batch_at(TRAIN_STEPS + 3 + i))[2]["loss"])
-            for i in range(n)],
-        flops=n * t["counted_tflop"] * 1e12, nbytes=n * t["hbm_gb"] * 1e9,
-        items=n)
+        f"{TRAIN_BATCH} x {TRAIN_SEQ})", step,
+        flops=t["counted_tflop"] * 1e12, nbytes=t["hbm_gb"] * 1e9)
     tr.step_fn = tr.loader = None
     # the decode tick: the optimizer state goes first
     state.opt_state = None
@@ -3850,10 +3870,9 @@ def roofline_phase(dev, tr, smi, meter) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             tick()
             torch.cuda.synchronize()
-        n = max(2, math.ceil(ENERGY_WINDOW_S / (timed.ms / 1e3)))
-        ticks = meter.measure(
+        ticks = meter.measure_for(
             "held-out", f"yi-9b decode ticks ({cfg.num_layers} layers, "
-            f"{B} slots, paged) x {n}", lambda: repeat(tick, n), items=n)
+            f"{B} slots, paged)", tick)
     out["decode"] = held_to_count(
         f"yi-9b decode tick ({cfg.num_layers} layers, {B} slots, paged, "
         f"positions {pos.min().item()}..{pos.max().item()})", cfg,
@@ -4750,8 +4769,9 @@ def _rank_plan(cfg, shape, rank):
 
 # -- the smoke phase -----------------------------------------------------------
 # every reduced config of configs.ASSIGNED (bf16) and the reference's bench
-# cell of fig5-fig9 (reduced yi-9b in float32) served with the serve CLI's
-# defaults on the card, then on the CPU from the same weights; three steps
+# cell of fig5-fig9 (reduced yi-9b in float32) served as the serve CLI
+# serves --requests 8 at its other defaults on the card, then on the CPU
+# from the same weights; three steps
 # of the train CLI's path for reduced yi-9b and deepseek-v2 (flash with lse
 # at (16, 16) and (24, 16))
 SMOKE_SERVE = dict(requests=8, prompt_len=32, min_prompt=4, max_new=32,
@@ -4773,17 +4793,14 @@ RING_KINDS = ("local", "hybrid")   # decode: isp decode on window rings
 
 
 def smoke_requests(cfg):
-    """The serve CLI's requests at its defaults (launch/serve.py's _serve,
-    --seed 0)."""
+    """The serve CLI's requests for ``--requests 8`` at its other defaults
+    (launch/serve.py's _serve, --seed 0: prompts of 4..32 tokens)."""
     s = SMOKE_SERVE
     rng = np.random.default_rng(SEED)
-    hi = min(s["prompt_len"], s["max_len"] - 1)
-    out = []
-    for _ in range(s["requests"]):
-        n = int(rng.integers(min(s["min_prompt"], hi), hi + 1))
-        out.append((rng.integers(0, cfg.vocab_size, n).tolist(),
-                    s["max_new"]))
-    return out
+    return [(rng.integers(0, cfg.vocab_size,
+                          rng.integers(s["min_prompt"],
+                                       s["prompt_len"] + 1)).tolist(),
+             s["max_new"]) for _ in range(s["requests"])]
 
 
 def smoke_serve(cfg, params, requests, device):
@@ -4942,12 +4959,159 @@ def smoke_phase(dev):
     return serve_total, train_total
 
 
+# -- the cli phase ------------------------------------------------------------
+# the serve CLI's own entry point on the card: a trace file at full width,
+# the smoke config at the reference's defaults, an empty trace file
+CLI_LAYERS = 8
+CLI_REQUESTS = 8
+CLI_DIR = ROOT / "build" / "cli"
+
+
+def cli_trace(path, vocab_size) -> list:
+    """Write the cli phase's trace file (seed SEED: CLI_REQUESTS prompts of
+    16..700 tokens, the odd ones with a ``| max_new`` tail, a comment line
+    and a blank line); returns its (prompt, max_new) list at the CLI's
+    default --max-new of 32."""
+    rng = np.random.default_rng(SEED)
+    lines, out = [f"# cli phase: {CLI_REQUESTS} prompts, seed {SEED}"], []
+    for i in range(CLI_REQUESTS):
+        prompt = rng.integers(0, vocab_size,
+                              int(rng.integers(16, 701))).tolist()
+        max_new = 16 * (i // 2 + 1) if i % 2 else 32
+        lines.append(" ".join(map(str, prompt))
+                     + (f" | {max_new}" if i % 2 else ""))
+        if i == CLI_REQUESTS // 2:
+            lines.append("")
+        out.append((prompt, max_new))
+    path.write_text("\n".join(lines) + "\n")
+    return out
+
+
+def run_cli(argv):
+    """``launch/serve.py``'s main on ``argv`` in this process, its engine
+    class wrapped to keep the engine, what was submitted and the results,
+    the launch counters set to 0 just before and read just after:
+    (exit code, engine, submits, results, launches, stdout)."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as cli
+    seen = SimpleNamespace(engine=None, submits=[], results=None)
+
+    class Engine(cli.ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.engine = self
+
+        def submit(self, prompt, max_new=32, **kw):
+            seen.submits.append((list(prompt), max_new))
+            return super().submit(prompt, max_new=max_new, **kw)
+
+        def run_until_complete(self):
+            seen.results = super().run_until_complete()
+            return seen.results
+
+    saved, cli.ServeEngine = (cli.ServeEngine, sys.argv), Engine
+    sys.argv = ["repro_torch.launch.serve"] + argv
+    out = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        cli.ServeEngine, sys.argv = saved
+    for line in out.getvalue().splitlines():
+        log(f"[cli]   {line}")
+    return rc, seen.engine, seen.submits, seen.results, launches, \
+        out.getvalue()
+
+
+def cli_phase(dev) -> dict:
+    """The serve CLI on the card (see the module docstring, 3c); returns
+    the trace run's launches."""
+    from repro_torch.config import get_config
+    from repro_torch.core.telemetry import TelemetryHub
+    from repro_torch.models import model as M
+    from repro_torch.train.serve_loop import AdmissionController, ServeEngine
+    t0 = time.perf_counter()
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = dataclasses.replace(get_config("yi-9b"), num_layers=CLI_LAYERS)
+    assert cfg.dtype == "bfloat16", cfg.dtype
+    trace, empty = CLI_DIR / "prompts.txt", CLI_DIR / "empty.txt"
+    requests = cli_trace(trace, cfg.vocab_size)
+    timeline = CLI_DIR / "timeline.json"
+    rc, eng, submits, results, launches, _ = run_cli([
+        "--arch", "yi-9b", "--layers", str(CLI_LAYERS), "--trace",
+        str(trace), "--max-len", "1024", "--num-slots", "8", "--kv-layout",
+        "paged", "--k-block", "8", "--seed", str(SEED), "--trace-out",
+        str(timeline)])
+    assert rc == 0, rc
+    assert eng.device.type == "cuda" and eng.cfg == cfg, (eng.device,
+                                                          eng.cfg)
+    assert submits == requests, "cli: the trace file was not served as " \
+        "written"
+    check_serve("cli", cfg, eng, results, launches,
+                len(phases(eng.tele, "prefill")), requests)
+    assert json.loads(timeline.read_text())["traceEvents"]
+    steps, calls = eng.stats.decode_steps, len(phases(eng.tele, "prefill"))
+    got = [r.tokens for r in results]
+    t_cli = time.perf_counter() - t0
+    del eng, results
+    free_device()
+    # the same list through a ServeEngine built as the CLI builds it
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    direct = ServeEngine(
+        cfg, params, admission=AdmissionController(
+            8, host_rate=20.0, csd_rate=1.0, n_csds=1),
+        telemetry=TelemetryHub(), max_len=1024, num_slots=8,
+        kv_layout="paged", page_size=16, num_pages=None, k_block=8,
+        chunk_prefill=None, chunk_budget=1, prewarm=False,
+        admission_order="fifo", device=dev)
+    for prompt, max_new in requests:
+        direct.submit(prompt, max_new=max_new)
+    want = [r.tokens for r in direct.run_until_complete()]
+    assert got == want, "cli: the CLI's tokens differ from the engine's"
+    del direct, params
+    free_device()
+    log(f"[cli] yi-9b ({CLI_LAYERS} of 48 layers, bf16) --trace "
+        f"{trace.relative_to(ROOT)}: {len(requests)} requests of "
+        f"{[len(p) for p, _ in requests]} tokens, max_new "
+        f"{[m for _, m in requests]}, all ok; {calls} prefill calls, "
+        f"{steps} decode steps, launches {launches}; tokens identical to "
+        f"a direct ServeEngine's on the same weights; {t_cli:.2f} s")
+    # the reference's defaults: --batch 4 prompts of --prompt-len 32
+    rc, eng, submits, results, ln, _ = run_cli(["--arch", "yi-9b",
+                                                "--smoke"])
+    assert rc == 0, rc
+    assert eng.device.type == "cuda", eng.device
+    assert [(len(p), m) for p, m in submits] == [(32, 32)] * 4, submits
+    assert [(r.status, len(r.tokens)) for r in results] == [("ok", 32)] * 4
+    assert ln["flash_attention"] > 0 and ln["paged_decode"] > 0, ln
+    log(f"[cli] yi-9b --smoke with no other flag: 4 prompts of 32 tokens, "
+        f"all ok with 32 tokens; launches {ln}")
+    del eng, results
+    empty.write_text("# no requests\n\n")
+    rc, _, submits, _, _, out = run_cli(["--arch", "yi-9b", "--smoke",
+                                         "--trace", str(empty)])
+    assert rc == 1 and not submits, (rc, submits)
+    assert "[serve] no requests (empty --trace file?)" in out.splitlines()
+    free_device()
+    log(f"[cli] an empty trace file exits 1; phase "
+        f"{time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 # -- the energy phase ----------------------------------------------------------
 # core/energy.py's H100 constants fitted on the card's own energy counter:
 # E = P0 t + a F + b B by least squares over calibration windows whose
 # FLOPs and bytes are known exactly, then held out on the roofline phase's
 # yi-9b train steps and decode ticks, whose counts it gives
 ENERGY_WINDOW_S = 2.5      # every window lasts at least this (> 2 s)
+WINDOW_AHEAD = 4           # calls the host may queue ahead of the card
 ENERGY_CAL_TOL = 0.10      # each calibration window predicted within 10%
 ENERGY_HELD_TOL = 0.35     # each held-out window within 35% (PERF.md)
 ENERGY_GEMM_N = 8192       # the compute window's bf16 GEMM, 8192^3
@@ -5064,6 +5228,29 @@ class PowerMeter:
         self.windows.append(w)
         return w
 
+    def measure_for(self, kind, label, fn, flops=0.0, nbytes=0.0):
+        """``measure`` of ``fn`` called back to back until ENERGY_WINDOW_S
+        have passed on the host clock (at least twice; the closing
+        synchronize then waits for the card, so the window is never
+        shorter, and the host runs at most WINDOW_AHEAD calls ahead of
+        the card, so it is not much longer): the label gains the count,
+        and FLOPs, bytes and items are ``flops``, ``nbytes`` and 1 a call
+        times that count."""
+        def run():
+            n, t0, ends = 0, time.perf_counter(), []
+            while n < 2 or time.perf_counter() - t0 < ENERGY_WINDOW_S:
+                fn()
+                n += 1
+                ends.append(torch.cuda.Event())
+                ends[-1].record()
+                if len(ends) > WINDOW_AHEAD:
+                    ends.pop(0).synchronize()
+            return n
+        w = self.measure(kind, label, run)
+        w.label, w.items = f"{label} x {w.out}", w.out
+        w.flops, w.nbytes = w.out * flops, w.out * nbytes
+        return w
+
     def integrate(self) -> None:
         """nvidia-smi's integral (the samples' mean power times the
         window) for every window, once the last sample has landed."""
@@ -5169,10 +5356,8 @@ def calibration_windows(meter, dev) -> None:
             (f"device copy of {ENERGY_COPY_BYTES / 1e9:g} GB", copy, 0,
              copy_b),
             ("GEMM and copy in turns", mix, gemm_f, gemm_b + copy_b)):
-        n = back_to_back(fn)
-        meter.measure("calibration", f"{label} x {n}",
-                      lambda: repeat(fn, n), flops=n * f,
-                      nbytes=n * nb, items=n)
+        fn()
+        meter.measure_for("calibration", label, fn, flops=f, nbytes=nb)
     del a, b, c, src, dst
     free_device()
 
@@ -5275,6 +5460,10 @@ def main() -> int:
         "only build the kernels and run the train phase and the roofline "
         "phase (the analysis layer's counts against the measured yi-9b "
         "train step and decode tick, and three production dry-runs)"))
+    parser.add_argument("--cli", action="store_true", help=(
+        "only build flash and paged decode and run the cli phase (the "
+        "serve CLI's main on the card: a trace file at full width, the "
+        "smoke config at the reference's defaults, an empty trace)"))
     parser.add_argument("--flash-times", action="store_true", help=(
         "only time flash at its six serve paths' shapes without lse and "
         "print them as one JSON line; for running two trees in turns"))
@@ -5307,6 +5496,13 @@ def main() -> int:
         log(json.dumps({"flash_times": flash_times_phase(dev),
                         "device": smi}))
         return 0
+    if args.cli:
+        from repro_torch.kernels import build
+        secs = build.build(["flash_attention", "paged_decode"])
+        log(f"[device] kernel build {secs:.2f} s")
+        cli_phase(dev)
+        log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        return 0
     build_kernels()
     meter = None if args.mesh else PowerMeter()
     if args.mesh:
@@ -5333,6 +5529,8 @@ def main() -> int:
     lap("kernels and apps")
     smoke_launches = smoke_phase(dev)
     lap("smoke configs")
+    cli_phase(dev)
+    lap("cli")
 
     # -- serve -------------------------------------------------------------
     cfg = get_config("yi-9b")

@@ -8,7 +8,7 @@ the family wiring and shrinks width, depth and vocabulary.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import asdict, dataclass, field, replace
 from typing import Callable, Dict, Optional, Tuple
 
 VOCAB_PAD = 32   # vocabulary tables are padded to a multiple of this many rows
@@ -245,3 +245,8 @@ def _ensure_loaded() -> None:
     if not _LOADED:
         _LOADED = True
         from repro_torch import configs  # noqa: F401  (registers everything)
+
+
+def as_dict(cfg) -> dict:
+    """The config as nested plain dicts (dataclasses.asdict)."""
+    return asdict(cfg)

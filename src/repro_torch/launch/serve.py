@@ -3,7 +3,8 @@ through the continuous-batching engine, or through a multi-drive cluster
 of them (port of ``repro/launch/serve.py``).
 
   python -m repro_torch.launch.serve --arch ARCH [--smoke | --layers N] \
-      --requests N --max-new M --max-len L --num-slots S \
+      [--trace FILE | --requests N | --batch N] --prompt-len P \
+      --min-prompt P --max-new M --max-len L --num-slots S \
       --kv-layout {paged,strip} --page-size P --k-block K --seed X \
       [--chunk-prefill C --chunk-budget B] [--prewarm] \
       [--replicas N --routing R --shards K --speed-factor 1.0,0.5] \
@@ -23,13 +24,29 @@ hymba's and xlstm's recurrent stacks take exact-length prefill buckets).
 48 layers (215.6 GB in bf16), llama3-405b's and deepseek-v2's 60 (478.8
 GB) do not fit one 80 GB card.
 
-Request sources: ``--arrival`` generates a reproducible open-loop trace
-of ``--requests`` requests at ``--rate`` req/s (mixed priority classes
-with TTFT deadlines; ``--slo-ms`` overrides every class budget) and
-replays it on the engine's serving clock, with ``--sched edf`` for
-deadline-first admission and shedding; otherwise ``--requests`` random
-prompts of lengths in [--min-prompt, --prompt-len] are served closed
-loop.
+Request sources, the first that is given wins (the reference CLI's, with
+its defaults, so that one command line serves the same requests on both):
+  --arrival M    open loop: a reproducible arrival trace (poisson, bursty
+                 or diurnal at --rate req/s; mixed priority classes with
+                 TTFT deadlines, --slo-ms overrides every class budget) of
+                 --requests requests (32 when --requests is 0, its
+                 default), replayed on the engine's serving clock, with
+                 --sched edf for deadline-first admission and shedding;
+  --trace FILE   one request per line: whitespace-separated token ids,
+                 optionally followed by ``| max_new`` to override
+                 --max-new; blank lines and lines starting with ``#`` are
+                 skipped, and a file with no request exits 1;
+  --requests N   N prompts of random lengths in [--min-prompt,
+                 --prompt-len];
+  (neither)      --batch prompts (default 4) of exactly --prompt-len
+                 (default 32) tokens.
+Every random draw comes from ``np.random.default_rng(--seed)`` in the
+reference's order.  A prompt of --max-len tokens or more is refused by
+the engine (ValueError), as in the reference.  For example, on the CPU:
+
+  printf '# two prompts\n1 2 3 4\n\n5 6 7 | 4\n' > prompts.txt
+  python -m repro_torch.launch.serve --arch yi-9b --smoke \
+      --trace prompts.txt --device cpu
 
 ``--replicas N`` (N > 1), fault injection (``--mttf`` / ``--fault-trace``)
 and ``--concurrent`` serve through ``ClusterEngine``: N replica drives
@@ -66,6 +83,23 @@ from repro_torch.train.cluster_loop import ClusterEngine
 from repro_torch.train.serve_loop import AdmissionController, ServeEngine
 
 
+def _load_trace(path: str, default_max_new: int):
+    """The requests of a trace file: ``(prompt, max_new)`` a line of
+    whitespace-separated token ids with an optional ``| max_new`` tail;
+    blank lines and ``#`` lines are skipped."""
+    reqs = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            ids, _, tail = line.partition("|")
+            prompt = [int(t) for t in ids.split()]
+            max_new = int(tail) if tail.strip() else default_max_new
+            reqs.append((prompt, max_new))
+    return reqs
+
+
 def _args():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -73,14 +107,19 @@ def _args():
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to N layers at full width (0 = "
                          "the config's depth)")
-    ap.add_argument("--requests", type=int, default=8,
-                    help="serve N requests (random, or open-loop with "
-                         "--arrival)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="prompts of exactly --prompt-len tokens when "
+                         "neither --trace nor --requests is given")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--min-prompt", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--num-slots", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=0,
+                    help="serve N random variable-length requests (with "
+                         "--arrival: N open-loop requests, 0 = 32)")
+    ap.add_argument("--trace", type=str, default=None,
+                    help="file of token-id prompts, one request per line")
     ap.add_argument("--kv-layout", choices=("paged", "strip"),
                     default="paged",
                     help="full-attention KV in paged pools or dense strips")
@@ -213,6 +252,8 @@ def main() -> int:
     finally:
         if is_cluster:
             engine.close()          # joins worker threads (no-op serial)
+    if wall_s is None:
+        return 1
     if hub is not None:
         hub.publish("cluster" if is_cluster else "engine",
                     engine.stats.metrics())
@@ -226,9 +267,10 @@ def main() -> int:
     return 0
 
 
-def _serve(args, cfg, engine, is_cluster: bool, device) -> float:
+def _serve(args, cfg, engine, is_cluster: bool, device) -> float | None:
     """Serve the requests and print the summary; returns the wall
-    seconds the summary's latency metrics are taken over."""
+    seconds the summary's latency metrics are taken over, or None when
+    there is no request to serve."""
     summary = engine.summary if is_cluster else engine.stats.summary
     if args.arrival:
         classes = DEFAULT_CLASSES
@@ -237,7 +279,7 @@ def _serve(args, cfg, engine, is_cluster: bool, device) -> float:
                 c.name, priority=c.priority, weight=c.weight,
                 slo_s=args.slo_ms / 1e3, prompt_range=c.prompt_range,
                 max_new_range=c.max_new_range) for c in DEFAULT_CLASSES)
-        wl = WorkloadConfig(n_requests=args.requests,
+        wl = WorkloadConfig(n_requests=args.requests or 32,
                             vocab_size=cfg.vocab_size, arrival=args.arrival,
                             rate=args.rate, classes=classes, seed=args.seed)
         t0 = time.perf_counter()
@@ -259,22 +301,36 @@ def _serve(args, cfg, engine, is_cluster: bool, device) -> float:
         return report.wall_s
 
     rng = np.random.default_rng(args.seed)
-    hi = min(args.prompt_len, args.max_len - 1)
+    if args.trace:
+        requests = _load_trace(args.trace, args.max_new)
+    elif args.requests:
+        requests = [
+            (rng.integers(0, cfg.vocab_size,
+                          rng.integers(args.min_prompt,
+                                       args.prompt_len + 1)).tolist(),
+             args.max_new)
+            for _ in range(args.requests)]
+    else:
+        requests = [(rng.integers(0, cfg.vocab_size,
+                                  args.prompt_len).tolist(), args.max_new)
+                    for _ in range(args.batch)]
+    if not requests:
+        print("[serve] no requests (empty --trace file?)")
+        return None
+
     t0 = time.perf_counter()
-    for i in range(args.requests):
-        n = int(rng.integers(min(args.min_prompt, hi), hi + 1))
-        prompt = rng.integers(0, cfg.vocab_size, n).tolist()
+    for i, (prompt, max_new) in enumerate(requests):
         if is_cluster:
-            engine.submit(prompt, max_new=args.max_new,
+            engine.submit(prompt, max_new=max_new,
                           shard_id=i % args.shards if args.shards else None)
         else:
-            engine.submit(prompt, max_new=args.max_new)
+            engine.submit(prompt, max_new=max_new)
     results = engine.run_until_complete()
     dt = time.perf_counter() - t0
     n_tok = engine.stats.metrics()["tokens"]
     print(f"[serve] {args.arch} on {device}: {len(results)} requests, "
           f"{n_tok} tokens in {dt:.2f}s ({n_tok / max(dt, 1e-9):.1f} tok/s); "
-          f"first: {results[0].tokens[:8] if results else []}")
+          f"first: {results[0].tokens[:8]}")
     for line in summary().splitlines():
         print(f"[serve] {line}")
     kvs = engine.kv_stats()                 # cluster: one entry per drive
