@@ -102,6 +102,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 fed the same list; then "--arch yi-9b --smoke" with no
                 other flag (the reference's defaults: 4 prompts of 32
                 tokens) exits 0, and an empty trace file exits 1;
+  3d. examples — the port's example scripts (examples_torch/), each main
+                in this process with no --device (so on the card), in a
+                fresh directory under build/examples/: the NLP-query
+                scenario (serve_nlp_queries.py --csds 36) for the
+                recommender (with the LM sections: the engine, the
+                data_local cluster, uneven drives, SLO serving, faults,
+                telemetry), sentiment and speech_to_text (--no-engine),
+                each against a CPU run of the same command: exit 0, the
+                [cluster], [energy], [transfer] lines and the engine's
+                ledger lines string-equal, the engine's and the cluster's
+                tokens equal (fp32, the same weights), every SLO request
+                ok or shed and conserved, the faults run recovered with the
+                fault-free tokens, the trace loaded by
+                scripts/trace_report.py; the quickstart (reduced gemma3-12b:
+                flash and isp decode), the ISP demo at 65,536 x 512 in 16
+                shards (its asserts on the card) and train_lm --steps 4
+                (finite losses): exit 0; the four scripts' launches
+                together reach all six kernels; then repro_torch.apps at
+                the paper's per-CSD sizes (recommender Q = 50 over 58,000 x
+                128, sentiment 40,000 reviews), launches exact, held to the
+                plain versions on the card from the same draws (top-k as
+                check_topk holds it, predictions equal but below a plain
+                logit margin of APP_MARGIN); top-k and the pool timed at
+                the scenario's and the paper's batch shapes beside their
+                plain versions, bounds and library calls;
   4. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
                 max_new=32 through ServeEngine(num_slots=8, max_len=1024,
@@ -372,6 +397,11 @@ builds the kernels and runs only the two-rank phase, serve and train.
     python3 chip_smoke.py --cli
 
 builds flash and paged decode and runs only the cli phase.
+
+    python3 chip_smoke.py --examples
+
+builds the kernels and runs only the examples phase, then prints its
+kernel rows as one JSON line.
 
     python3 chip_smoke.py --roofline
 
@@ -4867,10 +4897,8 @@ def smoke_phase(dev):
     serve_total, train_total = {}, {}
     for tag, cfg in smoke_cells():
         t0 = time.perf_counter()
-        cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
-        params = M.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
-        params.load_state_dict(cpu.state_dict())
+        cpu = M.seeded_params(cfg, SEED, "cpu")
+        params = M.seeded_params(cfg, SEED, dev)
         requests = smoke_requests(cfg)
         eng, res, ln, calls = smoke_serve(cfg, params, requests, dev)
         steps, layout = eng.stats.decode_steps, eng.kv_layout
@@ -5103,6 +5131,363 @@ def cli_phase(dev) -> dict:
     log(f"[cli] an empty trace file exits 1; phase "
         f"{time.perf_counter() - t0:.2f} s")
     return launches
+
+
+# -- the examples phase --------------------------------------------------------
+# the port's example scripts (examples_torch/), each main in this process
+# with no --device, held to the same command line on the CPU; then the two
+# kernel apps at the paper's sizes against their plain versions on the card
+EXAMPLES_DIR = ROOT / "build" / "examples"
+EXAMPLE_APPS = ("recommender", "sentiment", "speech_to_text")
+EXAMPLE_ENGINE_APP = "recommender"   # its scenario run also runs the LM
+# the scenario's lines a card run must print as the CPU run does: the pull
+# scheduler's simulation and accounting, and the engine's ledgers (its
+# tokens are compared apart; its timings and tiers are the clock's)
+EXAMPLE_SAME_LINES = ("[cluster]", "[energy]", "[transfer]",
+                      "[engine] link bytes", "[engine] KV bytes",
+                      "[engine] paged KV")
+# the sentiment app's prediction (the argmax of two fp32 logits) may part
+# from the plain path's only where the plain logits lie closer than this:
+# the pool's sums differ by a few fp32 ulps of |pooled| <= ~40 (check_pool),
+# moving a logit by well under 1e-4
+APP_MARGIN = 1e-4
+EXAMPLE_TRAIN_STEPS = 4
+# the apps at the paper's sizes: a per-CSD recommender batch of 50 queries
+# over the 58,000-movie matrix and a per-CSD sentiment batch of 40,000
+# reviews (benchmarks/apps.py's APPS[...].batch_size)
+PAPER_RECOMMENDER = dict(n_queries=50, corpus=58_000)
+PAPER_SENTIMENT = dict(n_queries=40_000)
+
+
+def load_example(name):
+    """``examples_torch/<name>.py`` as a module (the scripts are not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(mod, argv, cwd, record=()):
+    """``mod.main(argv)`` in this process in the working directory
+    ``cwd``, the module's functions named in ``record`` wrapped to keep
+    what they return, the launch counters set to 0 just before and read
+    just after: (exit code, stdout lines, {name: returned}, launches,
+    seconds)."""
+    import contextlib
+    import io
+    import os
+    from repro_torch.kernels import ops
+    kept, saved = {}, {n: getattr(mod, n) for n in record}
+    for n, fn in saved.items():
+        def keep(*a, _n=n, _fn=fn, **kw):
+            kept[_n] = _fn(*a, **kw)
+            return kept[_n]
+        setattr(mod, n, keep)
+    cwd.mkdir(parents=True, exist_ok=True)
+    here, out = os.getcwd(), io.StringIO()
+    try:
+        os.chdir(cwd)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(argv)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        secs = time.perf_counter() - t0
+    except BaseException:
+        for line in out.getvalue().splitlines():
+            log(f"[examples]   {line}")
+        raise
+    finally:
+        os.chdir(here)
+        for n, fn in saved.items():
+            setattr(mod, n, fn)
+    return rc, out.getvalue().splitlines(), kept, launches, secs
+
+
+def add_launches(total, launches) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def check_scenario_engine(card, cpu, trace) -> None:
+    """The scenario's LM sections on the card against the CPU run of the
+    same command (the same weights: drawn on the CPU, copied): the engine's
+    and the data_local cluster's tokens equal, every request ok; the SLO
+    run conserves its requests (each ok, or shed under its deadline); the
+    faults run recovers the crashed drive's work with the fault-free
+    tokens; the trace loads through scripts/trace_report.py."""
+    import runpy
+    for name, at in (("engine_section", 0), ("cluster_engine_section", 2)):
+        res, cres = card[name][at], cpu[name][at]
+        assert all(r.status == "ok" for r in res), [r.status for r in res]
+        assert [r.tokens for r in res] == [r.tokens for r in cres], \
+            f"examples: {name}'s tokens differ from the CPU's"
+    clu, prompts, res = card["cluster_engine_section"]
+    free = {tuple(p): r.tokens for p, r in zip(prompts, res)}
+    _, report = card["slo_section"]
+    assert report.submitted == 24 == len(report.results)
+    assert report.submitted == report.completed + report.shed + \
+        report.failed and report.failed == 0 and report.completed > 0, \
+        (report.submitted, report.completed, report.shed, report.failed)
+    chaos, fres = card["faults_section"]
+    st = chaos.stats
+    assert [r.status for r in fres] == ["ok"] * 6, [r.status for r in fres]
+    assert [r.tokens for r in fres] == [free[tuple(p)] for p in prompts[:6]]
+    assert (st.faults_injected, st.auto_failed_drives, list(st.health)) == \
+        (2, 1, ["healthy", "dead"]), (st.faults_injected,
+                                      st.auto_failed_drives, st.health)
+    load_trace = runpy.run_path(str(ROOT / "scripts" / "trace_report.py"))[
+        "load_trace"]
+    events = load_trace(str(trace))
+    assert events and card["telemetry_section"].metrics()["open_spans"] == 0
+    log(f"[examples] scenario LM sections: engine and data_local cluster "
+        f"tokens equal to the CPU's ({len(card['engine_section'][0])} + "
+        f"{len(res)} requests, all ok); SLO run {report.submitted} "
+        f"submitted = {report.completed} ok + {report.shed} shed + "
+        f"{report.failed} failed; faults run: drive 1 dead, "
+        f"{len(fres)} ok with the fault-free tokens; trace of "
+        f"{len(events)} events loads")
+
+
+def example_scripts() -> dict:
+    """The four scripts' mains on the card (see the module docstring, 3d);
+    returns their launches summed."""
+    import shutil
+    total = {}
+    scenario = load_example("serve_nlp_queries")
+    record = ("engine_section", "cluster_engine_section", "slo_section",
+              "faults_section", "telemetry_section")
+    for app in EXAMPLE_APPS:
+        argv = ["--csds", "36", "--app", app]
+        if app != EXAMPLE_ENGINE_APP:
+            argv.append("--no-engine")
+        runs = {}
+        for where, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            cwd = EXAMPLES_DIR / f"{app}-{where}"
+            shutil.rmtree(cwd, ignore_errors=True)
+            runs[where] = run_example(scenario, argv + extra, cwd, record)
+            assert runs[where][0] == 0, (app, where, runs[where][0])
+        _, lines, kept, ln, secs = runs["card"]
+        _, cpu_lines, cpu_kept, cpu_ln, cpu_secs = runs["cpu"]
+        assert not any(cpu_ln.values()), cpu_ln
+        for line in lines:
+            log(f"[examples]   {line}")
+        same = [x for x in lines if x.startswith(EXAMPLE_SAME_LINES)]
+        assert same == [x for x in cpu_lines
+                        if x.startswith(EXAMPLE_SAME_LINES)], \
+            f"examples: {app}'s lines differ from the CPU run's"
+        assert len(same) == (7 if "--no-engine" not in argv else 4), same
+        if "--no-engine" not in argv:
+            check_scenario_engine(kept, cpu_kept,
+                                  EXAMPLES_DIR / f"{app}-card" /
+                                  "serve_trace.json")
+        add_launches(total, ln)
+        log(f"[examples] serve_nlp_queries {' '.join(argv)}: exit 0 on the "
+            f"card ({secs:.2f} s) and the CPU ({cpu_secs:.2f} s), "
+            f"{len(same)} lines equal; launches {ln}")
+
+    qs = load_example("quickstart")
+    rc, lines, kept, ln, secs = run_example(qs, [], EXAMPLES_DIR /
+                                            "quickstart", ("run",))
+    assert rc == 0, rc
+    loss, tokens = kept["run"]
+    assert math.isfinite(loss) and len(tokens) == 2, (loss, tokens)
+    for line in lines:
+        log(f"[examples]   {line}")
+    add_launches(total, ln)
+    log(f"[examples] quickstart: exit 0, loss {loss:.5f}, launches {ln}, "
+        f"{secs:.2f} s")
+
+    demo = load_example("isp_embedding_demo")
+    rc, lines, _, ln, secs = run_example(demo, [], EXAMPLES_DIR / "isp")
+    assert rc == 0, rc
+    assert ln["isp_gather"] == ln["isp_gather_pool"] == demo.TP, ln
+    for line in lines:
+        log(f"[examples]   {line}")
+    add_launches(total, ln)
+    log(f"[examples] isp_embedding_demo: exit 0 (its two asserts hold on "
+        f"the card), launches {ln}, {secs:.2f} s")
+
+    tlm = load_example("train_lm")
+    ckpt = EXAMPLES_DIR / "train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses, train = [], tlm.train
+
+    def train_kept(*a, **kw):
+        return train(*a, metrics_cb=lambda step, m: losses.append(
+            m["loss"]), **kw)
+    tlm.train = train_kept
+    try:
+        rc, lines, _, ln, secs = run_example(
+            tlm, ["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir",
+                  str(ckpt)], EXAMPLES_DIR)
+    finally:
+        tlm.train = train
+    assert rc == 0, rc
+    assert len(losses) == EXAMPLE_TRAIN_STEPS and all(
+        math.isfinite(x) for x in losses), losses
+    assert lines[-1] == f"[example] finished at step {EXAMPLE_TRAIN_STEPS}", \
+        lines
+    for line in lines:
+        log(f"[examples]   {line}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    add_launches(total, ln)
+    log(f"[examples] train_lm --steps {EXAMPLE_TRAIN_STEPS}: exit 0, losses "
+        f"{[round(x, 5) for x in losses]}, launches {ln}, {secs:.2f} s")
+    return total
+
+
+def example_rows(flush, cases):
+    """Kernel rows of the apps' batches at ``cases`` (label, path, kind,
+    inputs, max_abs_err): the kernel, its plain version, its bound and the
+    library's calls timed on the same inputs."""
+    from repro_torch.kernels import isp_gather as ig
+    from repro_torch.kernels import topk_similarity as tk
+    norm = torch.nn.functional.normalize
+    rows = []
+    for label, path, kind, inputs, err in cases:
+        if kind == "topk_similarity":
+            q, c = inputs
+            bound_ms, bound_by, nbytes = site_bound(kind, q, c, 10)
+            qn, cn = norm(q, dim=-1, eps=1e-9), norm(c, dim=-1, eps=1e-9)
+            kern = lambda: tk.topk_similarity(q, c, 10)  # noqa: E731
+            plain = lambda: tk.topk_similarity_ref(q, c, 10)  # noqa: E731
+            extra = dict(library_ms=None, library_two_calls_ms=time_ms(
+                lambda: torch.topk(qn @ cn.mT, 10), flush))
+            items = q.shape[0]
+            source, replaces = ("topk_similarity.cu",
+                                "topk_similarity.py:75")
+        else:
+            idx, seg, table, n = inputs
+            bound_ms, bound_by, nbytes = site_bound(kind, table, idx, seg, n)
+            ids = idx.long().view(n, -1)
+            kern = lambda: ig.isp_gather_pool(  # noqa: E731
+                table, idx, seg, n)
+            plain = lambda: ig.isp_gather_pool_ref(  # noqa: E731
+                table, idx, seg, n)
+            extra = dict(library_ms=time_ms(
+                lambda: torch.nn.functional.embedding_bag(
+                    ids, table, mode="sum"), flush))
+            items = n
+            source, replaces = ("isp_gather_pool.cu", "isp_gather.py:124")
+        ms = time_ms(kern, flush)
+        rows.append(dict(
+            name=kind, kernel=kind, path=path, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{source}",
+            replaces=f"src/repro/kernels/{replaces}", dtype="float32",
+            shape=label, max_abs_err=err, ms=ms, kernel_ms=ms,
+            plain_ms=time_ms(plain, flush), bound_ms=bound_ms,
+            bound_by=bound_by, bytes=nbytes, items_per_s=items / ms * 1e3,
+            **extra))
+        r = rows[-1]
+        log(f"[kernels] {kind} ({label}): kernel {ms:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"library {r['library_ms']}"
+            + (f", topk(q @ c.T) two calls {r['library_two_calls_ms']:.4f} "
+               f"ms" if kind == "topk_similarity" else "")
+            + f", {r['items_per_s']:.4g} items/s")
+    return rows
+
+
+def example_apps(dev):
+    """The recommender and sentiment batches at the paper's per-CSD sizes
+    through repro_torch.apps (the launch counters set to 0 just before and
+    read just after), each held against its plain version on the card from
+    the same draws: top-k as check_topk holds it, predictions equal but
+    where the plain top-2 logit margin is under APP_MARGIN.  Returns the
+    launches and the kernel rows' cases."""
+    from repro_torch import apps
+    from repro_torch.kernels import isp_gather as ig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_similarity as tk
+    rec_seed, sent_seed = SEED + 11, SEED + 12
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    ids = apps.recommender_query_batch(np.random.default_rng(rec_seed),
+                                       **PAPER_RECOMMENDER)
+    preds = apps.sentiment_query_batch(np.random.default_rng(sent_seed),
+                                       **PAPER_SENTIMENT)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = {n: 0 for n in launches}
+    want.update(topk_similarity=1, isp_gather_pool=1)
+    assert launches == want, (launches, want)
+
+    q, c = apps.recommender_inputs(np.random.default_rng(rec_seed),
+                                   **PAPER_RECOMMENDER, device=dev)
+    got = tk.topk_similarity(q, c, 10)
+    assert np.array_equal(got[1].cpu().numpy(), ids), \
+        "examples: the app's ids differ from the kernel's on its inputs"
+    rec_err = check_topk(got, q, c, 10, "examples: recommender at the "
+                         "paper's size (Q=50, 58000 x 128)")
+    n = PAPER_SENTIMENT["n_queries"]
+    idx, seg, table, w = apps.sentiment_inputs(
+        np.random.default_rng(sent_seed), **PAPER_SENTIMENT, device=dev)
+    pool_err = check_pool(ig.isp_gather_pool(table, idx, seg, n), table,
+                          idx, seg, n, tag="examples: sentiment pool")
+    logits = ig.isp_gather_pool_ref(table, idx, seg, n) @ w
+    plain = logits.argmax(-1).cpu().numpy()
+    margin = (logits[:, 0] - logits[:, 1]).abs().cpu().numpy()
+    near, differ = margin < APP_MARGIN, preds != plain
+    assert not (differ & ~near).any(), \
+        f"examples: {int((differ & ~near).sum())} sentiment predictions " \
+        f"differ at a clear margin"
+    log(f"[examples] apps at the paper's sizes: recommender Q=50 over "
+        f"58000 x 128 (ids of the app equal the kernel's on its inputs; "
+        f"max abs score err {rec_err:.3g}), sentiment {n} reviews (max abs "
+        f"pool err {pool_err:.3g}; {int(differ.sum())} predictions differ "
+        f"from the plain path's, {int(near.sum())} logit margins under "
+        f"{APP_MARGIN:g}); launches {launches}; {secs:.3f} s both batches "
+        f"with the build done")
+    cases = [("recommender, paper size: Q=50 corpus (58000, 128) float32 "
+              "k=10", "examples apps", "topk_similarity", (q, c), rec_err),
+             (f"sentiment, paper size: table (4096, 64), {n} x 12 ids",
+              "examples apps", "isp_gather_pool", (idx, seg, table, n),
+              pool_err)]
+    return launches, cases
+
+
+def examples_phase(dev):
+    """The examples phase (see the module docstring, 3d).  Returns the
+    kernel rows and {path: launches}."""
+    from repro_torch import apps
+    from repro_torch.kernels import isp_gather as ig
+    from repro_torch.kernels import topk_similarity as tk
+    t0 = time.perf_counter()
+    flush = l2_flushes(dev)[0]
+    total = example_scripts()
+    missing = sorted(k for k, v in total.items() if v == 0)
+    assert not missing, f"examples: no launch of {missing}"
+    log(f"[examples] the four scripts' launches together {total}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    app_launches, cases = example_apps(dev)
+    # the scenario's own batch shapes (its seed 0 draws)
+    q, c = apps.recommender_inputs(np.random.default_rng(0), device=dev)
+    err = check_topk(tk.topk_similarity(q, c, 10), q, c, 10,
+                     "examples: recommender at the scenario's size "
+                     "(Q=64, 2048 x 128)")
+    idx, seg, table, _ = apps.sentiment_inputs(np.random.default_rng(0),
+                                               device=dev)
+    perr = check_pool(ig.isp_gather_pool(table, idx, seg, 256), table, idx,
+                      seg, 256, tag="examples: sentiment at the scenario's "
+                      "size")
+    cases = [("recommender, scenario: Q=64 corpus (2048, 128) float32 k=10",
+              "examples", "topk_similarity", (q, c), err),
+             ("sentiment, scenario: table (4096, 64), 256 x 12 ids",
+              "examples", "isp_gather_pool", (idx, seg, table, 256),
+              perr)] + cases
+    rows = example_rows(flush, cases)
+    del flush
+    free_device()
+    log(f"[examples] phase {time.perf_counter() - t0:.2f} s")
+    return rows, {"examples": total, "examples apps": app_launches}
 
 
 # -- the energy phase ----------------------------------------------------------
@@ -5464,6 +5849,10 @@ def main() -> int:
         "only build flash and paged decode and run the cli phase (the "
         "serve CLI's main on the card: a trace file at full width, the "
         "smoke config at the reference's defaults, an empty trace)"))
+    parser.add_argument("--examples", action="store_true", help=(
+        "only build the kernels and run the examples phase (the four "
+        "example scripts' mains on the card against the CPU, the apps at "
+        "the paper's sizes)"))
     parser.add_argument("--flash-times", action="store_true", help=(
         "only time flash at its six serve paths' shapes without lse and "
         "print them as one JSON line; for running two trees in turns"))
@@ -5504,6 +5893,13 @@ def main() -> int:
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
         return 0
     build_kernels()
+    if args.examples:
+        rows, launches = examples_phase(dev)
+        for row in rows:
+            row["launches"] = launches[row["path"]][row["kernel"]]
+        log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        log(json.dumps({"kernels": rows}))
+        return 0
     meter = None if args.mesh else PowerMeter()
     if args.mesh:
         mesh_phase(dev)
@@ -5531,6 +5927,9 @@ def main() -> int:
     lap("smoke configs")
     cli_phase(dev)
     lap("cli")
+    example_rows_, example_launches = examples_phase(dev)
+    rows += example_rows_
+    lap("examples")
 
     # -- serve -------------------------------------------------------------
     cfg = get_config("yi-9b")
@@ -5553,7 +5952,7 @@ def main() -> int:
     serve_report("serve", eng, results, wall, launches, prefill_calls)
     path_launches = {"yi-9b serve": launches, "apps": app_launches,
                      "smoke serve": smoke_launches[0],
-                     "smoke train": smoke_launches[1]}
+                     "smoke train": smoke_launches[1], **example_launches}
 
     # -- consistency ---------------------------------------------------------
     eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)

@@ -151,6 +151,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return model
 
 
+def seeded_params(cfg: ModelConfig, seed: int, device=None) -> LM:
+    """``init_params`` from ``seed`` on the CPU's generator, copied to
+    ``device`` (default CUDA): the same weights on every device, where a
+    generator on the device would draw other values."""
+    dev = resolve_device(device)
+    cpu = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    if dev.type == "cpu":
+        return cpu
+    model = LM(cfg, dev)
+    model.load_state_dict(cpu.state_dict())
+    return model
+
+
 def abstract_params(cfg: ModelConfig, plan=None) -> LM:
     """The model on the ``meta`` device: every parameter of its global
     shape or, under a sharding ``plan`` (a recipe with a mesh), of this

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of repro_torch (nor chip_smoke.py)
-imports JAX or the reference package, and its entry points default to the
-CUDA device and raise without one instead of carrying on on the CPU."""
+"""The port stands alone: no module of repro_torch (nor chip_smoke.py, nor
+an example script of examples_torch/) imports JAX, the reference package
+or the reference's benchmarks and examples, and its entry points default
+to the CUDA device and raise without one instead of carrying on on the
+CPU."""
 import dataclasses
 import os
 import pkgutil
@@ -24,10 +26,12 @@ from repro_torch.train.serve_loop import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+EXAMPLES = ROOT / "examples_torch"
 
 _BANNED = [re.compile(r"^\s*(import|from)\s+jax\b"),
            re.compile(r"^\s*(import|from)\s+repro(\.|\s|$)"),
-           re.compile(r"^\s*from\s+repro\s+import\b")]
+           re.compile(r"^\s*from\s+repro\s+import\b"),
+           re.compile(r"^\s*(import|from)\s+(benchmarks|examples)\b")]
 
 
 def _modules():
@@ -59,11 +63,17 @@ def test_importing_every_module_loads_no_jax():
               "repro_torch.launch.train", "repro_torch.launch.elastic",
               "repro_torch.launch.dryrun", "repro_torch.analysis.op_trace",
               "repro_torch.analysis.roofline", "repro_torch.analysis.top_ops",
-              "repro_torch.analysis.reanalyze"):
+              "repro_torch.analysis.reanalyze", "repro_torch.apps"):
         assert m in mods, m
-    code = ("import importlib, sys\n"
+    examples = sorted(str(f) for f in EXAMPLES.glob("*.py"))
+    assert len(examples) == 4
+    code = ("import importlib, importlib.util, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            f"for i, f in enumerate({examples!r}):\n"
+            "    spec = importlib.util.spec_from_file_location(f'ex{i}', f)\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec("
+            "spec))\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'repro' or m.startswith('repro.'))\n"
@@ -73,8 +83,11 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_sources_import_neither_jax_nor_reference():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted(EXAMPLES.glob("*.py"))
     assert len(files) > 20
+    assert {"serve_nlp_queries.py", "quickstart.py", "isp_embedding_demo.py",
+            "train_lm.py", "apps.py"} <= {f.name for f in files}
     for f in files:
         for n, line in enumerate(f.read_text().splitlines(), 1):
             for pat in _BANNED:
