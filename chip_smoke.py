@@ -26,10 +26,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 16-byte aligned, the shared track) and flash's (Sq not a
                 multiple of the q tile, q_offset > 0 with and without a
                 window, one query row over a long cache) at both head dims,
-                flash also at qk 192 / v 128 (MLA_HEADS; the unequal pairs
-                it has no instantiation for raise) and, for both decode and
-                flash, at the other families' head shapes (NEW_HEADS:
-                groups 5, 1 at dh 64, 12, 16, 8, hymba's 5 at dh 64; isp
+                flash also at qk 192 / v 128 (MLA_HEADS; the unequal
+                pairs it does not take and a dh of 257 raise) and, for
+                both decode and flash, at the other families' head shapes
+                (NEW_HEADS: groups 5, 1 at dh 64, 12, 16, 8, hymba's 5 at
+                dh 64; isp
                 decode's edges at hymba's heads too) and at the smoke head
                 dims (SMOKE_HEADS: dh 16 at groups 1 and 4, the reduced
                 MLA's qk 24 / v 16; rows at the smoke paths' shapes,
@@ -127,6 +128,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 logit margin of APP_MARGIN); top-k and the pool timed at
                 the scenario's and the paper's batch shapes beside their
                 plain versions, bounds and library calls;
+  3e. domain  — the kernels at the shapes the reference's kernels take
+                beyond the ten configs': flash (with and without lse),
+                paged decode and isp decode edges at DOMAIN_HEADS (dh 5,
+                8, 37, 80, 96, 112, 160, 176, 200, 256 at a group of 4,
+                one in each of flash's head dim classes, and
+                groups 48 and 71 over one kv head) in both dtypes; top-k
+                over DOMAIN_TOPK_D (37 to 4096) x DOMAIN_TOPK_K (1 to
+                1024) in fp32 and bf16, random rows within tolerance and
+                exact ties bit-equal; kernel rows for flash at phi-3-mini's
+                and gemma-2-9b's heads (8 x 704), paged decode at
+                phi-3-mini's and starcoderbase's MQA heads and top-k at
+                Q = 50 over 58,000 x 768, k = 100; then DOMAIN_SERVE_HEADS
+                (phi-2, phi-3-mini, gemma-2-9b, starcoderbase-15b and
+                falcon-7b heads on the reduced yi-9b, float32, 2 layers)
+                served as the smoke phase serves (paged; phi-2 also on
+                strips, isp decode at dh 80) on the card and on the CPU:
+                tokens identical, flash on every layer of every prefill
+                call, paged (strips: isp) decode on every layer of every
+                step; and apps.recommender_query_batch at the paper's
+                per-CSD batch with d = 768, k = 100 and d = 1024, k = 10,
+                held by check_topk;
   4. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
                 max_new=32 through ServeEngine(num_slots=8, max_len=1024,
@@ -401,6 +423,11 @@ builds flash and paged decode and runs only the cli phase.
     python3 chip_smoke.py --examples
 
 builds the kernels and runs only the examples phase, then prints its
+kernel rows as one JSON line.
+
+    python3 chip_smoke.py --domain
+
+builds the kernels and runs only the domain phase, then prints its
 kernel rows as one JSON line.
 
     python3 chip_smoke.py --roofline
@@ -758,17 +785,18 @@ def strip_case(layout, dtype, dev, gen):
     return (q, k, v, kpos, cur), window, valid
 
 
-def paged_edges(dev, gen):
+def paged_edges(dev, gen, heads=None):
     """Split-K edges of paged_decode at both serve shapes, at NEW_HEADS
-    and at the smoke head dim 16 (SMOKE_HEADS), in both dtypes, against
-    the plain version: slots whose
+    and at the smoke head dim 16 (SMOKE_HEADS), or at ``heads`` (H, Hkv,
+    dh, maxp, window), in both dtypes, against the plain version: slots
+    whose
     lengths fill whole split spans (and one key more or less), an empty
     slot, a one-key slot, a full table; then a window whose edge falls
     inside a span."""
     from repro_torch.kernels import paged_decode as pd
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for H, Hkv, dh, maxp, window in ((32, 4, 128, 64, 100),
-                                     (16, 8, 240, 128, 300)) + tuple(
+    for H, Hkv, dh, maxp, window in heads or ((32, 4, 128, 64, 100),
+                                              (16, 8, 240, 128, 300)) + tuple(
             (H, Hkv, dh, 64, 100) for H, Hkv, dh in NEW_HEADS) + tuple(
             (H, Hkv, dh, 64, 100) for H, Hkv, dh, dv in SMOKE_HEADS
             if dh == dv):
@@ -801,9 +829,10 @@ def paged_edges(dev, gen):
                 f"{dname(d)} w={w} {e:.3g}" for (d, w), e in errs.items()))
 
 
-def isp_edges(dev, gen):
+def isp_edges(dev, gen, heads=None):
     """Split-K edges of isp_decode at both strip shapes, hymba's heads
-    and the smoke head dim 16, in both dtypes, with and without a window,
+    and the smoke head dim 16, or at ``heads`` (H, Hkv, dh), in both
+    dtypes, with and without a window,
     against the plain version.  Per-slot tracks
     kpos (8, 1024): slots whose valid rows fill whole spans (and one row
     more or less), an empty slot, a one-row slot (its later spans empty), a
@@ -814,7 +843,8 @@ def isp_edges(dev, gen):
     from repro_torch.kernels import isp_decode as isp
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     B, S = 8, 1024
-    for H, Hkv, dh in ((32, 4, 128), (16, 8, 240), (25, 5, 64)) + tuple(
+    for H, Hkv, dh in heads or ((32, 4, 128), (16, 8, 240),
+                                (25, 5, 64)) + tuple(
             (H, Hkv, dh) for H, Hkv, dh, dv in SMOKE_HEADS if dh == dv):
         span, n_split = isp.split_plan(B, Hkv, S, n_sms)
         lengths = (span, 2 * span, span + 1, span - 1, 0, 1, S)
@@ -865,7 +895,7 @@ def isp_edges(dev, gen):
                 errs.items()))
 
 
-def flash_edges(dev, gen):
+def flash_edges(dev, gen, heads=None):
     """flash_attention edges at both serve head dims, at NEW_HEADS, at
     MLA's qk 192 / v 128 (MLA_HEADS: a wrong v stride or output width
     shows only where the two dims differ) and at the smoke head dims
@@ -873,14 +903,15 @@ def flash_edges(dev, gen):
     MMA in bf16 and read in float2 groups in fp32), in both dtypes, against the
     plain version: Sq not a multiple of the 64-row q tile, q_offset > 0
     with and without a window whose edge crosses the key tiles, and one
-    query row over a long cache.  Then the pairs the kernel has no
-    instantiation for raise."""
+    query row over a long cache; or at ``heads`` (H, Hkv, dh, dv,
+    windows).  Then the pairs the kernel does not take (unequal ones other
+    than (24, 16) and (192, 128), and dims past 256) raise."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     cases = ((100, 100, 0), (65, 200, 135), (1, 300, 299))
-    for H, Hkv, dh, dv, windows in ((32, 4, 128, 128, (None, 48)),
-                                    (16, 8, 240, 240, (1024, 48)),
-                                    MLA_HEADS + ((None, 48),)) + tuple(
+    for H, Hkv, dh, dv, windows in heads or (
+            (32, 4, 128, 128, (None, 48)), (16, 8, 240, 240, (1024, 48)),
+            MLA_HEADS + ((None, 48),)) + tuple(
             (H, Hkv, dh, dh, (None, 48)) for H, Hkv, dh in NEW_HEADS) + \
             tuple(h + ((None, 48),) for h in SMOKE_HEADS):
         errs = {}
@@ -901,15 +932,15 @@ def flash_edges(dev, gen):
             f"dv={dv} (group {H // Hkv}) windows {windows} "
             f"(Sq, Skv, q_offset) in {cases}: max abs err fp32 "
             f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
-    for dh, dv in ((192, 192), (128, 192), (192, 64)):
+    refused = ((128, 192), (192, 64), (240, 128), (257, 257))
+    for dh, dv in refused:
         q, k = (torch.zeros(1, 8, 4, dh, device=dev) for _ in range(2))
         try:
             fa.flash_attention(q, k, torch.zeros(1, 8, 4, dv, device=dev))
         except ValueError:
             continue
         raise AssertionError(f"flash_attention took (dh, dv) = {(dh, dv)}")
-    log("[kernels] flash_attention refuses (dh, dv) in (192, 192), "
-        "(128, 192), (192, 64)")
+    log(f"[kernels] flash_attention refuses (dh, dv) in {refused}")
 
 
 def lse_err(got, want, mask=None) -> float:
@@ -1008,9 +1039,10 @@ def flash_train_row(dev, gen, flush, path="yi-9b train", shape=TRAIN_FLASH,
     return row
 
 
-def flash_lse_edges(dev, gen):
+def flash_lse_edges(dev, gen, heads=None):
     """Flash with lse at the edge head shapes (both serve head dims, MLA's
-    qk 192 / v 128, NEW_HEADS, SMOKE_HEADS), both dtypes: Sq not a multiple of the q
+    qk 192 / v 128, NEW_HEADS, SMOKE_HEADS; or ``heads`` (H, Hkv, dh, dv)),
+    both dtypes: Sq not a multiple of the q
     tile, a window edge crossing the key tiles with q_offset, one row over
     a long cache, rows of which some and rows of which all see no key
     (q_offset past the window's reach).  Live rows: out and lse against
@@ -1022,7 +1054,8 @@ def flash_lse_edges(dev, gen):
     from repro_torch.kernels import ref
     cases = ((100, 100, 0, None), (65, 200, 135, 48), (1, 300, 299, None),
              (16, 40, 36, 8), (16, 40, 60, 8))
-    heads = ((32, 4, 128, 128), (16, 8, 240, 240), MLA_HEADS) + tuple(
+    heads = heads or ((32, 4, 128, 128), (16, 8, 240, 240),
+                      MLA_HEADS) + tuple(
         (H, Hkv, dh, dh) for H, Hkv, dh in NEW_HEADS) + SMOKE_HEADS
     n_empty = 0
     for H, Hkv, dh, dv in heads:
@@ -1321,16 +1354,108 @@ def paged_edge_timing(dev, gen, flush):
         f"{bound_ms:.4f} ms ({bound_by}), library none")
 
 
-def kernel_phase(dev):
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import isp_decode as isp
+def paged_row(dev, gen, flush, path, kw):
+    """paged_decode at a path's decode shapes (``decode_case``'s keywords
+    ``kw``) against its plain version in both dtypes, then timed in bf16
+    beside the plain version and its bound: one kernels record row."""
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import ref
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        (q, kp, vp, pages, cur), valid = decode_case(dtype, dev, gen, **kw)
+        got = pd.paged_decode_partial(q, kp, vp, pages, cur)
+        want = pd.paged_decode_partial_ref(q, kp, vp, pages, cur)
+        torch.cuda.synchronize()
+        errs[dtype] = max_err(got, want, dtype)
+        assert float(got[1][3].abs().max()) == 0.0, "empty slot: l != 0"
+        assert bool((got[2][3] == ref.NEG_INF).all()), \
+            "empty slot: m != -1e30"
+        log(f"[kernels] paged_decode {path} {dtype}: max abs err "
+            f"{errs[dtype]:.3g}")
+    # q/kp/... are the bf16 inputs of the last iteration
+    B, H, dh = q.shape
+    Hkv = kp.shape[2]
+    bound_ms, bound_by, _ = site_bound("paged_decode", q, kp, vp, pages, cur)
+    return dict(
+        name="paged_decode_partial", kernel="paged_decode", path=path,
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_decode.py:102",
+        dtype="bfloat16", shape=f"B={B} H={H} Hkv={Hkv} dh={dh} ps=16 "
+        f"cur<={int(cur.max())} ({valid} valid keys)",
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_fp32=errs[torch.float32],
+        ms=time_ms(lambda: pd.paged_decode_partial(q, kp, vp, pages, cur),
+                   flush),
+        plain_ms=time_ms(lambda: pd.paged_decode_partial_ref(
+            q, kp, vp, pages, cur), flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def flash_row(dev, gen, flush, path, shape):
+    """flash_attention at a path's prefill shape (B, S, H, Hkv, dh, dv,
+    window) against its plain version in both dtypes, then timed in bf16
+    beside the plain version, its bound and SDPA: one kernels record
+    row."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, H, Hkv, dh, dv, window = shape
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
+        q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv)
+        got = fa.flash_attention(q, k, v, window=window)
+        want = ref.chunked_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        errs[dtype] = max_err([got], [want], dtype)
+        log(f"[kernels] flash_attention {path} {dtype}: max abs err "
+            f"{errs[dtype]:.3g}")
+        del got, want
+    # q/k/v are the bf16 inputs of the last iteration; (query, key)
+    # pairs the causal mask and the window leave; q is read and the
+    # output (B, S, H, dv) written once
+    bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
+                                       window=window)
+    w = S if window is None else window
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                           enable_gqa=True)
+    else:
+        i = torch.arange(S, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+        lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                           enable_gqa=True)
+    try:
+        library_ms = time_ms(lib, flush)
+    except RuntimeError as e:      # no SDPA backend takes this shape
+        library_ms = None
+        log(f"[kernels] flash_attention {path}: library yardstick none, "
+            f"scaled_dot_product_attention refused the shape: "
+            f"{str(e).splitlines()[0][:200]}")
+    return dict(
+        name="flash_attention", kernel="flash_attention", path=path,
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:77",
+        dtype="bfloat16", shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
+        f"dv={dv} causal window={window}",
+        max_abs_err=errs[torch.bfloat16],
+        max_abs_err_fp32=errs[torch.float32],
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, window=window),
+                   flush),
+        plain_ms=time_ms(lambda: ref.chunked_attention(
+            q, k, v, window=window), flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def kernel_phase(dev):
+    from repro_torch.kernels import isp_decode as isp
     from repro_torch.kernels import ref
     gen = torch.Generator().manual_seed(SEED)
     flushes = l2_flushes(dev)
     flush = flushes[0]
     launch_floor(flushes)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = []
 
     # -- paged decode: yi-9b (dh 128), gemma3-12b's global layers (dh 240),
@@ -1345,37 +1470,7 @@ def kernel_phase(dev):
                      ("smoke serve", dict(
                          H=4, Hkv=4, dh=16, maxp=16,
                          lengths=(64, 40, 16, 0, 33, 1, 20, 63)))):
-        errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            (q, kp, vp, pages, cur), valid = decode_case(dtype, dev, gen,
-                                                         **kw)
-            got = pd.paged_decode_partial(q, kp, vp, pages, cur)
-            want = pd.paged_decode_partial_ref(q, kp, vp, pages, cur)
-            torch.cuda.synchronize()
-            errs[dtype] = max_err(got, want, dtype)
-            assert float(got[1][3].abs().max()) == 0.0, "empty slot: l != 0"
-            assert bool((got[2][3] == ref.NEG_INF).all()), \
-                "empty slot: m != -1e30"
-            log(f"[kernels] paged_decode {path} {dtype}: max abs err "
-                f"{errs[dtype]:.3g}")
-        # q/kp/... are the bf16 inputs of the last iteration
-        B, H, dh = q.shape
-        Hkv = kp.shape[2]
-        bound_ms, bound_by, _ = site_bound("paged_decode", q, kp, vp, pages,
-                                           cur)
-        rows.append(dict(
-            name="paged_decode_partial", kernel="paged_decode", path=path,
-            route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
-            replaces="src/repro/kernels/paged_decode.py:102",
-            dtype="bfloat16", shape=f"B={B} H={H} Hkv={Hkv} dh={dh} ps=16 "
-            f"cur<={int(cur.max())} ({valid} valid keys)",
-            max_abs_err=errs[torch.bfloat16],
-            max_abs_err_fp32=errs[torch.float32],
-            ms=time_ms(lambda: pd.paged_decode_partial(q, kp, vp, pages, cur),
-                       flush),
-            plain_ms=time_ms(lambda: pd.paged_decode_partial_ref(
-                q, kp, vp, pages, cur), flush),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        rows.append(paged_row(dev, gen, flush, path, kw))
 
     paged_edges(dev, gen)
     paged_edge_timing(dev, gen, flush)
@@ -1430,56 +1525,8 @@ def kernel_phase(dev):
     # musicgen-large's prefill, deepseek-v2's MLA prefill (qk 192 / v 128)
     # and hymba-1.5b's window layers (25 heads over 5 at dh 64); the
     # reduced configs' prefill (dh 16, and the reduced MLA's qk 24 / v 16)
-    for path, (B, S, H, Hkv, dh, dv, window) in FLASH_PATHS + \
-            SMOKE_FLASH_PATHS:
-        errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
-            q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv)
-            got = fa.flash_attention(q, k, v, window=window)
-            want = ref.chunked_attention(q, k, v, window=window)
-            torch.cuda.synchronize()
-            errs[dtype] = max_err([got], [want], dtype)
-            log(f"[kernels] flash_attention {path} {dtype}: max abs err "
-                f"{errs[dtype]:.3g}")
-            del got, want
-        # q/k/v are the bf16 inputs of the last iteration; (query, key)
-        # pairs the causal mask and the window leave; q is read and the
-        # output (B, S, H, dv) written once
-        bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
-                                           window=window)
-        w = S if window is None else window
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if window is None:
-            lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
-                               enable_gqa=True)
-        else:
-            i = torch.arange(S, device=dev)
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
-            lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
-                               enable_gqa=True)
-        try:
-            library_ms = time_ms(lib, flush)
-        except RuntimeError as e:      # no SDPA backend takes this shape
-            library_ms = None
-            log(f"[kernels] flash_attention {path}: library yardstick none, "
-                f"scaled_dot_product_attention refused the shape: "
-                f"{str(e).splitlines()[0][:200]}")
-        rows.append(dict(
-            name="flash_attention", kernel="flash_attention", path=path,
-            route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:77",
-            dtype="bfloat16", shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
-            f"dv={dv} causal window={window}",
-            max_abs_err=errs[torch.bfloat16],
-            max_abs_err_fp32=errs[torch.float32],
-            ms=time_ms(lambda: fa.flash_attention(q, k, v, window=window),
-                       flush),
-            plain_ms=time_ms(lambda: ref.chunked_attention(
-                q, k, v, window=window), flush),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
-        del q, k, v, qt, kt, vt, lib
+    for path, shape in FLASH_PATHS + SMOKE_FLASH_PATHS:
+        rows.append(flash_row(dev, gen, flush, path, shape))
     flash_edges(dev, gen)
     rows.append(flash_train_row(dev, gen, flush))
     rows += [flash_train_row(dev, gen, flush, "smoke train", shape, dv,
@@ -1514,7 +1561,7 @@ def sign_rows(rng, n, d=128, nonzero=64):
     return x
 
 
-def check_topk(got, qs, corpus, k, tag) -> float:
+def check_topk(got, qs, corpus, k, tag, quiet=False) -> float:
     """The kernel's top-k against the plain version on the same inputs:
     scores within TOPK_ATOL, ids equal wherever a score lies more than that
     from its neighbours in the list and from the (k+1)-th score.  Returns
@@ -1531,8 +1578,9 @@ def check_topk(got, qs, corpus, k, tag) -> float:
                     gap[:, :-1]], dim=1)
     sep = (gap > TOPK_ATOL) & (lo > TOPK_ATOL)
     assert bool((gi[sep] == wi[:, :k][sep]).all()), f"{tag}: ids differ"
-    log(f"[apps] {tag}: max abs score err {err:.3g}, ids equal at "
-        f"{int(sep.sum())}/{sep.numel()} separated places")
+    if not quiet:
+        log(f"[apps] {tag}: max abs score err {err:.3g}, ids equal at "
+            f"{int(sep.sum())}/{sep.numel()} separated places")
     return err
 
 
@@ -1880,22 +1928,26 @@ def apps_phase(dev, meter):
     for c in (ec, ec.to(torch.bfloat16)):
         check_topk(tk.topk_similarity(eq, c, 32), eq, c, 32,
                    f"edge: D=37, Q=70, N=1000, k=32, {dname(c.dtype)}")
-    # the widest D the kernel's shared-memory tiles take runs; one more is
-    # refused by the C entry and raised as a ValueError
+    # D on both sides of one 128-column chunk (the queries staged whole, or
+    # a chunk at a time beside the corpus's), and the former limits of
+    # whole staging (640 fp32, 496 bf16) and one past them, run; k past
+    # K_MAX is refused
     for dt, dmax in ((torch.float32, 640), (torch.bfloat16, 496)):
         wq = on(rng.normal(size=(70, dmax + 1)).astype(np.float32))
         wc = on(rng.normal(size=(1000, dmax + 1)).astype(np.float32)).to(dt)
-        check_topk(tk.topk_similarity(wq[:, :dmax], wc[:, :dmax], 10),
-                   wq[:, :dmax], wc[:, :dmax], 10,
-                   f"edge: D={dmax}, Q=70, N=1000, k=10, {dname(dt)}")
-        try:
-            tk.topk_similarity(wq, wc, 10)
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"topk_similarity took D={dmax + 1} "
-                                 f"({dname(dt)}) past its tiles")
-    log("[apps] top-k D limit: 640 fp32 / 496 bf16 run, 641 / 497 raise")
+        for d in (128, 129, dmax, dmax + 1):
+            check_topk(tk.topk_similarity(wq[:, :d], wc[:, :d], 10),
+                       wq[:, :d], wc[:, :d], 10,
+                       f"edge: D={d}, Q=70, N=1000, k=10, {dname(dt)}")
+    try:
+        tk.topk_similarity(eq, torch.zeros(tk.K_MAX + 1, 37, device=dev),
+                           tk.K_MAX + 1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"topk_similarity took k={tk.K_MAX + 1}")
+    log(f"[apps] top-k D 128 / 129 and 640 / 641 fp32, 496 / 497 bf16 run; "
+        f"k={tk.K_MAX + 1} raises")
     pool_edges(a)
 
     rows = []
@@ -4833,10 +4885,10 @@ def smoke_requests(cfg):
              s["max_new"]) for _ in range(s["requests"])]
 
 
-def smoke_serve(cfg, params, requests, device):
-    """``requests`` through a ServeEngine built as the serve CLI builds it,
-    the launch counters set to 0 just before the run and read just after:
-    (engine, results, launches, prefill calls)."""
+def smoke_serve(cfg, params, requests, device, kv_layout="paged"):
+    """``requests`` through a ServeEngine built as the serve CLI builds it
+    (on ``kv_layout``), the launch counters set to 0 just before the run
+    and read just after: (engine, results, launches, prefill calls)."""
     from repro_torch.core.telemetry import TelemetryHub
     from repro_torch.kernels import ops
     from repro_torch.train.serve_loop import AdmissionController, ServeEngine
@@ -4845,7 +4897,7 @@ def smoke_serve(cfg, params, requests, device):
         cfg, params, admission=AdmissionController(
             s["num_slots"], host_rate=20.0, csd_rate=1.0, n_csds=1),
         telemetry=TelemetryHub(), max_len=s["max_len"],
-        num_slots=s["num_slots"], kv_layout="paged",
+        num_slots=s["num_slots"], kv_layout=kv_layout,
         page_size=s["page_size"], k_block=s["k_block"], device=device)
     for prompt, max_new in requests:
         eng.submit(prompt, max_new=max_new)
@@ -4985,6 +5037,241 @@ def smoke_phase(dev):
             train_total[k] = train_total.get(k, 0) + v
     free_device()
     return serve_total, train_total
+
+
+# -- the domain phase ---------------------------------------------------------
+# the kernels at every shape the reference's kernels take, through the
+# entry points: head shapes of configs outside configs.ASSIGNED served by
+# the engine, edges at the padded head dims and MQA groups, top-k at
+# sentence-embedding widths and long candidate lists.  (name, (H, Hkv, dh)):
+# phi-2, phi-3-mini, gemma-2-9b, starcoderbase-15b's MQA, falcon-7b's MQA
+DOMAIN_SERVE_HEADS = (("phi-2", (32, 32, 80)), ("phi-3-mini", (32, 32, 96)),
+                      ("gemma-2-9b", (16, 8, 256)),
+                      ("starcoderbase-15b", (48, 1, 128)),
+                      ("falcon-7b", (71, 1, 64)))
+# these configs are the reduced yi-9b (2 layers, vocabulary 256) with the
+# heads replaced and the residual width set to DOMAIN_D_MODEL, in float32:
+# test shapes of the kernels, not model configs
+DOMAIN_D_MODEL = 256
+DOMAIN_STRIP = "phi-2"     # also served on strips: isp decode at dh 80
+# (H, Hkv, dh) of the edges: every class of flash's padded head dims (5 and
+# 8 in class 32, 37 in 64, 80 and 96 in 96, 112 in 128, 160 in 160, 176 in
+# 192, 200 and 256 in 256), and so every lane class of paged and isp
+# decode's (5 and 8 in 4 lanes a key, 37 in 8, 80 / 96 / 112 in 16, 160 /
+# 176 / 200 in 32; 256 is paged decode's own instantiation), with 5 and 37
+# odd widths; and groups 48 and 71 (MQA)
+DOMAIN_DIMS = (5, 8, 37, 80, 96, 112, 160, 176, 200, 256)
+DOMAIN_HEADS = tuple((8, 2, dh) for dh in DOMAIN_DIMS) + (
+    (48, 1, 128), (71, 1, 64), (71, 1, 37))
+# top-k edges: D (an odd width, the sentence encoders' 384 / 768 / 1024,
+# 1536, 3072, 4096) x k (both sides of a warp's 32, long lists to K_MAX)
+DOMAIN_TOPK_D = (37, 384, 768, 1024, 1536, 3072, 4096)
+DOMAIN_TOPK_K = (1, 32, 33, 100, 256, 1024)
+# the recommender at the paper's per-CSD batch (Q = 50 over 58,000 rows)
+# with a 768-wide embedding and a top-100 list, and 1024-wide at top-10
+DOMAIN_APPS = ((768, 100), (1024, 10))
+# kernels record rows: flash at a prompt bucket of 8 x 704, paged decode at
+# decode_case's 8 slots (3394 keys), top-k (Q, N, D, k) in fp32
+DOMAIN_FLASH_ROWS = (("phi-3-mini", (8, 704, 32, 32, 96, 96, None)),
+                     ("gemma-2-9b", (8, 704, 16, 8, 256, 256, None)))
+DOMAIN_PAGED_ROWS = (("phi-3-mini", dict(H=32, Hkv=32, dh=96)),
+                     ("starcoderbase-15b", dict(H=48, Hkv=1, dh=128)))
+DOMAIN_TOPK_ROW = (50, 58_000, 768, 100)
+
+
+def domain_cfg(heads):
+    """The reduced yi-9b in float32 with ``heads`` (H, Hkv, dh)."""
+    from repro_torch.config import reduced_config
+    H, Hkv, dh = heads
+    return dataclasses.replace(reduced_config("yi-9b"), num_heads=H,
+                               num_kv_heads=Hkv, head_dim=dh,
+                               d_model=DOMAIN_D_MODEL, dtype="float32")
+
+
+def domain_serve(dev) -> dict:
+    """Each of DOMAIN_SERVE_HEADS served on the card and on the CPU from
+    the same weights as the smoke phase serves (smoke_serve: 8 requests,
+    paged, k_block 8), DOMAIN_STRIP also on strips: every request ok, flash
+    on every layer of every prefill call and paged (strips: isp) decode on
+    every layer of every step, nothing launched on the CPU, tokens
+    identical.  Returns the launches summed."""
+    from repro_torch.models import model as M
+    total = {}
+    for tag, heads in DOMAIN_SERVE_HEADS:
+        cfg = domain_cfg(heads)
+        cpu = M.seeded_params(cfg, SEED, "cpu")
+        params = M.seeded_params(cfg, SEED, dev)
+        requests = smoke_requests(cfg)
+        L = cfg.num_layers
+        assert set(cfg.layer_pattern) == {"attn"}, cfg.layer_pattern
+        for layout in ("paged", "strip") if tag == DOMAIN_STRIP \
+                else ("paged",):
+            t0 = time.perf_counter()
+            eng, res, ln, calls = smoke_serve(cfg, params, requests, dev,
+                                              kv_layout=layout)
+            steps = eng.stats.decode_steps
+            assert eng.kv_layout == layout and steps > 0 and calls > 0
+            paged = L * steps if layout == "paged" else 0
+            want = dict(flash_attention=L * calls, paged_decode=paged,
+                        isp_decode=L * steps - paged)
+            assert {k: ln[k] for k in want} == want, (tag, ln, want)
+            for k, v in ln.items():
+                total[k] = total.get(k, 0) + v
+            del eng
+            _, res_cpu, ln_cpu, _ = smoke_serve(cfg, cpu, requests, "cpu",
+                                                kv_layout=layout)
+            assert not any(ln_cpu.values()), (tag, ln_cpu)
+            assert [r.tokens for r in res] == [r.tokens for r in res_cpu], \
+                f"domain {tag} {layout}: card and CPU disagree"
+            log(f"[domain] {tag} heads (H {heads[0]}/{heads[1]} dh "
+                f"{heads[2]}, d_model {cfg.d_model}, {L} layers, float32), "
+                f"{layout}: {len(res)} requests ok, {calls} prefill calls, "
+                f"{steps} decode steps; launches {want}; tokens identical "
+                f"to the CPU's; {time.perf_counter() - t0:.2f} s")
+        del params, cpu
+    free_device()
+    return total
+
+
+def domain_apps(dev) -> dict:
+    """apps.recommender_query_batch at the paper's per-CSD batch with each
+    (d, k) of DOMAIN_APPS (the launch counters set to 0 just before and
+    read just after), each held by check_topk against the plain version on
+    the same draws.  Returns the launches."""
+    from repro_torch import apps
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_similarity as tk
+    seeds = [SEED + 21 + i for i in range(len(DOMAIN_APPS))]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ids = [apps.recommender_query_batch(np.random.default_rng(sd),
+                                        **PAPER_RECOMMENDER, d=d, k=k)
+           for sd, (d, k) in zip(seeds, DOMAIN_APPS)]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {n: 0 for n in launches}
+    want.update(topk_similarity=len(DOMAIN_APPS))
+    assert launches == want, (launches, want)
+    for sd, (d, k), got_ids in zip(seeds, DOMAIN_APPS, ids):
+        q, c = apps.recommender_inputs(np.random.default_rng(sd),
+                                       **PAPER_RECOMMENDER, d=d, device=dev)
+        got = tk.topk_similarity(q, c, k)
+        assert np.array_equal(got[1].cpu().numpy(), got_ids), \
+            "domain: the app's ids differ from the kernel's on its inputs"
+        check_topk(got, q, c, k, f"domain: recommender Q=50 over 58000 x "
+                   f"{d}, k={k}")
+    log(f"[domain] apps: launches {launches}")
+    return launches
+
+
+def topk_domain_edges(dev):
+    """topk_similarity over DOMAIN_TOPK_D x DOMAIN_TOPK_K, fp32 and bf16
+    corpora, Q = 70 (two query blocks): random rows held by check_topk
+    (N = 2100), and rows of +-1 entries (norm 8, or 4 at D = 37, so every
+    score is exact) whose 600 rows repeat four times across the corpus:
+    scores and ids identical to the plain version's, the lower id first on
+    equal scores."""
+    from repro_torch.kernels import topk_similarity as tk
+    rng = np.random.default_rng(SEED + 31)
+    on = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    Q, N = 70, 2100
+    for d in DOMAIN_TOPK_D:
+        nz = 64 if d >= 64 else 16
+        qs = on(rng.normal(size=(Q, d)).astype(np.float32))
+        c32 = on(rng.normal(size=(N, d)).astype(np.float32))
+        tq = on(sign_rows(rng, Q, d, nz))
+        tc = on(np.tile(sign_rows(rng, 600, d, nz), (4, 1)))
+        for dt in (torch.float32, torch.bfloat16):
+            c, t = c32.to(dt), tc.to(dt)
+            err, ties = 0.0, 0
+            for k in DOMAIN_TOPK_K:
+                err = max(err, check_topk(
+                    tk.topk_similarity(qs, c, k), qs, c, k,
+                    f"domain edge D={d} k={k} {dname(dt)}", quiet=True))
+                gs, gi = tk.topk_similarity(tq, t, k)
+                ws, wi = tk.topk_similarity_ref(tq, t, k)
+                assert torch.equal(gs, ws) and torch.equal(gi, wi), \
+                    f"domain edge D={d} k={k} {dname(dt)}: ties differ"
+                ties += int((ws[:, 1:] == ws[:, :-1]).sum())
+            assert ties > 0, (d, dt)
+            log(f"[domain] topk edges D={d} {dname(dt)}, k in "
+                f"{DOMAIN_TOPK_K}: max abs score err {err:.3g}; {ties} "
+                f"equal neighbours in the exact-tie lists, scores and ids "
+                f"identical")
+
+
+def domain_topk_row(dev, flush) -> dict:
+    """topk_similarity at DOMAIN_TOPK_ROW (fp32 corpus) against the plain
+    version, timed beside it, its bound and torch.topk(qn @ cn.mT, k) (two
+    calls: no one PyTorch call computes the function); the same shape at
+    k = 10, 32, 33 and 1024 is timed and logged."""
+    from repro_torch.kernels import topk_similarity as tk
+    Q, N, D, K = DOMAIN_TOPK_ROW
+    rng = np.random.default_rng(SEED + 51)
+    qs = torch.from_numpy(rng.normal(size=(Q, D)).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).to(dev)
+    err = check_topk(tk.topk_similarity(qs, c, K), qs, c, K,
+                     f"domain: Q={Q} corpus ({N}, {D}) float32 k={K}")
+    cost = KERNEL_COSTS["topk_similarity"](qs, c, K)
+    bound_ms, bound_by = bound(cost.bytes, cost.flops, cost.dtype)
+    norm = torch.nn.functional.normalize
+    qn, cn = norm(qs, dim=-1, eps=1e-9), norm(c, dim=-1, eps=1e-9)
+    for k in (10, 32, 33, 1024):
+        ms_k = time_ms(lambda: tk.topk_similarity(qs, c, k), flush)
+        lib_k = time_ms(lambda: torch.topk(qn @ cn.mT, k), flush)
+        log(f"[domain] topk_similarity Q={Q} corpus ({N}, {D}) float32 "
+            f"k={k}: kernel {ms_k:.4f} ms, torch.topk(qn @ cn.mT, k) "
+            f"{lib_k:.4f} ms")
+    ms = time_ms(lambda: tk.topk_similarity(qs, c, K), flush)
+    return dict(
+        name="topk_similarity", kernel="topk_similarity", path="domain apps",
+        route="cuda", source="src/repro_torch/kernels/csrc/topk_similarity.cu",
+        replaces="src/repro/kernels/topk_similarity.py:75", dtype="float32",
+        shape=f"Q={Q} corpus ({N}, {D}) float32 k={K}", max_abs_err=err,
+        ms=ms,
+        plain_ms=time_ms(lambda: tk.topk_similarity_ref(qs, c, K), flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        library_two_calls_ms=time_ms(lambda: torch.topk(qn @ cn.mT, K),
+                                     flush),
+        items_per_s=Q / ms * 1e3)
+
+
+def domain_phase(dev):
+    """The domain phase (see the module docstring, 3e): the edges, the
+    kernels record rows, then the counted paths.  Returns the rows and
+    {path: launches}."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 61)
+    flash_edges(dev, gen, heads=tuple(
+        (H, Hkv, dh, dh, (None, 48)) for H, Hkv, dh in DOMAIN_HEADS))
+    flash_lse_edges(dev, gen, heads=tuple(
+        (H, Hkv, dh, dh) for H, Hkv, dh in DOMAIN_HEADS))
+    paged_edges(dev, gen, heads=tuple(
+        (H, Hkv, dh, 64, 100) for H, Hkv, dh in DOMAIN_HEADS))
+    isp_edges(dev, gen, heads=DOMAIN_HEADS)
+    topk_domain_edges(dev)
+    log(f"[domain] edges done in {time.perf_counter() - t0:.1f} s")
+    flush = l2_flushes(dev)[0]
+    rows = [dict(flash_row(dev, gen, flush, "domain serve", shape),
+                 heads_of=tag) for tag, shape in DOMAIN_FLASH_ROWS]
+    rows += [dict(paged_row(dev, gen, flush, "domain serve", kw),
+                  heads_of=tag) for tag, kw in DOMAIN_PAGED_ROWS]
+    rows.append(domain_topk_row(dev, flush))
+    del flush
+    free_device()
+    launches = {"domain serve": domain_serve(dev),
+                "domain apps": domain_apps(dev)}
+    for row in rows:
+        row["kernel_ms"] = row["ms"]
+        log(f"[kernels] {row['name']} ({row['path']}, {row['shape']}): "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+            f"{row['library_ms']}" + (
+                f", topk(q @ c.T) two calls "
+                f"{row['library_two_calls_ms']:.4f} ms"
+                if "library_two_calls_ms" in row else ""))
+    log(f"[domain] phase {time.perf_counter() - t0:.1f} s")
+    return rows, launches
 
 
 # -- the cli phase ------------------------------------------------------------
@@ -5853,6 +6140,10 @@ def main() -> int:
         "only build the kernels and run the examples phase (the four "
         "example scripts' mains on the card against the CPU, the apps at "
         "the paper's sizes)"))
+    parser.add_argument("--domain", action="store_true", help=(
+        "only build the kernels and run the domain phase (the kernels at "
+        "the head dims, groups, widths and k of the reference's domain), "
+        "then print its kernel rows as one JSON line"))
     parser.add_argument("--flash-times", action="store_true", help=(
         "only time flash at its six serve paths' shapes without lse and "
         "print them as one JSON line; for running two trees in turns"))
@@ -5893,8 +6184,9 @@ def main() -> int:
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
         return 0
     build_kernels()
-    if args.examples:
-        rows, launches = examples_phase(dev)
+    if args.examples or args.domain:
+        rows, launches = (examples_phase if args.examples
+                          else domain_phase)(dev)
         for row in rows:
             row["launches"] = launches[row["path"]][row["kernel"]]
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
@@ -5930,6 +6222,9 @@ def main() -> int:
     example_rows_, example_launches = examples_phase(dev)
     rows += example_rows_
     lap("examples")
+    domain_rows_, domain_launches = domain_phase(dev)
+    rows += domain_rows_
+    lap("domain")
 
     # -- serve -------------------------------------------------------------
     cfg = get_config("yi-9b")
@@ -5952,7 +6247,8 @@ def main() -> int:
     serve_report("serve", eng, results, wall, launches, prefill_calls)
     path_launches = {"yi-9b serve": launches, "apps": app_launches,
                      "smoke serve": smoke_launches[0],
-                     "smoke train": smoke_launches[1], **example_launches}
+                     "smoke train": smoke_launches[1], **example_launches,
+                     **domain_launches}
 
     # -- consistency ---------------------------------------------------------
     eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)

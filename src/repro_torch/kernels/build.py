@@ -51,7 +51,7 @@ KERNELS = {
     "isp_gather_pool": ("isp_gather_pool.cu", "repro_isp_gather_pool",
                         [_P] * 5 + [_L, _L, _I, _L] + [_I] * 5 + [_P]),
     "topk_similarity": ("topk_similarity.cu", "repro_topk_similarity",
-                        [_P] * 6 + [_I] * 9 + [_P]),
+                        [_P] * 7 + [_I] * 9 + [_P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -5,7 +5,17 @@
 // deepseek-v2's MLA prefill (128 nope + 64 rope dims against 128 value
 // dims), as the op's contract allows (k/v (B, Skv, Hkv, dh[v])); (16, 16)
 // and (24, 16) for the reduced (smoke) configs, whose head dim is 16 and
-// whose reduced MLA attends at 16 nope + 8 rope dims against 16.
+// whose reduced MLA attends at 16 nope + 8 rope dims against 16.  Every
+// other uniform head dim from 1 to 256 (phi-2's 80, phi-3-mini's 96,
+// gemma-2's 256, an odd 37) runs on a class instantiation (RT = true): the
+// tiles are those of a class width C (32, 64, 96, 128, 160, 192 or 256, the
+// least C >= dh), the real dh comes at run time for the row strides, the
+// loads and the stores, and the columns dh..C of the staged Q, K and V are
+// zero, so they add nothing to a dot product and nothing is stored past
+// dh.  Rows whose dh is a multiple of 8 are copied by 16-byte cp.async as
+// above; any other dh (rows not 16-byte aligned) takes element loads in
+// the same kernel.  Unequal pairs other than the two above are refused, as
+// the reference refuses them.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the
 // Pallas `_kernel`, grid (B, Hkv, G, nq, nk) with VMEM scratch carried
@@ -149,7 +159,7 @@ struct TcShape {
       (size_t)(BQ * LD + 2 * STAGE) * sizeof(__nv_bfloat16);
 };
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool RT = false>
 __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
     const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, DQK)
     const __nv_bfloat16* __restrict__ k,   // (B, Skv, Hkv, DQK)
@@ -157,8 +167,12 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
     __nv_bfloat16* __restrict__ out,       // (B, Sq, H, DV)
     float* __restrict__ lse,               // (B, Sq, H) or null
     int Sq, int Skv, int H, int Hkv, int causal, int window, int q_offset,
-    float scale_log2) {
+    float scale_log2, int dr) {
+  // RT: DQK == DV is a class width and dr <= DQK the head dim of q, k, v
+  // and out in memory; otherwise dr is not read
   using S = TcShape<DQK, DV>;
+  static_assert(!RT || DQK == DV, "class instantiations are uniform");
+  const int dq = RT ? dr : DQK, dvr = RT ? dr : DV;   // dims in memory
   constexpr int BK = S::BK, LD = S::LD, LDV = S::LDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -182,25 +196,54 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
   if (window > 0 && q_lo - window + 1 > 0) kv_begin = q_lo - window + 1;
   kv_begin = (kv_begin / BK) * BK;
 
-  const size_t q_row = (size_t)H * DQK, k_row = (size_t)Hkv * DQK;
-  const size_t v_row = (size_t)Hkv * DV, o_row = (size_t)H * DV;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * DQK;
-  const __nv_bfloat16* kb = k + (size_t)b * Skv * k_row + (size_t)hk * DQK;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * v_row + (size_t)hk * DV;
+  const size_t q_row = (size_t)H * dq, k_row = (size_t)Hkv * dq;
+  const size_t v_row = (size_t)Hkv * dvr, o_row = (size_t)H * dvr;
+  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * dq;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * k_row + (size_t)hk * dq;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * v_row + (size_t)hk * dvr;
+  [[maybe_unused]] const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const bool vec = !RT || dr % 8 == 0;  // rows 16-byte aligned
 
-  // Q tile; rows past Sq and pad columns past DQK are zero-filled
-  for (int i = tid; i < BQ * S::CPR; i += TC_THREADS) {
-    const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
-    const bool in = q0 + r < Sq && (S::DQK_P == DQK || c < DQK);
-    cp_async16(sq + r * LD + c, qb + (in ? (size_t)(q0 + r) * q_row + c : 0),
-               in);
+  // Q tile; rows past Sq and pad columns past DQK (dr) are zero-filled
+  if (vec) {
+    for (int i = tid; i < BQ * S::CPR; i += TC_THREADS) {
+      const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
+      const bool in = q0 + r < Sq && (RT ? c < dr
+                                         : (S::DQK_P == DQK || c < DQK));
+      cp_async16(sq + r * LD + c,
+                 qb + (in ? (size_t)(q0 + r) * q_row + c : 0), in);
+    }
+  } else if constexpr (RT) {
+    for (int i = tid; i < BQ * DQK; i += TC_THREADS) {
+      const int r = i / DQK, c = i - r * DQK;
+      sq[r * LD + c] =
+          q0 + r < Sq && c < dr ? qb[(size_t)(q0 + r) * q_row + c] : zero;
+    }
   }
   auto load_kv = [&](int k0, int st) {
     __nv_bfloat16* ks = skv + st * S::STAGE;
     __nv_bfloat16* vs = ks + BK * LD;
-    // equal head dims keep the one loop of K and V rows they had before
-    // the split, so their instantiations compile as they did
-    if constexpr (DQK == DV && S::DQK_P == DQK) {
+    if constexpr (RT) {           // K and V rows of dr elements, one stride
+      if (vec) {
+        for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
+          const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
+          const bool in = k0 + r < Skv && c < dr;
+          const size_t off = in ? (size_t)(k0 + r) * k_row + c : 0;
+          cp_async16(ks + r * LD + c, kb + off, in);
+          cp_async16(vs + r * LDV + c, vb + off, in);
+        }
+      } else {
+        for (int i = tid; i < BK * DQK; i += TC_THREADS) {
+          const int r = i / DQK, c = i - r * DQK;
+          const bool in = k0 + r < Skv && c < dr;
+          const size_t off = (size_t)(k0 + r) * k_row + c;
+          ks[r * LD + c] = in ? kb[off] : zero;
+          vs[r * LDV + c] = in ? vb[off] : zero;
+        }
+      }
+    } else if constexpr (DQK == DV && S::DQK_P == DQK) {
+      // equal head dims keep the one loop of K and V rows they had before
+      // the split, so their instantiations compile as they did
       for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
         const int r = i / S::CPR, c = (i - r * S::CPR) * 8;
         const bool in = k0 + r < Skv;
@@ -365,21 +408,36 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
       lse[((size_t)b * Sq + qi) * H + h] =
           l[r] == 0.f ? __int_as_float(0x7f800000)
                       : m[r] * 0.6931471805599453f + logf(l[r]);
-    __nv_bfloat16* ob = out + ((size_t)b * Sq + qi) * o_row + (size_t)h * DV;
+    __nv_bfloat16* ob = out + ((size_t)b * Sq + qi) * o_row + (size_t)h * dvr;
 #pragma unroll
-    for (int n = 0; n < S::NT_O; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(ob + n * 8 + 2 * tg) =
-          __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    for (int n = 0; n < S::NT_O; ++n) {
+      const int col = n * 8 + 2 * tg;
+      if constexpr (RT) {         // columns past dr are not stored
+        if (col >= dr) continue;
+        if (dr % 2 == 0) {        // pairs stay 4-byte aligned
+          *reinterpret_cast<__nv_bfloat162*>(ob + col) =
+              __floats2bfloat162_rn(o[n][2 * r] * inv,
+                                    o[n][2 * r + 1] * inv);
+        } else {
+          ob[col] = __float2bfloat16_rn(o[n][2 * r] * inv);
+          if (col + 1 < dr)
+            ob[col + 1] = __float2bfloat16_rn(o[n][2 * r + 1] * inv);
+        }
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(ob + col) =
+            __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      }
+    }
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool RT = false>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       float* lse, int B, int Sq, int Skv, int H, int Hkv,
                       int causal, int window, int q_offset, float scale,
-                      cudaStream_t stream) {
+                      int dr, cudaStream_t stream) {
   const size_t smem = TcShape<DQK, DV>::SMEM;
-  auto kern = flash_fwd_tc<DQK, DV>;
+  auto kern = flash_fwd_tc<DQK, DV, RT>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -387,7 +445,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   kern<<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, Sq, Skv, H, Hkv,
-      causal, window, q_offset, scale * 1.4426950408889634f);
+      causal, window, q_offset, scale * 1.4426950408889634f, dr);
   return cudaGetLastError();
 }
 
@@ -423,7 +481,7 @@ __device__ __forceinline__ void axpy_part(float* acc, float p,
   }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool RT = false>
 __global__ void __launch_bounds__(BQ * TPR)
 flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
               const float* __restrict__ k,   // (B, Skv, Hkv, DQK)
@@ -431,7 +489,11 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
               float* __restrict__ out,       // (B, Sq, H, DV)
               float* __restrict__ lse,       // (B, Sq, H) or null
               int Sq, int Skv, int H, int Hkv, int causal, int window,
-              int q_offset, float scale) {
+              int q_offset, float scale, int dr) {
+  // RT: DQK == DV is a class width and dr <= DQK the head dim in memory;
+  // dims dr..DQK of q, k and v read as 0 and are not stored
+  static_assert(!RT || DQK == DV, "class instantiations are uniform");
+  const int dq = RT ? dr : DQK, dvr = RT ? dr : DV;   // dims in memory
   // floats a thread reads at once: 4 where the dim is a multiple of 16,
   // else 2 (DQK 24)
   constexpr int VQ = DQK % (TPR * 4) == 0 ? 4 : 2;
@@ -455,13 +517,14 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
   // thread's dims: TPR * V * g + V * part + {0..V-1}, g in [0, NG) for
   // q/k (V = VQ) and [0, NGV) for v/out (V = VV)
   float qr[NG * VQ], acc[NGV * VV];
-  const size_t qbase = (((size_t)b * Sq + (live ? qi : 0)) * H + h) * DQK;
+  const size_t qbase = (((size_t)b * Sq + (live ? qi : 0)) * H + h) * dq;
 #pragma unroll
   for (int g = 0; g < NG; ++g)
 #pragma unroll
-    for (int e = 0; e < VQ; ++e)
-      qr[g * VQ + e] =
-          live ? q[qbase + TPR * VQ * g + VQ * part + e] : 0.f;
+    for (int e = 0; e < VQ; ++e) {
+      const int d = TPR * VQ * g + VQ * part + e;
+      qr[g * VQ + e] = live && (!RT || d < dr) ? q[qbase + d] : 0.f;
+    }
 #pragma unroll
   for (int i = 0; i < NGV * VV; ++i) acc[i] = 0.f;
   float m = kNegInf, l = 0.f;
@@ -475,7 +538,7 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
   if (window > 0 && q_lo - window + 1 > 0) kv_begin = q_lo - window + 1;
   kv_begin = (kv_begin / BK) * BK;
 
-  const size_t k_row = (size_t)Hkv * DQK, v_row = (size_t)Hkv * DV;
+  const size_t k_row = (size_t)Hkv * dq, v_row = (size_t)Hkv * dvr;
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();
     if constexpr (DQK == DV) {    // as before the split (see load_kv)
@@ -483,9 +546,9 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
         const int j = e / DQK, d = e - j * DQK;
         const int kp = k0 + j;
         float kv = 0.f, vv = 0.f;
-        if (kp < Skv) {
+        if (kp < Skv && (!RT || d < dr)) {
           const size_t off =
-              ((size_t)b * Skv + kp) * k_row + (size_t)hk * DQK + d;
+              ((size_t)b * Skv + kp) * k_row + (size_t)hk * dq + d;
           kv = k[off];
           vv = v[off];
         }
@@ -549,34 +612,66 @@ flash_fwd_fma(const float* __restrict__ q,   // (B, Sq, H, DQK)
   if (lse != nullptr && part == 0)
     lse[((size_t)b * Sq + qi) * H + h] =
         l == 0.f ? __int_as_float(0x7f800000) : m + logf(l);
-  const size_t obase = (((size_t)b * Sq + qi) * H + h) * DV;
+  const size_t obase = (((size_t)b * Sq + qi) * H + h) * dvr;
 #pragma unroll
   for (int g = 0; g < NGV; ++g)
 #pragma unroll
-    for (int e = 0; e < VV; ++e)
-      out[obase + TPR * VV * g + VV * part + e] = acc[g * VV + e] * inv;
+    for (int e = 0; e < VV; ++e) {
+      const int d = TPR * VV * g + VV * part + e;
+      if (!RT || d < dr) out[obase + d] = acc[g * VV + e] * inv;
+    }
 }
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool RT = false>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        void* out, float* lse, int B, int Sq, int Skv, int H,
                        int Hkv, int causal, int window, int q_offset,
-                       float scale,
+                       float scale, int dr,
                        cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_fma<DQK, DV><<<grid, BQ * TPR, 0, stream>>>(
+  flash_fwd_fma<DQK, DV, RT><<<grid, BQ * TPR, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
-      Sq, Skv, H, Hkv, causal, window, q_offset, scale);
+      Sq, Skv, H, Hkv, causal, window, q_offset, scale, dr);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+#define REPRO_FA_GO(DQK, DV, RT)                                             \
+  return (int)(dtype == 0                                                    \
+                   ? launch_fma<DQK, DV, RT>(q, k, v, out, (float*)lse, B,   \
+                                             Sq, Skv, H, Hkv, causal,        \
+                                             window, q_offset, scale, dh, s) \
+                   : launch_tc<DQK, DV, RT>(q, k, v, out, (float*)lse, B,    \
+                                            Sq, Skv, H, Hkv, causal, window, \
+                                            q_offset, scale, dh, s));
+
+// A uniform head dim 1..256 on its class instantiation, the least class
+// width that holds it.
+static int launch_class(const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int Sq, int Skv, int H,
+                        int Hkv, int dh, int causal, int window, int q_offset,
+                        float scale, int dtype, cudaStream_t s) {
+#define REPRO_FA_CLASS(C) \
+  if (dh <= C) REPRO_FA_GO(C, C, true)
+  REPRO_FA_CLASS(32)
+  REPRO_FA_CLASS(64)
+  REPRO_FA_CLASS(96)
+  REPRO_FA_CLASS(128)
+  REPRO_FA_CLASS(160)
+  REPRO_FA_CLASS(192)
+  REPRO_FA_CLASS(256)
+#undef REPRO_FA_CLASS
+  return (int)cudaErrorInvalidValue;
+}
+
 // dh: the q/k head dim; dv: the v/out head dim.  dtype: 0 = float32 (CUDA
 // cores), 1 = bfloat16 (tensor cores).  window <= 0 means no window.  lse:
 // null, or an fp32 (B, Sq, H) buffer for each row's log-sum-exp.
 // Returns cudaGetLastError() after the launch (0 = success), or
-// cudaErrorInvalidValue for a (dh, dv) pair with no instantiation.
+// cudaErrorInvalidValue for a (dh, dv) pair the kernel does not take: an
+// unequal pair other than the two instantiated, or a head dim outside
+// 1..256.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, void* lse,
                                      int B, int Sq, int Skv, int H, int Hkv,
@@ -584,15 +679,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int causal, int window, int q_offset,
                                      float scale, int dtype, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define REPRO_FA_LAUNCH(DQK, DV)                                             \
-  if (dh == DQK && dv == DV)                                                 \
-    return (int)(dtype == 0                                                  \
-                     ? launch_fma<DQK, DV>(q, k, v, out, (float*)lse, B, Sq, \
-                                           Skv, H, Hkv, causal, window,      \
-                                           q_offset, scale, s)               \
-                     : launch_tc<DQK, DV>(q, k, v, out, (float*)lse, B, Sq,  \
-                                          Skv, H, Hkv, causal, window,       \
-                                          q_offset, scale, s));
+#define REPRO_FA_LAUNCH(DQK, DV) \
+  if (dh == DQK && dv == DV) REPRO_FA_GO(DQK, DV, false)
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   REPRO_FA_LAUNCH(16, 16)
   REPRO_FA_LAUNCH(24, 16)
@@ -601,5 +689,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   REPRO_FA_LAUNCH(240, 240)
   REPRO_FA_LAUNCH(192, 128)
 #undef REPRO_FA_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  if (dh != dv || dh < 1 || dh > 256) return (int)cudaErrorInvalidValue;
+  return launch_class(q, k, v, out, lse, B, Sq, Skv, H, Hkv, dh, causal,
+                      window, q_offset, scale, dtype, s);
 }
+#undef REPRO_FA_GO

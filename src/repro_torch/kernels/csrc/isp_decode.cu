@@ -67,15 +67,6 @@ using namespace split_decode;
 
 constexpr int SMEM_MAX = 232448;  // shared memory one block may use
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void set_zero(float& x) { x = 0.f; }
-__device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
-  x = __float2bfloat16(0.f);
-}
-
 // The pass-1 tile of a head dim class: LPK lanes per key (dh / 8 rounded up
 // to a power of two, at least 4), DP staged dims a row (8 a lane, >= dh),
 // CH rows a stage (at least one round of the block's key groups).

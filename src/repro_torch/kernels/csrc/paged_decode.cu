@@ -38,6 +38,16 @@
 // scores are -1e30 and get p = 0, and every merge weight of an all-empty
 // set is e^0 = 1 times zeros, so no NaN enters the merge.
 //
+// Head dims: 16, 32, 64, 128, 240 and 256 stage a page's rows at dh
+// elements (instantiations of their own).  Every other dh from 1 to 256
+// (PAD = true) takes isp_decode.cu's lane ladder: LPK = dh / 8 rounded up
+// to a power of two, at least 4, rows staged at DP = 8 * LPK elements
+// whose dims dh..DP are zeroed once and never loaded, lanes past dh idle
+// (has_d); rows are copied by 16-byte cp.async where dh is a multiple of
+// the copy (then every row of the pool is aligned) and by element loads
+// otherwise.  Any group H / Hkv runs: a block takes GC query heads of one
+// kv head and the grid's y axis as many head chunks as the group needs.
+//
 // The loaders, the per-batch online softmax, the merge of the (warp, key
 // group) partials and pass 2 are split_decode.cuh's, shared with
 // isp_decode.cu; this file keeps what is paged: the page walk and its
@@ -50,8 +60,9 @@ using namespace split_decode;
 
 // LPK: lanes per key (dh / 8 rounded up to a power of two: 2 at dh 16, so a
 // warp holds 16 keys at once, a page of 16 keys per warp round); GC: query
-// heads per block (2 or 8; a block with fewer heads leaves the rest idle).
-template <typename T, int LPK, int GC>
+// heads per block (2 or 8; a block with fewer heads leaves the rest idle);
+// PAD: rows staged at 8 * LPK elements, dh any of 1..8 * LPK.
+template <typename T, int LPK, int GC, bool PAD = false>
 __global__ void __launch_bounds__(NT) paged_split_kernel(
     const T* __restrict__ q,        // (B, H, dh)
     const T* __restrict__ kpool,    // (P+1, ps, Hkv, dh)
@@ -99,7 +110,13 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
   float qr[GC][8], acc[GC][8], m[GC], l[GC];
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
-    if (g < ng && has_d) {
+    if constexpr (PAD) {          // q rows need not be 16-byte aligned
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int d = d0 + e;
+        qr[g][e] = g < ng && d < dh ? to_f(q[(out_row + g) * dh + d]) : 0.f;
+      }
+    } else if (g < ng && has_d) {
       load8(q + (out_row + g) * dh + d0, qr[g]);
     } else {
 #pragma unroll
@@ -111,8 +128,17 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
     l[g] = 0.f;
   }
 
-  T* stage = reinterpret_cast<T*>(smem);    // [2 stages][K, V][ps * dh]
+  // staged row width: dh, or the lane class's 8 * LPK with zero pad dims
+  const int rs = PAD ? 8 * LPK : dh;
+  T* stage = reinterpret_cast<T*>(smem);    // [2 stages][K, V][ps * rs]
+  if constexpr (PAD) {            // dims dh..rs stay zero (never loaded)
+    for (int i = threadIdx.x; i < 4 * ps * (rs - dh); i += NT) {
+      const int r = i / (rs - dh);
+      set_zero(stage[r * rs + dh + i - r * (rs - dh)]);
+    }
+  }
   const size_t row_stride = (size_t)Hkv * dh;
+  const bool vec = !PAD || dh % EPC == 0;   // every pool row 16-byte aligned
   const int cpr = dh / EPC;                 // 16-byte copies per row
   const int n_cp = ps * cpr;
   const int32_t* table = pages + (size_t)b * maxp;
@@ -120,12 +146,20 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
     const int page = table[lp];
     if (page < 0) return;         // unallocated: every key invalid
     const size_t base = (size_t)page * ps * row_stride + (size_t)hk * dh;
-    T* ks = stage + (size_t)st * 2 * ps * dh;
-    T* vs = ks + ps * dh;
-    for (int i = threadIdx.x; i < n_cp; i += NT) {
-      const int r = i / cpr, e = (i - r * cpr) * EPC;
-      cp_async16(ks + r * dh + e, kpool + base + r * row_stride + e);
-      cp_async16(vs + r * dh + e, vpool + base + r * row_stride + e);
+    T* ks = stage + (size_t)st * 2 * ps * rs;
+    T* vs = ks + ps * rs;
+    if (vec) {
+      for (int i = threadIdx.x; i < n_cp; i += NT) {
+        const int r = i / cpr, e = (i - r * cpr) * EPC;
+        cp_async16(ks + r * rs + e, kpool + base + r * row_stride + e);
+        cp_async16(vs + r * rs + e, vpool + base + r * row_stride + e);
+      }
+    } else {
+      for (int i = threadIdx.x; i < ps * dh; i += NT) {
+        const int r = i / dh, e = i - r * dh;
+        ks[r * rs + e] = kpool[base + r * row_stride + e];
+        vs[r * rs + e] = vpool[base + r * row_stride + e];
+      }
     }
   };
 
@@ -137,10 +171,10 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
     cp_async_wait1();
     __syncthreads();
     if (table[lp] >= 0) {
-      const T* ks = stage + (size_t)(it & 1) * 2 * ps * dh;
-      const T* vs = ks + ps * dh;
+      const T* ks = stage + (size_t)(it & 1) * 2 * ps * rs;
+      const T* vs = ks + ps * rs;
       attend_stage<T, LPK, GC>(
-          ks, vs, dh, ps, warp, grp, d0, has_d, qr, acc, m, l, scale,
+          ks, vs, rs, ps, warp, grp, d0, has_d, qr, acc, m, l, scale,
           [&](int j) {
             const int pos = lp * ps + j;
             return pos <= c && (window <= 0 || pos > c - window);
@@ -151,20 +185,21 @@ __global__ void __launch_bounds__(NT) paged_split_kernel(
 
   // merge the (warp, key group) partials of this split; the stage
   // buffers are free now (the loop ended on a barrier)
-  merge_slots<LPK, GC>(smem, dh, acc, m, l, warp, grp, d0, has_d, ng, dh,
+  merge_slots<LPK, GC>(smem, rs, acc, m, l, warp, grp, d0, has_d, ng, dh,
                        out_row, split, n_split, pacc, pl, pm);
 }
 
-template <typename T, int LPK, int GC>
+template <typename T, int LPK, int GC, bool PAD = false>
 cudaError_t launch_split(const void* q, const void* kp, const void* vp,
                          const void* pages, const void* cur, float* pacc,
                          float* pl, float* pm, int B, int H, int Hkv, int dh,
                          int ps, int maxp, int window, int span, int n_split,
                          float scale, cudaStream_t stream) {
-  const size_t stage = 4 * (size_t)ps * dh * sizeof(T);
-  const size_t red = merge_smem<LPK, GC>(dh);
+  const int rs = PAD ? 8 * LPK : dh;        // staged row width
+  const size_t stage = 4 * (size_t)ps * rs * sizeof(T);
+  const size_t red = merge_smem<LPK, GC>(rs);
   const size_t smem = stage > red ? stage : red;
-  auto kern = paged_split_kernel<T, LPK, GC>;
+  auto kern = paged_split_kernel<T, LPK, GC, PAD>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -179,6 +214,31 @@ cudaError_t launch_split(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
+#define REPRO_PD_ARGS                                                        \
+  q, kp, vp, pages, cur, pacc, pl, pm, B, H, Hkv, dh, ps, maxp, window,      \
+      span, n_split, scale, stream
+
+// A head dim with no instantiation of its own (1..256): the lane class
+// that holds it, rows padded to 8 * LPK.
+template <typename T>
+cudaError_t launch_pad(const void* q, const void* kp, const void* vp,
+                       const void* pages, const void* cur, float* pacc,
+                       float* pl, float* pm, int B, int H, int Hkv, int dh,
+                       int ps, int maxp, int window, int span, int n_split,
+                       float scale, cudaStream_t stream) {
+  const bool wide = H / Hkv > 2;  // 8 query heads a block, else 2
+#define REPRO_PD_PAD(LPK)                                                    \
+  return wide ? launch_split<T, LPK, 8, true>(REPRO_PD_ARGS)                 \
+              : launch_split<T, LPK, 2, true>(REPRO_PD_ARGS)
+  if (dh < 1) return cudaErrorInvalidValue;
+  if (dh <= 32) REPRO_PD_PAD(4);
+  if (dh <= 64) REPRO_PD_PAD(8);
+  if (dh <= 128) REPRO_PD_PAD(16);
+  if (dh <= 256) REPRO_PD_PAD(32);
+#undef REPRO_PD_PAD
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* pages, const void* cur, float* pacc, float* pl,
@@ -186,9 +246,6 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    int window, int span, int n_split, float scale,
                    cudaStream_t stream) {
   const bool wide = H / Hkv > 2;  // 8 query heads a block, else 2
-#define REPRO_PD_ARGS                                                        \
-  q, kp, vp, pages, cur, pacc, pl, pm, B, H, Hkv, dh, ps, maxp, window,      \
-      span, n_split, scale, stream
 #define REPRO_PD_LPK(LPK)                                                    \
   return wide ? launch_split<T, LPK, 8>(REPRO_PD_ARGS)                       \
               : launch_split<T, LPK, 2>(REPRO_PD_ARGS)
@@ -199,10 +256,9 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
     case 128: REPRO_PD_LPK(16);
     case 240: REPRO_PD_LPK(32);
     case 256: REPRO_PD_LPK(32);
-    default: return cudaErrorInvalidValue;
+    default: return launch_pad<T>(REPRO_PD_ARGS);
   }
 #undef REPRO_PD_LPK
-#undef REPRO_PD_ARGS
 }
 
 }  // namespace
@@ -235,3 +291,4 @@ extern "C" int repro_paged_decode(const void* q, const void* kpool,
   if (e != cudaSuccess) return (int)e;
   return (int)merge_splits(pacc, pl, pm, acc, l, m, B * H, n_split, dh, s);
 }
+#undef REPRO_PD_ARGS

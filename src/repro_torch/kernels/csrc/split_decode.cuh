@@ -49,6 +49,15 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   }
 }
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void set_zero(float& x) { x = 0.f; }
+__device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
+  x = __float2bfloat16(0.f);
+}
+
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),

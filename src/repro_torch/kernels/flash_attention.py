@@ -9,8 +9,13 @@ reference's chunked path).  The kernel runs bfloat16 on the tensor cores
 (``mma.sync``) and float32 on the CUDA cores, so that fp32 keeps fp32
 products.
 
-The q/k head dim and the v head dim may differ (``HEAD_DIMS``): MLA's
-prefill attends at qk 192 / v 128.  With ``return_lse`` the kernel also
+The kernel takes every uniform head dim from 1 to ``MAX_HEAD_DIM`` (256),
+as the reference's kernel takes any: the GQA families' dims and the smoke
+configs' 16 on instantiations of their own, every other dim on the least
+class width that holds it, its columns past dh zero in shared memory.  The
+q/k head dim and the v head dim may differ only in ``UNEQUAL_DIMS``: MLA's
+prefill attends at qk 192 / v 128, the reduced MLA at 24 / 16; the
+reference refuses every other unequal pair.  With ``return_lse`` the kernel also
 writes each row's log-sum-exp (fp32, natural log), which the training
 path's backward recomputes the probabilities from; a row that sees no key
 gets +inf there (its output is 0, and so is its gradient), where the plain
@@ -27,20 +32,21 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# (q/k head dim, v head dim) pairs the kernel is instantiated for: the GQA
-# families' uniform head dims, deepseek-v2's MLA prefill (128 nope + 64
-# rope dims of q/k against 128 value dims), and the reduced (smoke)
-# configs' head dim 16 and reduced MLA (16 nope + 8 rope against 16)
-HEAD_DIMS = ((16, 16), (24, 16), (64, 64), (128, 128), (240, 240),
-             (192, 128))
+# the widest uniform head dim the kernel's tiles take (its largest class)
+MAX_HEAD_DIM = 256
+# the (q/k head dim, v head dim) pairs that differ: deepseek-v2's MLA
+# prefill (128 nope + 64 rope dims of q/k against 128 value dims) and the
+# reduced MLA (16 nope + 8 rope against 16)
+UNEQUAL_DIMS = ((24, 16), (192, 128))
 
 flash_attention_ref = ref.chunked_attention
 
 
 def check_shapes(q, k, v) -> None:
     """Raise unless q (B, Sq, H, dh), k (B, Skv, Hkv, dh) and v (B, Skv,
-    Hkv, dv) fit the kernel: one batch, H a multiple of Hkv, and (dh, dv)
-    one of ``HEAD_DIMS``.  Reads only shapes, so it runs on any device."""
+    Hkv, dv) fit the kernel: one batch, H a multiple of Hkv, and either
+    dh == dv with 1 <= dh <= ``MAX_HEAD_DIM`` or (dh, dv) one of
+    ``UNEQUAL_DIMS``.  Reads only shapes, so it runs on any device."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: q/k/v must be 4-D, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -50,10 +56,14 @@ def check_shapes(q, k, v) -> None:
             or v.shape[:3] != k.shape[:3] or H % k.shape[2]):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if (dh, v.shape[-1]) not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dims (qk {dh}, v "
-                         f"{v.shape[-1]}) not supported by the kernel "
-                         f"(supported: {HEAD_DIMS})")
+    dv = v.shape[-1]
+    if dh != dv and (dh, dv) not in UNEQUAL_DIMS:
+        raise ValueError(f"flash_attention: head dims (qk {dh}, v {dv}) "
+                         f"differ; the kernel takes equal dims or one of "
+                         f"{UNEQUAL_DIMS}")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {dh} is past the "
+                         f"kernel's limit of {MAX_HEAD_DIM}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -61,7 +71,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None, return_lse: bool = False):
     """Launch the CUDA kernel.  q: (B, Sq, H, dh); k: (B, Skv, Hkv, dh);
     v: (B, Skv, Hkv, dv), contiguous CUDA tensors of one dtype (float32 or
-    bfloat16) on an sm_90 device, (dh, dv) one of ``HEAD_DIMS``.  Returns
+    bfloat16) on an sm_90 device, (dh, dv) as ``check_shapes`` takes them.  Returns
     (B, Sq, H, dv) in q's dtype, or with ``return_lse`` (out, lse (B, Sq,
     H) float32); ``scale`` defaults to dh ** -0.5."""
     check_shapes(q, k, v)

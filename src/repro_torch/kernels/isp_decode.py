@@ -28,6 +28,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256        # the widest lane class: 32 lanes of 8 dims a key
 # The split grid aims at BLOCKS_PER_SM blocks on each SM.  Ring rows are not
 # sorted by position, so every span reads its positions and may find few
 # valid rows; the floor keeps a block's two-stage row pipeline busy, and the
@@ -61,8 +62,8 @@ def decode_partial_split_ref(q, k, v, kpos, cur_pos, *, span: int,
 def check_shapes(q, k, v, kpos) -> None:
     """Raise unless q (B, H, dh), k/v (B, S, Hkv, dh) with a contiguous
     head dim and kpos (S,) or (B, S) fit the kernel: H a multiple of Hkv
-    and dh at most 256.  Reads only shapes and strides, so it runs on any
-    device."""
+    (any group) and 1 <= dh <= ``MAX_HEAD_DIM``.  Reads only shapes and
+    strides, so it runs on any device."""
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"isp_decode: q must be 3-D and k/v 4-D, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
@@ -71,9 +72,9 @@ def check_shapes(q, k, v, kpos) -> None:
     if v.shape != k.shape or Bk != B or dhk != dh or H % Hkv:
         raise ValueError(f"isp_decode: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if dh > 256:
-        raise ValueError(f"isp_decode: head dim {dh} not supported by the "
-                         f"kernel")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"isp_decode: head dim {dh} is past the kernel's "
+                         f"limit of {MAX_HEAD_DIM}")
     if k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("isp_decode: k/v need a contiguous head dim")
     if kpos.shape not in ((S,), (B, S)):

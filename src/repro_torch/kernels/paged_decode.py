@@ -12,6 +12,11 @@ page axis into ``n_split`` spans from the shapes alone, one block per
 ``paged_decode_partial_split_ref`` is the plain version of that plan and
 merge; the tests hold it against the unsplit plain version.
 
+The kernel takes every head dim from 1 to ``MAX_HEAD_DIM`` (256), as the
+reference's kernel takes any, and any group ``H // Hkv``: the GQA
+families' dims and the smoke configs' 16 stage a page's rows at dh, every
+other dim at its lane class's width (``staged_width``).
+
 ``paged_decode_partial`` launches the kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to ``paged_decode_partial_ref``.
 """
@@ -34,8 +39,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SPAN_FLOOR = 4            # logical pages a split covers at least
 BLOCKS_PER_SM = ref.SPLIT_BLOCKS_PER_SM
 SMEM_MAX = 232448         # shared memory one block may use on sm_90
-# head dims the kernel is instantiated for (csrc/paged_decode.cu's switch)
-HEAD_DIMS = (16, 32, 64, 128, 240, 256)
+MAX_HEAD_DIM = 256        # the widest lane class: 32 lanes of 8 dims a key
+# head dims with an instantiation of their own (csrc/paged_decode.cu's
+# switch): their rows are staged at dh elements
+_OWN_DIMS = (16, 32, 64, 128, 240, 256)
+
+
+def staged_width(dh: int) -> int:
+    """Elements a staged K/V row takes in the kernel's shared memory: dh
+    for the dims with an instantiation of their own, else 8 lanes' worth of
+    the lane class (dh / 8 rounded up to a power of two, at least 4) that
+    holds dh, as in isp_decode."""
+    if dh in _OWN_DIMS:
+        return dh
+    return 8 * max(4, 1 << (-(-dh // 8) - 1).bit_length())
 
 
 # (span, n_split) over the logical pages: ref.split_plan, shared with
@@ -84,10 +101,10 @@ def paged_decode_partial_split_ref(q, kpool, vpool, pages, cur_pos, *,
 
 def check_shapes(q, kpool, vpool, pages) -> None:
     """Raise unless q (B, H, dh), kpool/vpool (P(+scratch), ps, Hkv, dh)
-    and pages (B, maxp) int32 fit the kernel: H a multiple of Hkv with a
-    group of at most 32, dh one of ``HEAD_DIMS``, and two stages of a
-    page's K and V within a block's shared memory.  Reads only shapes and
-    dtypes, so it runs on any device."""
+    and pages (B, maxp) int32 fit the kernel: H a multiple of Hkv (any
+    group), 1 <= dh <= ``MAX_HEAD_DIM``, and two stages of a page's K and
+    V within a block's shared memory.  Reads only shapes and dtypes, so it
+    runs on any device."""
     if q.dim() != 3 or kpool.dim() != 4:
         raise ValueError(f"paged_decode: q must be 3-D and the pools 4-D, "
                          f"got {tuple(q.shape)}, {tuple(kpool.shape)}")
@@ -96,10 +113,10 @@ def check_shapes(q, kpool, vpool, pages) -> None:
     if vpool.shape != kpool.shape or dhk != dh or H % Hkv:
         raise ValueError(f"paged_decode: shapes q {tuple(q.shape)}, kpool "
                          f"{tuple(kpool.shape)}, vpool {tuple(vpool.shape)}")
-    if dh not in HEAD_DIMS or H // Hkv > 32:
-        raise ValueError(f"paged_decode: head dim {dh} / group "
-                         f"{H // Hkv} not supported by the kernel")
-    if 4 * ps * dh * q.element_size() > SMEM_MAX:
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"paged_decode: head dim {dh} is past the kernel's "
+                         f"limit of {MAX_HEAD_DIM}")
+    if 4 * ps * staged_width(dh) * q.element_size() > SMEM_MAX:
         raise ValueError(f"paged_decode: page_size {ps} too large for the "
                          f"kernel's shared-memory page buffers")
     if pages.dtype != torch.int32 or pages.dim() != 2 or pages.shape[0] != B:

@@ -11,6 +11,13 @@ bf16 one), keeping each query's k best (score, id) pairs, the lower id
 first on equal scores (``jax.lax.top_k``'s order).  Only (Q, k) scores and
 ids leave the kernel.
 
+The kernel takes any D and every k up to ``min(N, K_MAX)`` (1024), as the
+reference's kernel takes any: for D past one 128-column chunk the queries
+are normalised once into a scratch and staged a column chunk at a time
+beside the corpus's, so shared memory does not grow with D; for k past 32
+each query's running list lives in its split's slice of the partial
+lists, sorted, and the merge pass merges the splits' sorted lists.
+
 ``topk_similarity`` launches the kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to ``topk_similarity_ref``.  The two
 sum each dot product in another order, so scores agree within fp32
@@ -25,29 +32,35 @@ from repro_torch.kernels import build, ref
 
 topk_similarity_ref = ref.topk_similarity
 
-K_MAX = 32       # the kernel's per-warp lists hold at most 32 entries
-_QB, _CT = 64, 64     # queries a block, corpus rows a tile
-_MERGE_ENTRIES = 6144    # splits * k the merge pass stages (48 KB)
-_TOO_WIDE = -1           # the C entry's status: D does not fit its tiles
+K_MAX = 1024     # the largest k the kernel takes
+_K_LANES = 32    # k up to this: a warp's lists a lane an entry
+_QB, _CT, _KC = 64, 64, 128   # queries a block, corpus rows a tile,
+                              # columns a stage
+_MERGE_ENTRIES = 6144    # k <= 32: splits * k the merge pass stages (48 KB)
+# k > 32: the sorted lists the merge pass's warp holds (4 a lane), and the
+# entries a block's shared memory stages (232448 bytes, 8 an entry)
+_SPLITS_BIG = 128
+_MERGE_ENTRIES_BIG = 232448 // 8
 
 
 def _splits(nq: int, n: int, k: int, sms: int):
     """Split the corpus so that the (query block, split) grid holds about
-    two blocks per SM, with at most _MERGE_ENTRIES partial entries a query;
-    returns (splits, rows per split)."""
+    two blocks per SM, within what the merge pass stages: splits * k <=
+    _MERGE_ENTRIES for k <= 32, else at most _SPLITS_BIG lists and
+    splits * k <= _MERGE_ENTRIES_BIG; returns (splits, rows per split)."""
     qblocks = -(-nq // _QB)
     tiles = -(-n // _CT)
-    want = max(1, min(tiles, -(-2 * sms // qblocks), _MERGE_ENTRIES // k))
+    cap = _MERGE_ENTRIES // k if k <= _K_LANES else \
+        min(_SPLITS_BIG, _MERGE_ENTRIES_BIG // k)
+    want = max(1, min(tiles, -(-2 * sms // qblocks), cap))
     rows = -(-tiles // want) * _CT
     return -(-n // rows), rows
 
 
 def topk_similarity(queries, corpus, k: int):
     """Launch the CUDA kernel.  queries: (Q, D), corpus: (N, D), float32
-    or bfloat16 on one sm_90 device; 0 < k <= min(N, 32); D at most 640
-    for a float32 corpus, 496 for bfloat16 (the kernel refuses a wider
-    one, and the wrapper raises ValueError).  Returns
-    (scores float32 (Q, k), ids int32 (Q, k))."""
+    or bfloat16 on one sm_90 device; 0 < k <= min(N, ``K_MAX``), any D.
+    Returns (scores float32 (Q, k), ids int32 (Q, k))."""
     build.check_device(queries)
     if queries.dim() != 2 or corpus.dim() != 2 or \
             queries.shape[1] != corpus.shape[1]:
@@ -81,14 +94,16 @@ def topk_similarity(queries, corpus, k: int):
         dev).multi_processor_count)
     ps = torch.empty((splits, nq, k), dtype=torch.float32, device=dev)
     pi = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
+    qn = None
+    if d > _KC:       # the normalised queries, staged a chunk at a time
+        step = 16 if bf16 else 8            # the product's k-step
+        qn = torch.empty((3 if bf16 else 1, nq, -(-d // step) * step),
+                         dtype=corpus.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = build.entry("topk_similarity")(
         qf.data_ptr(), corpus.data_ptr(), ps.data_ptr(), pi.data_ptr(),
-        scores.data_ptr(), ids.data_ptr(), nq, n, d, ldc, k, splits, rows,
-        vec, int(bf16), stream)
-    if status == _TOO_WIDE:
-        raise ValueError(f"topk_similarity: D={d} does not fit the kernel's "
-                         f"shared-memory tiles (D <= 640 for a float32 "
-                         f"corpus, 496 for bfloat16)")
+        scores.data_ptr(), ids.data_ptr(),
+        None if qn is None else qn.data_ptr(), nq, n, d, ldc, k, splits,
+        rows, vec, int(bf16), stream)
     build.check_status("topk_similarity", status)
     return scores, ids

@@ -94,15 +94,18 @@ def test_flash_plain_path_at_qk_192_v_128(window, q_offset):
 
 def test_flash_wrapper_shape_checks_for_192_128():
     """The kernel's head-dim pairs, checked from shapes alone: (192, 128)
-    passes the shape check and then needs a CUDA tensor; any other unequal
-    pair, or a v whose leading dims differ from k's, is refused."""
+    and a uniform 192 pass the shape check and then need a CUDA tensor;
+    any other unequal pair, or a v whose leading dims differ from k's, is
+    refused."""
     q = torch.zeros(1, 4, 2, 192)
     k = torch.zeros(1, 4, 2, 192)
     t_fa.check_shapes(q, k, torch.zeros(1, 4, 2, 128))
     with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
         t_fa.flash_attention(q, k, torch.zeros(1, 4, 2, 128))
-    for dqk, dv in ((192, 192), (128, 192), (192, 64), (240, 128),
-                    (64, 128)):
+    t_fa.check_shapes(q, k, torch.zeros(1, 4, 2, 192))
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
+        t_fa.flash_attention(q, k, torch.zeros(1, 4, 2, 192))
+    for dqk, dv in ((128, 192), (192, 64), (240, 128), (64, 128)):
         with pytest.raises(ValueError, match="head dims"):
             t_fa.flash_attention(torch.zeros(1, 4, 2, dqk),
                                  torch.zeros(1, 4, 2, dqk),
@@ -112,7 +115,7 @@ def test_flash_wrapper_shape_checks_for_192_128():
     with pytest.raises(ValueError, match="shapes"):
         t_fa.check_shapes(q, torch.zeros(1, 4, 2, 128),
                           torch.zeros(1, 4, 2, 128))
-    assert (192, 128) in t_fa.HEAD_DIMS
+    assert (192, 128) in t_fa.UNEQUAL_DIMS
 
 
 def _mla_decode_inputs(rng, per_slot):
