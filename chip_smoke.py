@@ -84,10 +84,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 every step (nothing launched on the CPU); fp32 tokens
                 identical, bf16 flips only below BF16_FLIP_MARGIN; then
                 three steps of the train CLI's path (train_loop.train, 8 x
-                256) for reduced yi-9b and deepseek-v2: finite losses,
-                flash (with lse, at (16, 16) and (24, 16)) on every layer
-                of every step, step 0's loss within SMOKE_LOSS_TOL of the
-                CPU's;
+                256, no warmup, one batch repeated) for reduced yi-9b and
+                deepseek-v2: finite losses that fall, flash (with lse, at
+                (16, 16) and (24, 16)) on every layer of every step, step
+                0's loss within SMOKE_LOSS_TOL of the CPU's;
   3c. cli     — the port's serve CLI (launch/serve.py's main, in this
                 process under a patched sys.argv, no --device) on the
                 card: yi-9b at full width and CLI_LAYERS = 8 of 48 layers
@@ -149,6 +149,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 step; and apps.recommender_query_batch at the paper's
                 per-CSD batch with d = 768, k = 100 and d = 1024, k = 10,
                 held by check_topk;
+  3f. fp16    — float16 end to end: the six kernels' fp16 instantiations
+                against their plain versions at the edges above (flash
+                and its lse, paged and isp decode, at the serve heads and
+                at DOMAIN_HEADS; the gather's cases, also with
+                shard_rows; the pool's; top-k over DOMAIN_TOPK_D x
+                DOMAIN_TOPK_K with exact ties) and flash's gradients
+                through the autograd.Function at the yi-9b train shape;
+                kernel rows at the fp16 paths' shapes (yi-9b flash 8 x
+                704 beside SDPA in fp16, yi-9b paged decode, the reduced
+                gemma3's rings, yi-9b's table's gather beside F.embedding
+                at the plan's 8 and 8 x 704 ids, the smoke train flash
+                with lse, top-k at Q = 50 and 256 over the fp16 corpus,
+                the sentiment pool); yi-9b at full width and FP16_LAYERS
+                layers served in fp16 (flash and paged decode on every
+                layer of every call, finite logits, tokens against the
+                card's fp32 run of the same weights, flips only below
+                FP16_FLIP_MARGIN) and through the one-rank plan
+                (isp_gather, isp decode); the smoke phase in fp16 (every
+                reduced config served card against CPU, flips only below
+                FP16_FLIP_MARGIN; yi-9b and deepseek-v2 trained, moments
+                in fp16 too); every fp16 check at fp16's own tolerances
+                (TOL, GRAD_REL_TOL, SMOKE_LOSS_TOL);
   4. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
                 max_new=32 through ServeEngine(num_slots=8, max_len=1024,
@@ -401,16 +423,18 @@ The line before the last is the kernels' JSON record; the last line is
     python3 chip_smoke.py --times
 
 times only isp_gather and isp_gather_pool at their path shapes (and isp
-decode on the rings) under both flushes, after holding each to its plain
-version, and prints them as one JSON line.  The wrappers' contracts are
+decode on the rings) under both flushes, and paged decode and isp decode
+at their other serve shapes, after holding each to its plain version,
+and prints them as one JSON line.  The wrappers' contracts are
 those of every tree since the kernels were ported, so a copy of this
 script in another checkout times that tree's kernels: two trees can run
 in turns in one call.
 
     python3 chip_smoke.py --flash-times
 
-times flash at its six serve paths' shapes without lse (the wrapper's
-contract before and after lse), one JSON line, for the same use.
+times flash at its six serve paths' shapes and the smoke configs' two
+without lse (the wrapper's contract before and after lse), one JSON
+line, for the same use.
 
     python3 chip_smoke.py --mesh
 
@@ -429,6 +453,11 @@ kernel rows as one JSON line.
 
 builds the kernels and runs only the domain phase, then prints its
 kernel rows as one JSON line.
+
+    python3 chip_smoke.py --fp16
+
+builds the kernels and runs only the fp16 phase, then prints its kernel
+rows as one JSON line.
 
     python3 chip_smoke.py --roofline
 
@@ -470,12 +499,23 @@ SPIN_CYCLES = 10_000_000    # ~5 ms of GPU spin at the H100's ~1.98 GHz
 #         softmax, different reduction trees) over up to 1024 keys;
 #  bf16 — inputs are identical; the decode partials are fp32 (only the
 #         order differs), the flash output is rounded to bf16, one bf16
-#         ulp at |x| < 4 is <= 2**-6, so 2e-2 covers a rounding flip.
+#         ulp at |x| < 4 is <= 2**-6, so 2e-2 covers a rounding flip;
+#  fp16 — the same, one fp16 ulp is <= 2**-10 of |x|: 2e-3 + 2e-3 |x|
+#         covers a flip (flash measured <= 0.00195, one ulp at |x| in
+#         [2, 4), the decode partials <= 1.07e-4) and refuses a bf16
+#         rounding (0.0156 at |x| in [2, 4)).
 # isp_gather copies rows: exact (atol 0) without weights and in fp32; with
 # weights in bf16 the kernel multiplies in fp32 and rounds once where the
 # plain version multiplies in bf16, so they may differ by one bf16 ulp.
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
+       torch.float16: dict(atol=2e-3, rtol=2e-3)}
+# the dtypes the kernel phase holds every kernel to its plain version in
+# (the timed one last); the fp16 phase passes (torch.float16,)
+DTYPES = (torch.float32, torch.bfloat16)
+# one ulp of a 16-bit type relative to the value, at most: 2**-7 in bf16
+# (8 significant bits), 2**-10 in fp16 (11)
+ULP_REL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 # topk_similarity: a score is a cosine (|s| <= 1), summed in another order by
 # the kernel (three tensor-core products, 3xTF32 or bf16x3, each within
 # ~2e-7 of fp64 at D = 128: tests/test_torch_topk_numerics.py) and cuBLAS;
@@ -491,6 +531,10 @@ TOPK_ATOL = 1e-5
 # times that, ~0.03 on a logit of this unit-scale random model, so a token
 # may flip only where the two best logits lie closer than 4x that.
 BF16_FLIP_MARGIN = 0.125
+# the same walk in fp16, one rounding up to 2**-11: 8 times narrower
+# (measured flips of yi-9b in fp16 against fp32 at 1.6e-4 and 7.4e-4)
+FP16_FLIP_MARGIN = BF16_FLIP_MARGIN / 8
+FLIP_MARGIN = {"bfloat16": BF16_FLIP_MARGIN, "float16": FP16_FLIP_MARGIN}
 # (H, Hkv, dh) of the other model families on the card: llama4-scout
 # (group 5, so 3 of paged decode's 8 head lanes idle), musicgen-large (MHA
 # at dh 64), starcoder2-15b (group 12: a second head chunk half empty),
@@ -541,8 +585,10 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 # the same math on outputs within 1e-6 (1e-4); bf16, the kernel's output
 # (bf16 probabilities into the value product, rounded to bf16) enters
 # delta = rowsum(dout * out) and both sides round dq/dk/dv to bf16, each
-# up to 2**-8 of a value, summed over a 4096-key row: 5e-2
-GRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# up to 2**-8 of a value, summed over a 4096-key row: 5e-2; fp16, the
+# same with 2**-11 (measured 5.47e-4; bf16's measured 5.0e-3): 5e-3
+GRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2,
+                torch.float16: 5e-3}
 
 
 def log(*a):
@@ -617,6 +663,18 @@ def max_err(got, want, dtype) -> float:
     return err
 
 
+def err_fields(dtypes, **errs) -> dict:
+    """A kernels record row's error keys from ``errs`` (key -> {dtype:
+    value}): each key in the timed dtype (the last of ``dtypes``) and, where
+    fp32 was held too and is not the timed one, the key + "_fp32"."""
+    out = {}
+    for key, by in errs.items():
+        out[key] = by[dtypes[-1]]
+        if dtypes[-1] != torch.float32 and torch.float32 in by:
+            out[key + "_fp32"] = by[torch.float32]
+    return out
+
+
 def site_bound(name: str, *args, **kwargs):
     """``bound`` of one kernel call from its site's operation and byte
     counts (``analysis.op_trace.KERNEL_COSTS``, what the step counter
@@ -625,38 +683,47 @@ def site_bound(name: str, *args, **kwargs):
     return bound(c.bytes, c.flops, c.dtype) + (c.bytes,)
 
 
-def bf16_ulps(a, b) -> int:
-    """Largest distance in bf16 ulps between two bf16 tensors."""
+def half_ulps(a, b) -> int:
+    """Largest distance in ulps between two tensors of one 16-bit float
+    type (bf16 or fp16: both sign-magnitude, so the bits order as the
+    values do)."""
     def line(x):
         i = x.view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7FFF), i)
     return int((line(a) - line(b)).abs().max())
 
 
-def gather_cases(dev):
-    """isp_gather against its plain version.  Returns, per number of ids,
-    gemma3-12b's bf16 table and ids at offset 0 (the timed cases) and the
-    max abs error at that case in bf16 and in fp32."""
+# the vocabulary table the gather rows time, (V, D), and its numbers of
+# ids (a decode step's 8, a prefill's): gemma3-12b's under the plan at
+# 8 x 1024 (the fp16 phase's: YI_GATHER)
+GEMMA3_GATHER = ((262144, 3840), (8, 8 * 1024))
+
+
+def gather_cases(dev, dtypes=DTYPES, vocab=GEMMA3_GATHER):
+    """isp_gather against its plain version in each of ``dtypes``.
+    Returns, per number of ids, the (V, D) table of ``vocab`` in the last
+    of them and ids at offset 0 (the timed cases) and the max abs error at
+    that case in that dtype and in fp32 (None without fp32)."""
     from repro_torch.kernels import isp_gather as ig
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    V, D = 262144, 3840
+    (V, D), counts = vocab
     ids = lambda n, lo=0, hi=V: torch.randint(   # noqa: E731
         lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
     timed, errs = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         table = torch.randn(V, D, generator=gen, device=dev).to(dtype)
-        for n in (8, 8 * 1024):
+        for n in counts:
             idx = ids(n)
             got = ig.isp_gather(table, idx)
             want = ig.isp_gather_ref(table, idx)
             errs[dtype, n] = float((got.float() - want.float()).abs().max())
             assert torch.equal(got, want), \
                 f"isp_gather {dtype} n={n}: not exact"
-            if dtype == torch.bfloat16:
+            if dtype == dtypes[-1]:
                 timed[n] = (table, idx)
-        # four shards: this one holds rows [131072, 196608); ids over the
+        # four shards: this one holds rows [V / 2, 3 V / 4); ids over the
         # whole vocabulary, every 9th a -1 pad, with weights
-        off, v_loc = 131072, 65536
+        off, v_loc = V // 2, V // 4
         idx = ids(8192)
         idx[::9] = -1
         w = torch.randn(8192, generator=gen, device=dev)
@@ -668,7 +735,7 @@ def gather_cases(dev):
         if dtype == torch.float32:
             assert torch.equal(got, want), "isp_gather fp32 weighted"
         else:
-            assert bf16_ulps(got, want) <= 1, "isp_gather bf16 weighted"
+            assert half_ulps(got, want) <= 1, "isp_gather 16-bit weighted"
         # n = 1 (one row over a few blocks), with and without weights
         idx = ids(1, off, off + v_loc)
         assert torch.equal(ig.isp_gather(shard, idx, shard_offset=off),
@@ -677,7 +744,7 @@ def gather_cases(dev):
         got = ig.isp_gather(shard, idx, shard_offset=off, weights=w1)
         want = ig.isp_gather_ref(shard, idx, shard_offset=off, weights=w1)
         assert (torch.equal(got, want) if dtype == torch.float32
-                else bf16_ulps(got, want) <= 1), "isp_gather n=1"
+                else half_ulps(got, want) <= 1), "isp_gather n=1"
         # D = 1048: 131 16-byte vectors a row in bf16, 262 in fp32, which no
         # tile of the plan divides, at the plan's 1, 2 and 4 vectors a
         # thread (n = 1, 100, 8192), weighted and -1 pads
@@ -690,7 +757,7 @@ def gather_cases(dev):
             got = ig.isp_gather(mid, idx, shard_offset=100, weights=wn)
             want = ig.isp_gather_ref(mid, idx, shard_offset=100, weights=wn)
             assert (torch.equal(got, want) if dtype == torch.float32
-                    else bf16_ulps(got, want) <= 1), f"isp_gather D=1048 {n}"
+                    else half_ulps(got, want) <= 1), f"isp_gather D=1048 {n}"
         # n = 1001 (no block of 8 ids divides it), D = 3841 (rows not
         # 16-byte aligned take the scalar path)
         odd = torch.randn(4096, 3841, generator=gen, device=dev).to(dtype)
@@ -699,13 +766,15 @@ def gather_cases(dev):
         assert torch.equal(got, ig.isp_gather_ref(odd, idx,
                                                   shard_offset=100))
         torch.cuda.synchronize()
-        exact = 'exact' if dtype == torch.float32 else '<= 1 bf16 ulp'
-        log(f"[kernels] isp_gather {dtype}: exact at gemma3's table (8 and "
-            f"8192 ids), four-shard weighted {exact}, n=1 exact and "
+        exact = 'exact' if dtype == torch.float32 else \
+            f'<= 1 {dname(dtype)} ulp'
+        log(f"[kernels] isp_gather {dtype}: exact at the ({V}, {D}) table "
+            f"({' and '.join(map(str, counts))} ids), four-shard weighted "
+            f"{exact}, n=1 exact and "
             f"weighted {exact}, D=1048 at n=1, 100, 8192 exact and weighted "
             f"{exact}, n=1001 D=3841 exact")
         del table, shard, odd, mid
-    return {n: (t, i, errs[torch.bfloat16, n], errs[torch.float32, n])
+    return {n: (t, i, errs[dtypes[-1], n], errs.get((torch.float32, n)))
             for n, (t, i) in timed.items()}
 
 
@@ -785,10 +854,10 @@ def strip_case(layout, dtype, dev, gen):
     return (q, k, v, kpos, cur), window, valid
 
 
-def paged_edges(dev, gen, heads=None):
+def paged_edges(dev, gen, heads=None, dtypes=DTYPES):
     """Split-K edges of paged_decode at both serve shapes, at NEW_HEADS
     and at the smoke head dim 16 (SMOKE_HEADS), or at ``heads`` (H, Hkv,
-    dh, maxp, window), in both dtypes, against the plain version: slots
+    dh, maxp, window), in each of ``dtypes``, against the plain version: slots
     whose
     lengths fill whole split spans (and one key more or less), an empty
     slot, a one-key slot, a full table; then a window whose edge falls
@@ -808,7 +877,7 @@ def paged_edges(dev, gen, heads=None):
         edges = sorted({n - window for n in lengths if n > window})
         assert any(e % keys for e in edges), "no window edge inside a span"
         errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             args, _ = decode_case(dtype, dev, gen, H=H, Hkv=Hkv, dh=dh,
                                   maxp=maxp, lengths=lengths)
             for w in (None, window):
@@ -829,10 +898,10 @@ def paged_edges(dev, gen, heads=None):
                 f"{dname(d)} w={w} {e:.3g}" for (d, w), e in errs.items()))
 
 
-def isp_edges(dev, gen, heads=None):
+def isp_edges(dev, gen, heads=None, dtypes=DTYPES):
     """Split-K edges of isp_decode at both strip shapes, hymba's heads
-    and the smoke head dim 16, or at ``heads`` (H, Hkv, dh), in both
-    dtypes, with and without a window,
+    and the smoke head dim 16, or at ``heads`` (H, Hkv, dh), in each
+    of ``dtypes``, with and without a window,
     against the plain version.  Per-slot tracks
     kpos (8, 1024): slots whose valid rows fill whole spans (and one row
     more or less), an empty slot, a one-row slot (its later spans empty), a
@@ -862,7 +931,7 @@ def isp_edges(dev, gen, heads=None):
         shared[lo:hi] = torch.arange(lo, hi, dtype=torch.int32)
         kpos, cur, shared = kpos.to(dev), cur.to(dev), shared.to(dev)
         errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
             q = r(B, H, dh)
             k, v = r(B, S, Hkv, dh), r(B, S, Hkv, dh)
@@ -895,12 +964,12 @@ def isp_edges(dev, gen, heads=None):
                 errs.items()))
 
 
-def flash_edges(dev, gen, heads=None):
+def flash_edges(dev, gen, heads=None, dtypes=DTYPES):
     """flash_attention edges at both serve head dims, at NEW_HEADS, at
     MLA's qk 192 / v 128 (MLA_HEADS: a wrong v stride or output width
     shows only where the two dims differ) and at the smoke head dims
     (SMOKE_HEADS: dh 16, and qk 24 / v 16, padded to two k-steps of the
-    MMA in bf16 and read in float2 groups in fp32), in both dtypes, against the
+    MMA in bf16 and read in float2 groups in fp32), in each of ``dtypes``, against the
     plain version: Sq not a multiple of the 64-row q tile, q_offset > 0
     with and without a window whose edge crosses the key tiles, and one
     query row over a long cache; or at ``heads`` (H, Hkv, dh, dv,
@@ -915,7 +984,7 @@ def flash_edges(dev, gen, heads=None):
             (H, Hkv, dh, dh, (None, 48)) for H, Hkv, dh in NEW_HEADS) + \
             tuple(h + ((None, 48),) for h in SMOKE_HEADS):
         errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
             for (Sq, Skv, qoff), w in ((c, w) for c in cases
                                        for w in windows):
@@ -930,8 +999,8 @@ def flash_edges(dev, gen, heads=None):
                                   max_err([got], [want], dtype))
         log(f"[kernels] flash_attention edges H={H} Hkv={Hkv} dh={dh} "
             f"dv={dv} (group {H // Hkv}) windows {windows} "
-            f"(Sq, Skv, q_offset) in {cases}: max abs err fp32 "
-            f"{errs[torch.float32]:.3g}, bf16 {errs[torch.bfloat16]:.3g}")
+            f"(Sq, Skv, q_offset) in {cases}: max abs err " + ", ".join(
+                f"{dname(d)} {e:.3g}" for d, e in errs.items()))
     refused = ((128, 192), (192, 64), (240, 128), (257, 257))
     for dh, dv in refused:
         q, k = (torch.zeros(1, 8, 4, dh, device=dev) for _ in range(2))
@@ -967,13 +1036,15 @@ def grad_rel_err(got, want, dtype, what) -> float:
 
 
 def flash_train_row(dev, gen, flush, path="yi-9b train", shape=TRAIN_FLASH,
-                    dv=None, chunk=TRAIN_CHUNK):
+                    dv=None, chunk=TRAIN_CHUNK, dtypes=DTYPES):
     """Flash with lse at a train path's shape (by default TRAIN_FLASH:
     yi-9b at 4096 rows, causal; ``dv`` the v head dim, dh's by default;
-    ``chunk`` the config's attn_chunk), bf16 and fp32: out and lse against
+    ``chunk`` the config's attn_chunk), in each of ``dtypes``: out and lse
+    against
     the plain ``chunked_attention(return_lse=True)``; the differentiable
     op's dq/dk/dv (the kernel's forward) against the plain forward's, both
-    through the plain backward; then timed with lse beside its bound, the
+    through the plain backward; then timed in the last of them with lse
+    beside its bound, the
     plain version, SDPA's forward and the kernel without lse, and one
     layer's plain backward timed."""
     from repro_torch.kernels import flash_attention as fa
@@ -982,7 +1053,7 @@ def flash_train_row(dev, gen, flush, path="yi-9b train", shape=TRAIN_FLASH,
     dv = dh if dv is None else dv
     ck = dict(q_chunk=chunk, kv_chunk=chunk)
     errs, lerrs, gerrs = {}, {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
         q, k, v, dout = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv), \
             r(B, S, H, dv)
@@ -1003,21 +1074,18 @@ def flash_train_row(dev, gen, flush, path="yi-9b train", shape=TRAIN_FLASH,
             f"kernel's forward vs the plain forward's, max err / max |grad| "
             f"{gerrs[dtype]:.3g} (bound {GRAD_REL_TOL[dtype]})")
         del qq, kk, vv, got, plain, want, wlse, out, lse
-    # q/k/v/dout: the bf16 inputs of the last iteration
+    # q/k/v/dout: the inputs of the last iteration (the timed dtype)
     bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
                                        return_lse=True)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     row = dict(
         name="flash_attention", kernel="flash_attention", path=path,
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:77", dtype="bfloat16",
+        replaces="src/repro/kernels/flash_attention.py:77",
+        dtype=dname(dtypes[-1]),
         shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} dv={dv} causal, with lse",
-        max_abs_err=errs[torch.bfloat16],
-        max_abs_err_fp32=errs[torch.float32],
-        lse_max_abs_err=lerrs[torch.bfloat16],
-        lse_max_abs_err_fp32=lerrs[torch.float32],
-        grad_rel_err=gerrs[torch.bfloat16],
-        grad_rel_err_fp32=gerrs[torch.float32],
+        **err_fields(dtypes, max_abs_err=errs, lse_max_abs_err=lerrs,
+                     grad_rel_err=gerrs),
         ms=time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True),
                    flush),
         plain_ms=time_ms(lambda: ref.chunked_attention(
@@ -1035,14 +1103,14 @@ def flash_train_row(dev, gen, flush, path="yi-9b train", shape=TRAIN_FLASH,
         f"ms, without {row['ms_no_lse']:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}), plain forward {row['plain_ms']:.4f} ms, SDPA "
         f"forward {row['library_ms']:.4f} ms; one layer's plain backward "
-        f"(bf16 inputs, fp32 math) {row['plain_bwd_ms']:.4f} ms")
+        f"({dname(dtypes[-1])} inputs, fp32 math) {row['plain_bwd_ms']:.4f} ms")
     return row
 
 
-def flash_lse_edges(dev, gen, heads=None):
+def flash_lse_edges(dev, gen, heads=None, dtypes=DTYPES):
     """Flash with lse at the edge head shapes (both serve head dims, MLA's
     qk 192 / v 128, NEW_HEADS, SMOKE_HEADS; or ``heads`` (H, Hkv, dh, dv)),
-    both dtypes: Sq not a multiple of the q
+    each of ``dtypes``: Sq not a multiple of the q
     tile, a window edge crossing the key tiles with q_offset, one row over
     a long cache, rows of which some and rows of which all see no key
     (q_offset past the window's reach).  Live rows: out and lse against
@@ -1060,7 +1128,7 @@ def flash_lse_edges(dev, gen, heads=None):
     n_empty = 0
     for H, Hkv, dh, dv in heads:
         errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
             for Sq, Skv, qoff, w in cases:
                 q, k, v = r(2, Sq, H, dh), r(2, Skv, Hkv, dh), \
@@ -1095,44 +1163,48 @@ def flash_lse_edges(dev, gen, heads=None):
                                for t in (dq, dk, dvv))
         log(f"[kernels] flash_attention lse edges H={H} Hkv={Hkv} dh={dh} "
             f"dv={dv} (Sq, Skv, q_offset, window) in {cases}: live rows max "
-            f"abs err out/lse fp32 {errs[torch.float32][0]:.3g}/"
-            f"{errs[torch.float32][1]:.3g}, bf16 "
-            f"{errs[torch.bfloat16][0]:.3g}/{errs[torch.bfloat16][1]:.3g}")
+            f"abs err out/lse " + ", ".join(
+                f"{dname(d)} {e[0]:.3g}/{e[1]:.3g}" for d, e in errs.items()))
     assert n_empty > 0
     log(f"[kernels] flash_attention lse edges: {n_empty} (batch, row) "
         f"pairs with no key gave out 0, lse +inf and dq 0")
 
 
 def flash_times_phase(dev) -> dict:
-    """flash at its six serve paths' shapes in bf16, without lse (the
-    contract of every tree since the kernel was ported), held to the
-    plain version and timed after the dirty flush, for comparing trees in
-    turns (``--flash-times``)."""
+    """flash at its six serve paths' shapes and the smoke configs' two in
+    bf16, without lse (the contract of every tree since the kernel was
+    ported), held to the plain version and timed after the dirty flush,
+    for comparing trees in turns (``--flash-times``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator().manual_seed(SEED)
     flush = l2_flushes(dev)[0]
     out = {}
-    for path, (B, S, H, Hkv, dh, dv, window) in FLASH_PATHS:
+    for path, (B, S, H, Hkv, dh, dv, window) in \
+            FLASH_PATHS + SMOKE_FLASH_PATHS:
         r = lambda *s: torch.randn(*s, generator=gen).to(dev, torch.bfloat16)
         q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv)
         max_err([fa.flash_attention(q, k, v, window=window)],
                 [ref.chunked_attention(q, k, v, window=window)],
                 torch.bfloat16)
-        out[path] = time_ms(lambda: fa.flash_attention(q, k, v,
-                                                       window=window), flush)
-        log(f"[flash-times] {path}: {out[path]:.4f} ms")
+        key = f"{path} ({dh}, {dv})"
+        out[key] = time_ms(lambda: fa.flash_attention(q, k, v,
+                                                      window=window), flush)
+        log(f"[flash-times] {key}: {out[key]:.4f} ms")
     return out
 
 
-def gather_rows(dev, flushes):
-    """isp_gather at gemma3-12b's vocabulary table under the plan (offset
-    0: the whole table is this rank's shard on the one-rank mesh), held to
-    its plain version by gather_cases, then timed beside F.embedding under
+def gather_rows(dev, flushes, dtypes=DTYPES, path="gemma3-12b plan",
+                vocab=GEMMA3_GATHER):
+    """isp_gather at a vocabulary table under the plan (``vocab``: its
+    shape and numbers of ids; offset 0: the whole table is this rank's
+    shard on the one-rank mesh), held to its plain version by gather_cases
+    in ``dtypes``, then timed in the last of them beside F.embedding under
     both flushes."""
     from repro_torch.kernels import isp_gather as ig
     rows = []
-    for n, (table, idx, err, err32) in gather_cases(dev).items():
+    for n, (table, idx, err, err32) in gather_cases(dev, dtypes,
+                                                    vocab).items():
         V, D = table.shape
         idx64 = idx.long()
         # rows read + written, ids
@@ -1140,12 +1212,12 @@ def gather_rows(dev, flushes):
         kern = lambda: ig.isp_gather(table, idx)   # noqa: E731
         lib = lambda: torch.nn.functional.embedding(idx64, table)  # noqa
         rows.append(dict(
-            name="isp_gather", kernel="isp_gather", path="gemma3-12b plan",
+            name="isp_gather", kernel="isp_gather", path=path,
             route="cuda", source="src/repro_torch/kernels/csrc/isp_gather.cu",
             replaces="src/repro/kernels/isp_gather.py:50",
-            dtype="bfloat16", shape=f"table ({V}, {D}) offset 0, {n} ids "
-            f"({'decode step' if n == 8 else 'prefill'})",
-            max_abs_err=err, max_abs_err_fp32=err32, bytes=nbytes,
+            dtype=dname(table.dtype), shape=f"table ({V}, {D}) offset 0, "
+            f"{n} ids ({'decode step' if n == 8 else 'prefill'})",
+            max_abs_err=err, bytes=nbytes,
             ms=time_ms(kern, flushes[0]),
             ms_clean_l2=time_ms(kern, flushes[1]),
             plain_ms=time_ms(lambda: ig.isp_gather_ref(table, idx),
@@ -1153,6 +1225,8 @@ def gather_rows(dev, flushes):
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=time_ms(lib, flushes[0]),
             library_ms_clean_l2=time_ms(lib, flushes[1])))
+        if err32 is not None:
+            rows[-1]["max_abs_err_fp32"] = err32
         if n > 8:     # the same bytes as one contiguous device copy
             src, dst = table[:n], torch.empty_like(table[:n])
             copy = lambda: dst.copy_(src)   # noqa: E731
@@ -1354,14 +1428,14 @@ def paged_edge_timing(dev, gen, flush):
         f"{bound_ms:.4f} ms ({bound_by}), library none")
 
 
-def paged_row(dev, gen, flush, path, kw):
+def paged_row(dev, gen, flush, path, kw, dtypes=DTYPES):
     """paged_decode at a path's decode shapes (``decode_case``'s keywords
-    ``kw``) against its plain version in both dtypes, then timed in bf16
-    beside the plain version and its bound: one kernels record row."""
+    ``kw``) against its plain version in each of ``dtypes``, then timed in
+    the last of them beside the plain version and its bound: one kernels record row."""
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import ref
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         (q, kp, vp, pages, cur), valid = decode_case(dtype, dev, gen, **kw)
         got = pd.paged_decode_partial(q, kp, vp, pages, cur)
         want = pd.paged_decode_partial_ref(q, kp, vp, pages, cur)
@@ -1372,7 +1446,7 @@ def paged_row(dev, gen, flush, path, kw):
             "empty slot: m != -1e30"
         log(f"[kernels] paged_decode {path} {dtype}: max abs err "
             f"{errs[dtype]:.3g}")
-    # q/kp/... are the bf16 inputs of the last iteration
+    # q/kp/... are the inputs of the last iteration (the timed dtype)
     B, H, dh = q.shape
     Hkv = kp.shape[2]
     bound_ms, bound_by, _ = site_bound("paged_decode", q, kp, vp, pages, cur)
@@ -1380,10 +1454,10 @@ def paged_row(dev, gen, flush, path, kw):
         name="paged_decode_partial", kernel="paged_decode", path=path,
         route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
         replaces="src/repro/kernels/paged_decode.py:102",
-        dtype="bfloat16", shape=f"B={B} H={H} Hkv={Hkv} dh={dh} ps=16 "
+        dtype=dname(dtypes[-1]),
+        shape=f"B={B} H={H} Hkv={Hkv} dh={dh} ps=16 "
         f"cur<={int(cur.max())} ({valid} valid keys)",
-        max_abs_err=errs[torch.bfloat16],
-        max_abs_err_fp32=errs[torch.float32],
+        **err_fields(dtypes, max_abs_err=errs),
         ms=time_ms(lambda: pd.paged_decode_partial(q, kp, vp, pages, cur),
                    flush),
         plain_ms=time_ms(lambda: pd.paged_decode_partial_ref(
@@ -1391,17 +1465,17 @@ def paged_row(dev, gen, flush, path, kw):
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def flash_row(dev, gen, flush, path, shape):
+def flash_row(dev, gen, flush, path, shape, dtypes=DTYPES):
     """flash_attention at a path's prefill shape (B, S, H, Hkv, dh, dv,
-    window) against its plain version in both dtypes, then timed in bf16
-    beside the plain version, its bound and SDPA: one kernels record
+    window) against its plain version in each of ``dtypes``, then timed in
+    the last of them beside the plain version, its bound and SDPA: one kernels record
     row."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
     B, S, H, Hkv, dh, dv, window = shape
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
         q, k, v = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv)
         got = fa.flash_attention(q, k, v, window=window)
@@ -1411,7 +1485,7 @@ def flash_row(dev, gen, flush, path, shape):
         log(f"[kernels] flash_attention {path} {dtype}: max abs err "
             f"{errs[dtype]:.3g}")
         del got, want
-    # q/k/v are the bf16 inputs of the last iteration; (query, key)
+    # q/k/v are the inputs of the last iteration (the timed dtype); (query, key)
     # pairs the causal mask and the window leave; q is read and the
     # output (B, S, H, dv) written once
     bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
@@ -1438,10 +1512,10 @@ def flash_row(dev, gen, flush, path, shape):
         route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:77",
-        dtype="bfloat16", shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
+        dtype=dname(dtypes[-1]),
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} "
         f"dv={dv} causal window={window}",
-        max_abs_err=errs[torch.bfloat16],
-        max_abs_err_fp32=errs[torch.float32],
+        **err_fields(dtypes, max_abs_err=errs),
         ms=time_ms(lambda: fa.flash_attention(q, k, v, window=window),
                    flush),
         plain_ms=time_ms(lambda: ref.chunked_attention(
@@ -1449,9 +1523,52 @@ def flash_row(dev, gen, flush, path, shape):
         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def kernel_phase(dev):
+def strip_row(dev, gen, flushes, path, layout, dtypes=DTYPES):
+    """isp_decode at a dense-strip layout of ``strip_case`` against its
+    plain version in each of ``dtypes``, then timed in the last of them
+    beside the plain version and its bound (a ring also under the clean
+    flush): one kernels record row."""
     from repro_torch.kernels import isp_decode as isp
     from repro_torch.kernels import ref
+    flush = flushes[0]
+    errs = {}
+    for dtype in dtypes:
+        args, window, valid = strip_case(layout, dtype, dev, gen)
+        got = isp.decode_partial(*args, window=window)
+        want = isp.decode_partial_ref(*args, window=window)
+        torch.cuda.synchronize()
+        errs[dtype] = max_err(got, want, dtype)
+        if layout != "shared":
+            assert float(got[0][3].abs().max()) == 0.0, \
+                "empty slot: acc != 0"
+            assert float(got[1][3].abs().max()) == 0.0, "empty slot: l != 0"
+            assert bool((got[2][3] == ref.NEG_INF).all()), \
+                "empty slot: m != -1e30"
+        log(f"[kernels] isp_decode {layout} {dtype}: max abs err "
+            f"{errs[dtype]:.3g}")
+    q, k, v, kpos, cur = args
+    B, H, dh = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    bound_ms, bound_by, _ = site_bound("isp_decode", *args, window=window)
+    row = dict(
+        name="decode_partial", kernel="isp_decode", path=path,
+        route="cuda", source="src/repro_torch/kernels/csrc/isp_decode.cu",
+        replaces="src/repro/kernels/isp_decode.py:72",
+        dtype=dname(dtypes[-1]), shape=f"B={B} H={H} Hkv={Hkv} dh={dh} "
+        f"S={S} kpos {tuple(kpos.shape)} window={window} ({valid} valid "
+        f"keys)",
+        **err_fields(dtypes, max_abs_err=errs),
+        ms=time_ms(lambda: isp.decode_partial(*args, window=window), flush),
+        plain_ms=time_ms(lambda: isp.decode_partial_ref(
+            *args, window=window), flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    if layout != "shared":    # a bytes-bound row under the clean flush
+        row["ms_clean_l2"] = time_ms(
+            lambda: isp.decode_partial(*args, window=window), flushes[1])
+    return row
+
+
+def kernel_phase(dev):
     gen = torch.Generator().manual_seed(SEED)
     flushes = l2_flushes(dev)
     flush = flushes[0]
@@ -1481,43 +1598,7 @@ def kernel_phase(dev):
                          ("gemma3-12b serve", "ring"),
                          ("hymba serve", "hymba ring"),
                          ("smoke serve", "smoke ring")):
-        errs = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            args, window, valid = strip_case(layout, dtype, dev, gen)
-            got = isp.decode_partial(*args, window=window)
-            want = isp.decode_partial_ref(*args, window=window)
-            torch.cuda.synchronize()
-            errs[dtype] = max_err(got, want, dtype)
-            if layout != "shared":
-                assert float(got[0][3].abs().max()) == 0.0, \
-                    "empty slot: acc != 0"
-                assert float(got[1][3].abs().max()) == 0.0, \
-                    "empty slot: l != 0"
-                assert bool((got[2][3] == ref.NEG_INF).all()), \
-                    "empty slot: m != -1e30"
-            log(f"[kernels] isp_decode {layout} {dtype}: max abs err "
-                f"{errs[dtype]:.3g}")
-        q, k, v, kpos, cur = args
-        B, H, dh = q.shape
-        S, Hkv = k.shape[1], k.shape[2]
-        bound_ms, bound_by, _ = site_bound("isp_decode", *args,
-                                           window=window)
-        rows.append(dict(
-            name="decode_partial", kernel="isp_decode", path=path,
-            route="cuda", source="src/repro_torch/kernels/csrc/isp_decode.cu",
-            replaces="src/repro/kernels/isp_decode.py:72",
-            dtype="bfloat16", shape=f"B={B} H={H} Hkv={Hkv} dh={dh} S={S} "
-            f"kpos {tuple(kpos.shape)} window={window} ({valid} valid keys)",
-            max_abs_err=errs[torch.bfloat16],
-            max_abs_err_fp32=errs[torch.float32],
-            ms=time_ms(lambda: isp.decode_partial(*args, window=window),
-                       flush),
-            plain_ms=time_ms(lambda: isp.decode_partial_ref(
-                *args, window=window), flush),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-        if layout != "shared":    # a bytes-bound row under the clean flush
-            rows[-1]["ms_clean_l2"] = time_ms(
-                lambda: isp.decode_partial(*args, window=window), flushes[1])
+        rows.append(strip_row(dev, gen, flushes, path, layout))
     isp_edges(dev, gen)
 
     # -- flash attention: yi-9b's prefill (dh 128, causal), gemma3-12b's
@@ -1623,8 +1704,9 @@ def check_pool(got, table, idx, seg, nseg, off=0, w=None, tag="") -> float:
     Each output is a sum of at most 64 terms, taken in another order (fp32
     atomics): the two differ by at most 2 * 63 * 2**-24 of the pooled
     absolute terms, held here within 2**-16 of them (+1e-6); with weights
-    in bf16 each term may also differ by one bf16 ulp (2**-7).  Returns
-    the max abs error."""
+    in a 16-bit type each term may also differ by one ulp of it
+    (``ULP_REL``: 2**-7 in bf16, 2**-10 in fp16).  Returns the max abs
+    error."""
     from repro_torch.kernels import isp_gather as ig
     counts = torch.bincount(seg[(seg >= 0) & (seg < nseg)].long(),
                             minlength=nseg)
@@ -1634,8 +1716,8 @@ def check_pool(got, table, idx, seg, nseg, off=0, w=None, tag="") -> float:
     mag = ig.isp_gather_pool_ref(table.abs(), idx, seg, nseg,
                                  shard_offset=off,
                                  weights=None if w is None else w.abs())
-    rel = 2.0 ** -16 + (2.0 ** -7 if w is not None
-                        and table.dtype == torch.bfloat16 else 0.0)
+    rel = 2.0 ** -16 + (ULP_REL.get(table.dtype, 0.0) if w is not None
+                        else 0.0)
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert torch.isfinite(got).all(), f"{tag}: non-finite pool"
     diff = (got - want).abs()
@@ -2178,8 +2260,9 @@ def serve_report(tag, eng, results, wall, launches, prefill_calls):
         log(f"[{tag}] {line}")
 
 
-def top2_margin(model, cfg, seq, dev) -> float:
-    """Top-2 logit margin of the next token after ``seq`` (one prefill)."""
+def last_logits(model, cfg, seq, dev):
+    """(logits of the next token after ``seq``, one prefill, and the
+    largest |value| of the residual stream the blocks leave)."""
     from repro_torch.core import embedding as emb
     from repro_torch.models import model as M
     from repro_torch.models.layers import rms_norm
@@ -2189,9 +2272,15 @@ def top2_margin(model, cfg, seq, dev) -> float:
         x, _ = M.run_blocks(model, x, torch.arange(len(seq), dtype=torch.int32,
                                                    device=dev), cfg, None,
                             "prefill")
+        peak = float(x.float().abs().max())
         x = rms_norm(x, model.final_norm, cfg.norm_eps)
-        top = torch.topk(emb.sharded_logits_last(x[:, -1], model.head_table(),
-                                                 cfg)[0], 2).values
+        return emb.sharded_logits_last(x[:, -1], model.head_table(),
+                                       cfg)[0], peak
+
+
+def top2_margin(model, cfg, seq, dev) -> float:
+    """Top-2 logit margin of the next token after ``seq`` (one prefill)."""
+    top = torch.topk(last_logits(model, cfg, seq, dev)[0], 2).values
     return float(top[0] - top[1])
 
 
@@ -2362,29 +2451,36 @@ def gemma_phase(dev):
     return launches, plan_launches
 
 
-def plan_phase(cfg, params, dev):
-    """gemma3-12b through a sharding recipe on the one-rank mesh against
-    the same calls without one; returns the plan run's launches."""
+def plan_phase(cfg, params, dev, batch=8, seq=1024, steps=32, fed=16,
+               turns=("plan", "no plan", "no plan", "plan"), label="plan"):
+    """``cfg`` through a sharding recipe on the one-rank mesh against the
+    same calls without one (``turns``, in that order): prefill of
+    ``batch`` x ``seq`` prompts, then ``steps`` decode steps fed the
+    prompts' next tokens for ``fed`` steps; returns the plan run's
+    launches."""
     from repro_torch import sharding as sh
     from repro_torch.config import ShapeConfig
     from repro_torch.core import embedding as emb
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as lm
     from repro_torch.models import model as M
-    B, S, FED, STEPS = 8, 1024, 16, 32
+    B, S, FED, STEPS = batch, seq, fed, steps
     rng = np.random.default_rng(SEED + 2)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
         np.int32)).to(dev)
     mesh = lm.make_local_mesh(dev)
     try:
         plan = sh.make_plan(mesh, cfg)
-        assert plan.fsdp and plan.fsdp_axis == "data", plan
+        # FSDP by default above 3 B parameters, over the data axis
+        assert plan.fsdp == (cfg.param_count() > 3_000_000_000) and (
+            not plan.fsdp or plan.fsdp_axis == "data"), plan
         recipe = sh.make_recipe(plan, cfg, ShapeConfig(S, B))
-        log(f"[plan] mesh {mesh}; fsdp {plan.fsdp} (axis {plan.fsdp_axis}), "
-            f"batch axes {recipe.batch_axes}, seq axes {recipe.seq_axes}, "
-            f"vocab sharded {sh.vocab_sharded(recipe, cfg)}")
+        log(f"[{label}] mesh {mesh}; fsdp {plan.fsdp} (axis "
+            f"{plan.fsdp_axis}), batch axes {recipe.batch_axes}, seq axes "
+            f"{recipe.seq_axes}, vocab sharded "
+            f"{sh.vocab_sharded(recipe, cfg)}")
         runs = []      # in turns, so that a drift of the host hits both sides
-        for tag in ("plan", "no plan", "no plan", "plan"):
+        for tag in turns:
             rc = recipe if tag == "plan" else None
             free_device()
             torch.cuda.reset_peak_memory_stats()
@@ -2411,31 +2507,31 @@ def plan_phase(cfg, params, dev):
             launches = ops.launch_counts()
             peak = torch.cuda.max_memory_allocated() / 1e9
             runs.append((tag, nxt, torch.stack(out), launches, step_ms))
-            log(f"[plan] {tag}: decode {step_ms:.2f} ms per step over "
+            log(f"[{label}] {tag}: decode {step_ms:.2f} ms per step over "
                 f"{STEPS} steps, peak memory {peak:.2f} GB; launches "
                 f"{launches}")
             del caches
         L = cfg.num_layers
         _, n_p, d_p, l_p, _ = runs[0]
         for tag, nxt, toks, launches, _ in runs:
-            assert torch.equal(nxt, n_p), "plan: prefill tokens differ"
-            assert torch.equal(toks, d_p), "plan: decode tokens differ"
+            assert torch.equal(nxt, n_p), f"{label}: prefill tokens differ"
+            assert torch.equal(toks, d_p), f"{label}: decode tokens differ"
             gathers = 1 + STEPS if tag == "plan" else 0
             assert launches == {"flash_attention": L, "isp_decode": L * STEPS,
                                 "paged_decode": 0, "isp_gather": gathers,
                                 "isp_gather_pool": 0,
                                 "topk_similarity": 0}, (tag, launches)
         assert all(0 <= t < cfg.vocab_size for t in d_p.flatten().tolist())
-        for tag in ("plan", "no plan"):
+        for tag in dict.fromkeys(turns):
             ms = [r[4] for r in runs if r[0] == tag]
-            log(f"[plan] {tag}: decode {np.mean(ms):.2f} ms per step, mean "
-                f"of the two runs {[round(m, 2) for m in ms]}")
+            log(f"[{label}] {tag}: decode {np.mean(ms):.2f} ms per step, "
+                f"mean of the runs {[round(m, 2) for m in ms]}")
         with torch.no_grad():
             rows = emb.embed_lookup(params.embed.table, prompts, cfg,
                                     recipe, seq_sharded=False)
         assert torch.equal(rows, emb.gather_baseline(params.embed.table,
                                                      prompts))
-        log(f"[plan] identical prefill and {STEPS} decode tokens with and "
+        log(f"[{label}] identical prefill and {STEPS} decode tokens with and "
             f"without the recipe; isp_gather {l_p['isp_gather']} launches "
             f"(1 prefill + {STEPS} steps); embed_lookup under the plan is "
             f"bit-equal to gather_baseline")
@@ -2445,18 +2541,32 @@ def plan_phase(cfg, params, dev):
 
 
 def times_phase(dev) -> dict:
-    """The timing of the two gather kernels alone, for comparing trees in
-    turns (``--times``): the launch floor; isp_gather at the decode step
-    and the prefill beside F.embedding; isp_gather_pool at its five path
-    shapes beside F.embedding_bag, and the profiler split of one sentiment
-    fp32 and one shard call; isp decode on gemma3-12b's rings as a
-    bytes-bound row of a kernel this comparison leaves alone.  Each under
-    both flushes; every kernel is held to its plain version first."""
+    """The timing of the gather and decode kernels alone, for comparing
+    trees in turns (``--times``): the launch floor; isp_gather at the
+    decode step and the prefill beside F.embedding; isp_gather_pool at its
+    five path shapes beside F.embedding_bag, and the profiler split of one
+    sentiment fp32 and one shard call; isp decode on gemma3-12b's rings
+    under both flushes; paged decode at its five serve shapes and isp
+    decode at its other three strip layouts (bf16, the dirty flush).
+    Every kernel is held to its plain version first."""
     from repro_torch.kernels import isp_decode as isp
     from repro_torch.kernels import isp_gather as ig
     flushes = l2_flushes(dev)
     floor = launch_floor(flushes)
-    rows = gather_rows(dev, flushes)
+    gen = torch.Generator().manual_seed(SEED)
+    rows = [paged_row(dev, gen, flushes[0], path, kw) for path, kw in (
+        ("yi-9b serve", {}),
+        ("gemma3-12b serve", dict(
+            H=16, Hkv=8, dh=240, maxp=128,
+            lengths=(2048, 1500, 16, 0, 1031, 1, 700, 1990))),
+        ("llama4-scout serve", dict(H=40, Hkv=8, dh=128)),
+        ("musicgen-large serve", dict(H=32, Hkv=32, dh=64)),
+        ("smoke serve", dict(H=4, Hkv=4, dh=16, maxp=16,
+                             lengths=(64, 40, 16, 0, 33, 1, 20, 63))))]
+    rows += [strip_row(dev, gen, flushes, path, layout) for path, layout in (
+        ("yi-9b strip", "shared"), ("hymba serve", "hymba ring"),
+        ("smoke serve", "smoke ring"))]
+    rows += gather_rows(dev, flushes)
     args, window, _ = strip_case("ring", torch.bfloat16, dev,
                                  torch.Generator().manual_seed(SEED))
     max_err(isp.decode_partial(*args, window=window),
@@ -2490,15 +2600,14 @@ def times_phase(dev) -> dict:
     out = {"launch_floor_ms": floor, "isp_decode_rings_ms": ring,
            "pool_no_ids_ms": empty,
            "rows": [{k: r.get(k) for k in (
-               "name", "shape", "ms", "ms_clean_l2", "library_ms",
+               "name", "path", "shape", "ms", "ms_clean_l2", "library_ms",
                "library_ms_clean_l2", "plain_ms", "bound_ms", "copy_ms",
                "copy_ms_clean_l2")}
                for r in rows]}
     for r in out["rows"]:
         log(f"[times] {r['name']} ({r['shape']}): kernel {r['ms']:.4f} ms, "
-            f"clean L2 {r['ms_clean_l2']:.4f} ms; library "
-            f"{r['library_ms']} / {r['library_ms_clean_l2']}; bound "
-            f"{r['bound_ms']:.4f} ms")
+            f"clean L2 {r['ms_clean_l2']}; library {r['library_ms']} / "
+            f"{r['library_ms_clean_l2']}; bound {r['bound_ms']:.4f} ms")
     log(f"[times] isp decode rings: {ring[0]:.4f} ms, clean L2 "
         f"{ring[1]:.4f} ms")
     return out
@@ -4862,13 +4971,29 @@ SMOKE_TRAIN_ARCHS = ("yi-9b", "deepseek-v2-236b")
 SMOKE_TRAIN_STEPS = 3
 SMOKE_TRAIN_SHAPE = (8, 256)    # the train CLI's --global-batch, --seq-len
 SMOKE_TRAIN_LR = 3e-4           # the train CLI's --lr
+
+
+class RepeatedBatch:
+    """A token source whose every step reads the first step's tokens:
+    ``period`` is a step's tokens (global batch x (seq + 1))."""
+
+    def __init__(self, source, period):
+        self.source, self.period = source, period
+
+    def read(self, start, count):
+        return self.source.read(start % self.period, count)
+
+    def __len__(self):
+        return len(self.source)
+
+
 # step 0's loss on the card against the CPU's, same weights and batch:
 # fp32, the same sums in other orders (~1e-6 of a loss of ~5.5); bf16,
 # each side rounds to bf16 in other places (flash's bf16 probabilities
 # against the plain fp32 softmax; cuBLAS against the CPU's GEMMs), up to
 # 2**-8 of a unit-scale value through two layers into a mean over 2048
-# tokens
-SMOKE_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# tokens; fp16, 2**-11 of it (measured 7.6e-6)
+SMOKE_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 1e-3}
 ATTN_KINDS = ("attn", "local", "moe", "mla_moe", "hybrid")  # prefill: flash
 FULL_KINDS = ("attn", "moe")       # decode: paged pools (strips if none)
 RING_KINDS = ("local", "hybrid")   # decode: isp decode on window rings
@@ -4917,17 +5042,25 @@ def smoke_serve(cfg, params, requests, device, kv_layout="paged"):
     return eng, results, launches, len(phases(eng.tele, "prefill"))
 
 
-def smoke_cells():
-    """(tag, config) of the smoke phase's serve cells."""
+def smoke_cells(dtype=None):
+    """(tag, config) of the smoke phase's serve cells: each reduced config
+    of configs.ASSIGNED in its own dtype and reduced yi-9b in fp32, or
+    with ``dtype`` each reduced config in that dtype (its optimizer state
+    too)."""
     from repro_torch.config import reduced_config
     from repro_torch.configs import ASSIGNED
+    if dtype is not None:
+        return [(f"{a} {dtype}", dataclasses.replace(
+            reduced_config(a), dtype=dtype, optimizer_state_dtype=dtype))
+            for a in ASSIGNED]
     return [(a, reduced_config(a)) for a in ASSIGNED] + [
         ("yi-9b fp32", dataclasses.replace(reduced_config("yi-9b"),
                                            dtype="float32"))]
 
 
-def smoke_phase(dev):
-    """Each smoke cell served on the card and on the CPU from the same
+def smoke_phase(dev, dtype=None):
+    """Each smoke cell (``smoke_cells(dtype)``) served on the card and on
+    the CPU from the same
     weights (drawn on the CPU, copied to the card): every request ok, free
     lists balanced, on the card flash on every attention layer of every
     prefill call and paged or isp decode on every attention layer of every
@@ -4936,7 +5069,9 @@ def smoke_phase(dev):
     Then SMOKE_TRAIN_STEPS steps of ``train_loop.train`` (the train CLI's
     path) for each of SMOKE_TRAIN_ARCHS on the card: finite losses, flash
     on every attention layer of every step, step 0's loss within
-    SMOKE_LOSS_TOL of the CPU's on the same weights and batch.  Returns the
+    SMOKE_LOSS_TOL of the CPU's on the same weights and batch.  The train
+    runs see one batch repeated, with no warmup, so their loss must fall;
+    with ``dtype`` the train configs take it, moments too.  Returns the
     serve cells' launches summed and the train runs'."""
     from repro_torch.config import ShapeConfig, reduced_config
     from repro_torch.data import DataConfig, ShardedLoader, \
@@ -4947,7 +5082,7 @@ def smoke_phase(dev):
     from repro_torch.sharding import make_plan, make_recipe
     from repro_torch.train import train_loop as TL
     serve_total, train_total = {}, {}
-    for tag, cfg in smoke_cells():
+    for tag, cfg in smoke_cells(dtype):
         t0 = time.perf_counter()
         cpu = M.seeded_params(cfg, SEED, "cpu")
         params = M.seeded_params(cfg, SEED, dev)
@@ -4976,7 +5111,7 @@ def smoke_phase(dev):
             flips = 0
         else:
             flips = check_flips(f"smoke {tag}", requests, got, ref_tokens,
-                                params, cfg, dev, BF16_FLIP_MARGIN)
+                                params, cfg, dev, FLIP_MARGIN[cfg.dtype])
         log(f"[smoke] {tag} ({cfg.dtype}, {'/'.join(sorted(set(kinds)))}, "
             f"{cfg.num_layers} layers, H {cfg.num_heads}/{cfg.num_kv_heads} "
             f"dh {cfg.resolved_head_dim}"
@@ -4992,11 +5127,15 @@ def smoke_phase(dev):
     B, S = SMOKE_TRAIN_SHAPE
     for arch in SMOKE_TRAIN_ARCHS:
         cfg = reduced_config(arch)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype,
+                                      optimizer_state_dtype=dtype)
         assert cfg.remat == "none", cfg.remat   # flash once a layer a step
         dcfg = DataConfig(seq_len=S, global_batch=B,
                           vocab_size=cfg.vocab_size, seed=SEED)
         tcfg = TL.TrainConfig(steps=SMOKE_TRAIN_STEPS, lr=SMOKE_TRAIN_LR,
-                              log_every=1, ckpt_every=10**9, seed=SEED)
+                              warmup=0, log_every=1, ckpt_every=10**9,
+                              seed=SEED)
         # step 0's loss on the CPU: the weights train() draws (its state
         # from the same seed), copied to the CPU, and its first batch
         recipe = make_recipe(make_plan(None, cfg), cfg, ShapeConfig(S, B))
@@ -5005,9 +5144,9 @@ def smoke_phase(dev):
         cpu = M.init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
         cpu.load_state_dict(first.state_dict())
         del first
-        batch = ShardedLoader(SyntheticTokenSource(dcfg.vocab_size,
-                                                   dcfg.seed),
-                              dcfg).global_batch_at(0)
+        source = RepeatedBatch(SyntheticTokenSource(dcfg.vocab_size,
+                                                    dcfg.seed), B * (S + 1))
+        batch = ShardedLoader(source, dcfg).global_batch_at(0)
         with torch.no_grad():
             cpu_loss = float(M.loss_fn(cpu, {
                 k: torch.as_tensor(v) for k, v in batch.items()}, cfg)[0])
@@ -5015,8 +5154,8 @@ def smoke_phase(dev):
         mets = []
         t0 = time.perf_counter()
         ops.reset_launch_counts()
-        TL.train(cfg, dcfg, tcfg, device=dev,
-                 metrics_cb=lambda step, m: mets.append(m))
+        state = TL.train(cfg, dcfg, tcfg, source=source, device=dev,
+                         metrics_cb=lambda step, m: mets.append(m))
         torch.cuda.synchronize()
         ln = ops.launch_counts()
         losses = [m["loss"] for m in mets]
@@ -5026,13 +5165,18 @@ def smoke_phase(dev):
         assert ln["flash_attention"] == n_attn * SMOKE_TRAIN_STEPS, (arch,
                                                                      ln)
         d = abs(losses[0] - cpu_loss)
-        log(f"[smoke] train {arch} ({cfg.dtype}, {B} x {S}, "
-            f"{SMOKE_TRAIN_STEPS} steps): losses "
+        log(f"[smoke] train {arch} ({cfg.dtype}, moments "
+            f"{cfg.optimizer_state_dtype}, {B} x {S}, {SMOKE_TRAIN_STEPS} "
+            f"steps on one repeated batch): losses "
             f"{[round(x, 5) for x in losses]}; step 0 against the CPU's "
             f"{cpu_loss:.5f} on the same weights and batch (|difference| "
             f"{d:.3g}, bound {SMOKE_LOSS_TOL[cfg.dtype]:g}); launches {ln}; "
             f"{time.perf_counter() - t0:.2f} s")
         assert d <= SMOKE_LOSS_TOL[cfg.dtype], (arch, losses[0], cpu_loss)
+        assert losses[-1] < losses[0], (arch, losses)
+        assert all(str(m.dtype) == f"torch.{cfg.optimizer_state_dtype}"
+                   for m in state.opt_state["m"].values()), arch
+        del state
         for k, v in ln.items():
             train_total[k] = train_total.get(k, 0) + v
     free_device()
@@ -5164,9 +5308,9 @@ def domain_apps(dev) -> dict:
     return launches
 
 
-def topk_domain_edges(dev):
-    """topk_similarity over DOMAIN_TOPK_D x DOMAIN_TOPK_K, fp32 and bf16
-    corpora, Q = 70 (two query blocks): random rows held by check_topk
+def topk_domain_edges(dev, dtypes=DTYPES):
+    """topk_similarity over DOMAIN_TOPK_D x DOMAIN_TOPK_K, corpora in each
+    of ``dtypes``, Q = 70 (two query blocks): random rows held by check_topk
     (N = 2100), and rows of +-1 entries (norm 8, or 4 at D = 37, so every
     score is exact) whose 600 rows repeat four times across the corpus:
     scores and ids identical to the plain version's, the lower id first on
@@ -5181,7 +5325,7 @@ def topk_domain_edges(dev):
         c32 = on(rng.normal(size=(N, d)).astype(np.float32))
         tq = on(sign_rows(rng, Q, d, nz))
         tc = on(np.tile(sign_rows(rng, 600, d, nz), (4, 1)))
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dtypes:
             c, t = c32.to(dt), tc.to(dt)
             err, ties = 0.0, 0
             for k in DOMAIN_TOPK_K:
@@ -5271,6 +5415,301 @@ def domain_phase(dev):
                 f"{row['library_two_calls_ms']:.4f} ms"
                 if "library_two_calls_ms" in row else ""))
     log(f"[domain] phase {time.perf_counter() - t0:.1f} s")
+    return rows, launches
+
+
+# -- the fp16 phase -----------------------------------------------------------
+# a ModelConfig(dtype="float16") end to end on the card: the six kernels'
+# fp16 instantiations at the edges and at the bf16 rows' shapes, yi-9b at
+# full width served in fp16, and the smoke phase in fp16 (docstring, 3f)
+FP16 = torch.float16
+FP16_DTYPES = (FP16,)
+FP16_LAYERS = 48          # yi-9b's depth in the fp16 serve: all of it
+FP16_REQUESTS = 16        # prompts of 16..700 tokens, 32 new, as serve's
+# the fp16 yi-9b through the one-rank plan: prefill 8 x 704, 16 decode
+# steps fed 8 prompt tokens, the plan run then the run without it
+FP16_PLAN = dict(batch=8, seq=704, steps=16, fed=8, turns=("plan", "no plan"))
+# the gather rows at the fp16 plan's table and ids: yi-9b's vocabulary,
+# a decode step's 8 ids and the 8 x 704 prefill's
+YI_GATHER = ((64000, 4096), (FP16_PLAN["batch"],
+                             FP16_PLAN["batch"] * FP16_PLAN["seq"]))
+# shard_rows on the card: a shard of 3000 of a (4096, 1048) table's rows
+FP16_SHARD = (4096, 1048, 100, 3000)
+
+
+def shard_rows_case(dev):
+    """ops.isp_gather with ``shard_rows`` below the table's rows, fp32 and
+    fp16, against its plain version: ids at or past shard_offset +
+    shard_rows give zeros (bit-exact; weighted within one ulp of a 16-bit
+    type); more rows than the table's raise ValueError."""
+    from repro_torch.kernels import isp_gather as ig
+    from repro_torch.kernels import ops
+    V, D, off, rows = FP16_SHARD
+    gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+    idx = torch.randint(-1, V + off + 200, (8192,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    w = torch.randn(8192, generator=gen, device=dev)
+    past = idx >= off + rows
+    assert int(past.sum()) > 0 and int((idx < off + V)[past].sum()) > 0
+    for dt in (torch.float32, FP16):
+        table = torch.randn(V, D, generator=gen, device=dev).to(dt)
+        got = ops.isp_gather(table, idx, shard_offset=off, shard_rows=rows)
+        want = ig.isp_gather_ref(table, idx, shard_offset=off,
+                                 shard_rows=rows)
+        assert torch.equal(got, want), f"shard_rows {dt}"
+        assert not bool(got[past].any()), "ids past shard_rows must be 0"
+        got = ops.isp_gather(table, idx, shard_offset=off, shard_rows=rows,
+                             weights=w)
+        want = ig.isp_gather_ref(table, idx, shard_offset=off,
+                                 shard_rows=rows, weights=w)
+        assert (torch.equal(got, want) if dt == torch.float32
+                else half_ulps(got, want) <= 1), f"shard_rows {dt} weighted"
+        try:
+            ops.isp_gather(table, idx, shard_rows=V + 1)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("isp_gather took shard_rows past the table")
+    torch.cuda.synchronize()
+    log(f"[fp16] isp_gather shard_rows={rows} of a ({V}, {D}) table at "
+        f"offset {off}, 8192 ids ({int(past.sum())} past the shard's rows): "
+        f"fp32 and fp16 exact, weighted exact / <= 1 fp16 ulp; "
+        f"shard_rows={V + 1} raises")
+
+
+def fp16_apps(dev, flushes):
+    """The apps' kernels on an fp16 corpus and table through ops, the
+    launch counters set to 0 just before the counted path and read just
+    after: the recommender's top-10 at Q = 50 and 256 over the 58,000 x
+    128 corpus and the exact-tie case, the sentiment batch with and
+    without weights; each held to its plain version; then the edges (D =
+    37, D past one 128-column chunk, DOMAIN_TOPK_D x DOMAIN_TOPK_K, an odd
+    D and shuffled segments for the pool) and the rows.  Returns (rows,
+    launches)."""
+    from repro_torch.kernels import isp_gather as ig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_similarity as tk
+    flush = flushes[0]
+    a = apps_data(dev)
+    rng, on, K, R = a.rng, a.on, a.K, a.R
+    corpus = a.corpus[torch.float32].to(FP16)
+    table = a.s_tab[torch.float32].to(FP16)
+    tie_c = a.tie_c.to(FP16)
+    cases = {"fp16": None, "fp16 weighted": a.s_w}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rec = {q: ops.topk_similarity(a.queries[q], corpus, K)
+           for q in a.queries}
+    tie = ops.topk_similarity(a.tie_q, tie_c, K)
+    sent = {name: ops.isp_gather_pool(table, a.s_idx, a.s_seg, R, weights=w)
+            for name, w in cases.items()}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    want = {n: 0 for n in launches}
+    want.update(topk_similarity=len(rec) + 1, isp_gather_pool=len(sent))
+    assert launches == want, (launches, want)
+    errs = {q: check_topk(got, a.queries[q], corpus, K,
+                          f"fp16 recommender Q={q}")
+            for q, got in rec.items()}
+    ws, wi = tk.topk_similarity_ref(a.tie_q, tie_c, K)
+    assert torch.equal(tie[1], wi) and torch.equal(tie[0], ws), \
+        "fp16 exact ties: the kernel's ids differ from the plain version's"
+    assert int((ws[:, 1:] == ws[:, :-1]).sum()) > 50, "too few ties"
+    for name, w in cases.items():
+        errs[name] = check_pool(sent[name], table, a.s_idx, a.s_seg, R, w=w,
+                                tag=f"sentiment {name}")
+    log(f"[fp16] apps launches {launches}; exact ties identical; pool max "
+        f"abs err {errs['fp16']:.3g} / weighted {errs['fp16 weighted']:.3g}")
+    # edges, off the counted path
+    eq = on(rng.normal(size=(70, 641)).astype(np.float32))
+    ec = on(rng.normal(size=(1000, 641)).astype(np.float32)).to(FP16)
+    for d in (37, 128, 129, 641):
+        check_topk(tk.topk_similarity(eq[:, :d], ec[:, :d], 32), eq[:, :d],
+                   ec[:, :d], 32, f"fp16 edge: D={d}, Q=70, N=1000, k=32")
+    topk_domain_edges(dev, FP16_DTYPES)
+    et = on(rng.normal(size=(300, 67)).astype(np.float32)).to(FP16)
+    ei = on(rng.integers(-5, 420, (999,)).astype(np.int32))
+    es = on(rng.integers(-1, 42, (999,)).astype(np.int32))
+    ew = on(rng.normal(size=(999,)).astype(np.float32))
+    err = check_pool(ig.isp_gather_pool(et, ei, es, 40, shard_offset=100,
+                                        weights=ew), et, ei, es, 40, 100, ew,
+                     tag="fp16 edge pool")
+    shuffled = a.s_seg[torch.from_numpy(
+        rng.permutation(R * a.L)).to(dev)].contiguous()
+    err2 = check_pool(ig.isp_gather_pool(table, a.s_idx, shuffled, R,
+                                         weights=a.s_w), table, a.s_idx,
+                      shuffled, R, w=a.s_w, tag="fp16 unsorted")
+    log(f"[fp16] edges: top-k D 37 / 128 / 129 / 641 at k = 32; pool fp16 "
+        f"(300, 67) weighted, segments -1..41 of 40: {err:.3g}; sentiment "
+        f"weighted with its segments shuffled: {err2:.3g}")
+    rows = []
+    norm = torch.nn.functional.normalize
+    for q, qs in a.queries.items():
+        cost = KERNEL_COSTS["topk_similarity"](qs, corpus, K)
+        bound_ms, bound_by = bound(cost.bytes, cost.flops, cost.dtype)
+        # the route: 2xTF32 (q^ in two TF32 parts, the corpus whole)
+        route_ms, _ = bound(cost.bytes, 2 * cost.flops, "tf32")
+        ms = time_ms(lambda: tk.topk_similarity(qs, corpus, K), flush)
+        qn = norm(qs, dim=-1, eps=1e-9)
+        cn = norm(corpus.float(), dim=-1, eps=1e-9)
+        rows.append(dict(
+            name="topk_similarity", kernel="topk_similarity",
+            path="fp16 apps", route="cuda",
+            source="src/repro_torch/kernels/csrc/topk_similarity.cu",
+            replaces="src/repro/kernels/topk_similarity.py:75",
+            dtype="float16",
+            shape=f"recommender: Q={q} corpus ({a.N}, {a.D}) float16 k={K}",
+            max_abs_err=errs[q], ms=ms,
+            plain_ms=time_ms(lambda: tk.topk_similarity_ref(qs, corpus, K),
+                             flush),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bound_route_ms=route_ms,
+            library_two_calls_ms=time_ms(
+                lambda: torch.topk(qn @ cn.mT, K), flush),
+            items_per_s=q / ms * 1e3))
+    topk_breakdown(a.queries[50], corpus, K, flush)
+    for name, w in cases.items():
+        bound_ms, bound_by, nbytes = site_bound(
+            "isp_gather_pool", table, a.s_idx, a.s_seg, R, weights=w)
+        kern = lambda: ig.isp_gather_pool(   # noqa: E731
+            table, a.s_idx, a.s_seg, R, weights=w)
+        rows.append(dict(
+            name="isp_gather_pool", kernel="isp_gather_pool",
+            path="fp16 apps", route="cuda",
+            source="src/repro_torch/kernels/csrc/isp_gather_pool.cu",
+            replaces="src/repro/kernels/isp_gather.py:124", dtype="float16",
+            shape=f"sentiment {name}: table ({a.V}, {a.E}), {R} x {a.L} ids",
+            max_abs_err=errs[name], ms=time_ms(kern, flush),
+            ms_clean_l2=time_ms(kern, flushes[1]),
+            plain_ms=time_ms(lambda: ig.isp_gather_pool_ref(
+                table, a.s_idx, a.s_seg, R, weights=w), flush),
+            # F.embedding_bag on an fp16 table returns fp16 sums: not the
+            # function (fp32 sums)
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bytes=nbytes))
+    return rows, launches
+
+
+def fp16_serve(dev):
+    """yi-9b at full width and FP16_LAYERS layers: weights drawn in fp32
+    on the card and copied into a float16 model; FP16_REQUESTS requests
+    through the fp16 model (flash and paged decode on every layer of every
+    call; every prompt's next-token logits finite) and through the fp32
+    one, tokens parting only at near-ties; then the fp16 model through
+    the one-rank plan (FP16_PLAN).  Returns the serve run's and the plan
+    run's launches."""
+    from repro_torch.config import get_config
+    from repro_torch.models import model as M
+    cfg32 = dataclasses.replace(get_config("yi-9b"), num_layers=FP16_LAYERS,
+                                dtype="float32")
+    cfg = dataclasses.replace(cfg32, dtype="float16")
+    t0 = time.perf_counter()
+    m32 = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED),
+                        dev)
+    model = M.LM(cfg, dev)
+    with torch.no_grad():
+        model.load_state_dict(m32.state_dict())
+    torch.cuda.synchronize()
+    log(f"[fp16 serve] yi-9b float16: {M.count_params(cfg) / 1e9:.3f} B "
+        f"params, {cfg.num_layers} layers (and its fp32 original), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    requests = [(rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(16, 701))).tolist(), 32)
+                for _ in range(FP16_REQUESTS)]
+    eng, results, wall, launches, calls = serve(cfg, model, requests, 8, dev)
+    check_serve("fp16 serve", cfg, eng, results, launches, calls, requests)
+    serve_report("fp16 serve", eng, results, wall, launches, calls)
+    del eng
+    peak, top = 0.0, 0.0
+    for prompt, _ in requests:
+        logits, x_max = last_logits(model, cfg, prompt, dev)
+        assert bool(torch.isfinite(logits).all()), "fp16: non-finite logits"
+        peak, top = max(peak, x_max), max(top, float(logits.abs().max()))
+    log(f"[fp16 serve] every prompt's next-token logits finite (max |logit| "
+        f"{top:.4g}); largest |value| of the residual stream the blocks "
+        f"leave {peak:.4g} (fp16's largest finite value 65504)")
+    eng, res32, wall32, ln32, calls32 = serve(cfg32, m32, requests, 8, dev)
+    check_serve("fp32 serve", cfg32, eng, res32, ln32, calls32, requests)
+    log(f"[fp16 serve] the fp32 run of the same weights: {wall32:.2f} s "
+        f"wall (fp16 {wall:.2f} s)")
+    del eng
+    check_flips("fp16 serve", requests, [r.tokens for r in results],
+                [r.tokens for r in res32], m32, cfg32, dev,
+                FP16_FLIP_MARGIN)
+    del m32
+    free_device()
+    plan_launches = plan_phase(cfg, model, dev, label="fp16 plan",
+                               **FP16_PLAN)
+    del model
+    free_device()
+    return launches, plan_launches
+
+
+def fp16_phase(dev):
+    """The fp16 phase (see the module docstring, 3f): the edges, the
+    kernels record rows, then the counted paths.  Returns the rows and
+    {path: launches}."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 71)
+    flushes = l2_flushes(dev)
+    flush = flushes[0]
+    flash_edges(dev, gen, dtypes=FP16_DTYPES)
+    flash_edges(dev, gen, heads=tuple(
+        (H, Hkv, dh, dh, (None, 48)) for H, Hkv, dh in DOMAIN_HEADS),
+        dtypes=FP16_DTYPES)
+    flash_lse_edges(dev, gen, dtypes=FP16_DTYPES)
+    flash_lse_edges(dev, gen, heads=tuple(
+        (H, Hkv, dh, dh) for H, Hkv, dh in DOMAIN_HEADS), dtypes=FP16_DTYPES)
+    paged_edges(dev, gen, dtypes=FP16_DTYPES)
+    paged_edges(dev, gen, heads=tuple(
+        (H, Hkv, dh, 64, 100) for H, Hkv, dh in DOMAIN_HEADS),
+        dtypes=FP16_DTYPES)
+    isp_edges(dev, gen, dtypes=FP16_DTYPES)
+    isp_edges(dev, gen, heads=DOMAIN_HEADS, dtypes=FP16_DTYPES)
+    shard_rows_case(dev)
+    # flash's gradients through the autograd.Function at the yi-9b train
+    # shape (4096 keys a row): an edge, on no fp16 path
+    edge = flash_train_row(dev, gen, flush, "yi-9b train shape (edge)",
+                           dtypes=FP16_DTYPES)
+    log(f"[fp16] flash with lse at the yi-9b train shape: out "
+        f"{edge['max_abs_err']:.3g}, lse {edge['lse_max_abs_err']:.3g}, "
+        f"dq/dk/dv {edge['grad_rel_err']:.3g} of the max |grad|")
+    log(f"[fp16] edges done in {time.perf_counter() - t0:.1f} s")
+    rows = [flash_row(dev, gen, flush, "yi-9b fp16 serve", FLASH_PATHS[0][1],
+                      FP16_DTYPES),
+            paged_row(dev, gen, flush, "yi-9b fp16 serve", {}, FP16_DTYPES),
+            strip_row(dev, gen, flushes, "smoke serve fp16", "smoke ring",
+                      FP16_DTYPES)]
+    rows += gather_rows(dev, flushes, FP16_DTYPES, path="yi-9b fp16 plan",
+                        vocab=YI_GATHER)
+    rows += [flash_train_row(dev, gen, flush, "smoke train fp16", shape, dv,
+                             SMOKE_CHUNK, FP16_DTYPES)
+             for shape, dv in SMOKE_TRAIN_FLASH]
+    app_rows, app_launches = fp16_apps(dev, flushes)
+    rows += app_rows
+    del flushes, flush
+    free_device()
+    log(f"[fp16] kernel rows done at {time.perf_counter() - t0:.1f} s")
+    serve_launches, plan_launches = fp16_serve(dev)
+    smoke_serve_l, smoke_train_l = smoke_phase(dev, "float16")
+    launches = {"yi-9b fp16 serve": serve_launches,
+                "yi-9b fp16 plan": plan_launches,
+                "smoke serve fp16": smoke_serve_l,
+                "smoke train fp16": smoke_train_l, "fp16 apps": app_launches}
+    for row in rows:
+        row["kernel_ms"] = row["ms"]
+        assert launches[row["path"]][row["kernel"]] > 0, \
+            (row["path"], row["kernel"], launches[row["path"]])
+        log(f"[kernels] {row['name']} ({row['path']}, {row['shape']}, "
+            f"{row['dtype']}): kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), library {row['library_ms']}, max abs err "
+            f"{row['max_abs_err']:.3g}" + (
+                f", topk(q @ c.T) two calls "
+                f"{row['library_two_calls_ms']:.4f} ms"
+                if "library_two_calls_ms" in row else ""))
+    log(f"[fp16] phase {time.perf_counter() - t0:.1f} s")
     return rows, launches
 
 
@@ -6123,8 +6562,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--times", action="store_true", help=(
         "only time isp_gather and isp_gather_pool at their path shapes "
-        "under both L2 flushes (and isp decode on the rings), and print "
-        "them as one JSON line; for running two trees' kernels in turns"))
+        "under both L2 flushes (and isp decode on the rings), paged and "
+        "isp decode at their other serve shapes, and print them as one "
+        "JSON line; for running two trees' kernels in turns"))
     parser.add_argument("--mesh", action="store_true", help=(
         "only build the kernels and run the two-rank phase, serve and "
         "train (both ranks on the one card over gloo)"))
@@ -6144,8 +6584,13 @@ def main() -> int:
         "only build the kernels and run the domain phase (the kernels at "
         "the head dims, groups, widths and k of the reference's domain), "
         "then print its kernel rows as one JSON line"))
+    parser.add_argument("--fp16", action="store_true", help=(
+        "only build the kernels and run the fp16 phase (the six kernels' "
+        "fp16 instantiations, yi-9b and the reduced configs served and "
+        "trained in float16), then print its kernel rows as one JSON line"))
     parser.add_argument("--flash-times", action="store_true", help=(
-        "only time flash at its six serve paths' shapes without lse and "
+        "only time flash at its six serve paths' shapes and the smoke "
+        "configs' two without lse and "
         "print them as one JSON line; for running two trees in turns"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -6165,7 +6610,8 @@ def main() -> int:
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     if args.times:
         from repro_torch.kernels import build
-        secs = build.build(["isp_gather", "isp_gather_pool", "isp_decode"])
+        secs = build.build(["isp_gather", "isp_gather_pool", "isp_decode",
+                            "paged_decode"])
         log(f"[device] kernel build {secs:.2f} s")
         log(json.dumps({"times": times_phase(dev), "device": smi}))
         return 0
@@ -6184,9 +6630,10 @@ def main() -> int:
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
         return 0
     build_kernels()
-    if args.examples or args.domain:
+    if args.examples or args.domain or args.fp16:
         rows, launches = (examples_phase if args.examples
-                          else domain_phase)(dev)
+                          else domain_phase if args.domain
+                          else fp16_phase)(dev)
         for row in rows:
             row["launches"] = launches[row["path"]][row["kernel"]]
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
@@ -6225,6 +6672,9 @@ def main() -> int:
     domain_rows_, domain_launches = domain_phase(dev)
     rows += domain_rows_
     lap("domain")
+    fp16_rows, fp16_launches = fp16_phase(dev)
+    rows += fp16_rows
+    lap("fp16")
 
     # -- serve -------------------------------------------------------------
     cfg = get_config("yi-9b")
@@ -6248,7 +6698,7 @@ def main() -> int:
     path_launches = {"yi-9b serve": launches, "apps": app_launches,
                      "smoke serve": smoke_launches[0],
                      "smoke train": smoke_launches[1], **example_launches,
-                     **domain_launches}
+                     **domain_launches, **fp16_launches}
 
     # -- consistency ---------------------------------------------------------
     eng1, results1, wall1, _, _ = serve(cfg, params, requests, 1, dev)

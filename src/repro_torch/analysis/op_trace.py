@@ -224,10 +224,13 @@ def _on_shard(indices, offset: int, rows: int):
     return (indices >= offset) & (indices < offset + rows)
 
 
-def isp_gather_cost(table, indices, shard_offset=0, weights=None) -> Cost:
-    """The rows of ids on this shard read once (all of them on ``meta``),
-    every output row written, the ids and weights read once."""
+def isp_gather_cost(table, indices, shard_offset=0, weights=None,
+                    shard_rows=None) -> Cost:
+    """The rows of ids on this shard (its first ``shard_rows`` rows, all by
+    default) read once (all of them on ``meta``), every output row
+    written, the ids and weights read once."""
     n, (rows, D) = indices.numel(), table.shape
+    rows = rows if shard_rows is None else int(shard_rows)
     ok = _on_shard(indices, int(shard_offset), rows)
     n_on = n if ok is None else int(ok.sum())
     nbytes = (n_on + n) * D * table.element_size() + _nbytes(indices)
@@ -263,7 +266,7 @@ def topk_similarity_cost(queries, corpus, k) -> Cost:
     and int32 ids written."""
     Q, D = queries.shape
     N = corpus.shape[0]
-    tc = "bfloat16" if corpus.dtype == torch.bfloat16 else "tf32"
+    tc = "tf32" if corpus.dtype == torch.float32 else dtype_name(corpus.dtype)
     nbytes = _nbytes(queries) + _nbytes(corpus) + Q * k * 8
     return Cost(2 * Q * N * D, nbytes, tc)
 
@@ -298,8 +301,9 @@ _META_OUT = {
     "flash_attention": _flash_out,
     "paged_decode": _partial_out,
     "isp_decode": _partial_out,
-    "isp_gather": lambda table, indices, shard_offset=0, weights=None:
-        table.new_empty(tuple(indices.shape) + (table.shape[1],)),
+    "isp_gather": lambda table, indices, shard_offset=0, weights=None,
+        shard_rows=None: table.new_empty(tuple(indices.shape)
+                                         + (table.shape[1],)),
     "isp_gather_pool": lambda table, indices, segment_ids, num_segments,
         shard_offset=0, weights=None: table.new_empty(
             (num_segments, table.shape[1]), dtype=torch.float32),

@@ -149,6 +149,32 @@ def entry(name: str):
     return getattr(library(name), KERNELS[name][1])
 
 
+# the element types the kernels' C entries take, by the code each reads
+DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2}
+_CODE_OF: Dict[object, int] = {}   # torch dtype -> code, at first use
+
+
+def dtype_code(name: str, *tensors) -> int:
+    """The C entry's code of the one dtype ``tensors`` share, which must be
+    one of ``DTYPE_CODES``; raises TypeError naming them.  Reads only
+    dtypes, so it runs on any device (and costs a dict lookup a call: a
+    decode step's gather is bound by its host enqueue)."""
+    if not _CODE_OF:
+        import torch
+        _CODE_OF.update({getattr(torch, n): c
+                         for n, c in DTYPE_CODES.items()})
+    dt = tensors[0].dtype
+    code = _CODE_OF.get(dt)
+    for t in tensors[1:]:
+        if t.dtype != dt:
+            code = None
+    if code is None:
+        raise TypeError(f"{name}: inputs must share one dtype of "
+                        f"{list(DTYPE_CODES)}, got "
+                        f"{[str(t.dtype) for t in tensors]}")
+    return code
+
+
 def check_device(t) -> None:
     """Raise unless ``t`` lives on an sm_90 CUDA device."""
     import torch

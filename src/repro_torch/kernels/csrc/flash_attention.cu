@@ -29,20 +29,24 @@
 // Two kernels, picked by dtype (both hand-written; neither falls back to
 // the other):
 //
-// bf16: flash_fwd_tc, FlashAttention-2 on the tensor cores.
+// bf16 and fp16: flash_fwd_tc<T>, FlashAttention-2 on the tensor cores,
+// one template over the element type T (Tc<T>: the MMA's operand type and
+// the roundings; fp16 runs at the bf16 peak).
 //   * one block of 4 warps per (64-row q tile, q head, batch row); each
 //     warp owns 16 q rows; heavy (late causal) q tiles are launched first;
-//   * Q.K^T and P.V run on mma.sync.m16n8k16 with bf16 inputs and fp32
+//   * Q.K^T and P.V run on mma.sync.m16n8k16 with T inputs and fp32
 //     accumulation, the operands fed by ldmatrix (V by ldmatrix.trans);
-//   * K/V tiles of BK keys (64, or 32 above DQK 128) are staged in bf16 by
+//   * K/V tiles of BK keys (64, or 32 above DQK 128) are staged in T by
 //     16-byte cp.async, double buffered; rows are padded by 8 elements so
 //     ldmatrix's eight 16-byte rows fall in distinct banks;
 //   * Q stays in registers up to DQK 128; above (192, 240) its fragments
 //     are read from shared memory at every k-step (the O accumulator alone
 //     is 120 registers a thread at DV 240);
 //   * the online softmax runs on the accumulator fragments (row max and
-//     sum over the quad's shuffles); P is rounded to bf16 in registers and
-//     becomes the A operand of P.V with no trip through shared memory;
+//     sum over the quad's shuffles); P is rounded to T in registers and
+//     becomes the A operand of P.V with no trip through shared memory (in
+//     fp16 P in [0, 1] keeps 10 mantissa bits against bf16's 7; a p below
+//     2^-24 rounds to 0, an absolute error under 2^-25 a key);
 //   * tiles wholly outside the causal / window band are never visited, and
 //     element masks apply only on the tiles that a band edge or Skv crosses;
 //   * a DQK that is not a multiple of the MMA's k of 16 (24) is padded to
@@ -69,8 +73,8 @@
 // lse: given a non-null pointer, each (b, q row, h) also writes the row's
 // log-sum-exp of its scaled scores, m + log(l), in natural-log units and
 // fp32 into lse (B, Sq, H): what the training path's backward recomputes
-// the probabilities from, p = exp(s - lse).  The bf16 kernel keeps m in
-// log-2 units with the scale folded in, so the write converts once
+// the probabilities from, p = exp(s - lse).  The tensor-core kernel keeps
+// m in log-2 units with the scale folded in, so the write converts once
 // (m * ln 2 + log l).  A row that sees no key (only at a q_offset or
 // window edge, never in causal training from position 0) has l = 0 and
 // output 0; its lse is +inf, so that every p of the backward is 0 and the
@@ -79,6 +83,7 @@
 // and its output the mean of the visited values.)  With a null pointer
 // nothing else changes.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,7 +92,7 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int BQ = 64;   // query rows per block
 
-// ---------------------------------------------------------------- bf16 ---
+// ------------------------------------------------------- bf16 and fp16 ---
 
 constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = TC_WARPS * 32;
@@ -124,19 +129,54 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(s));
 }
 
-// d (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// The tensor-core kernel's two element types: per type its MMA
+// (d (16x8 fp32) += a (16x16, row) * b (16x8, col), fp32 accumulation) and
+// its round-to-nearest conversions of one value and of a pair.
+template <typename T>
+struct Tc;
+template <>
+struct Tc<__nv_bfloat16> {
+  using T2 = __nv_bfloat162;
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 one(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
+template <>
+struct Tc<__half> {
+  using T2 = __half2;
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+  static __device__ __forceinline__ T2 pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+  static __device__ __forceinline__ __half one(float x) {
+    return __float2half_rn(x);
+  }
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+// two fp32 values rounded to T and packed as one MMA operand register
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const typename Tc<T>::T2 h = Tc<T>::pair(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
@@ -156,28 +196,29 @@ struct TcShape {
   static constexpr int CPR_V = DV / 8;            // 16-byte copies a V row
   static constexpr int STAGE = BK * (LD + LDV);   // one K + V stage
   static constexpr size_t SMEM =
-      (size_t)(BQ * LD + 2 * STAGE) * sizeof(__nv_bfloat16);
+      (size_t)(BQ * LD + 2 * STAGE) * 2;   // 16-bit elements
 };
 
-template <int DQK, int DV, bool RT = false>
+template <typename T, int DQK, int DV, bool RT = false>
 __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
-    const __nv_bfloat16* __restrict__ q,   // (B, Sq, H, DQK)
-    const __nv_bfloat16* __restrict__ k,   // (B, Skv, Hkv, DQK)
-    const __nv_bfloat16* __restrict__ v,   // (B, Skv, Hkv, DV)
-    __nv_bfloat16* __restrict__ out,       // (B, Sq, H, DV)
-    float* __restrict__ lse,               // (B, Sq, H) or null
+    const T* __restrict__ q,   // (B, Sq, H, DQK)
+    const T* __restrict__ k,   // (B, Skv, Hkv, DQK)
+    const T* __restrict__ v,   // (B, Skv, Hkv, DV)
+    T* __restrict__ out,       // (B, Sq, H, DV)
+    float* __restrict__ lse,   // (B, Sq, H) or null
     int Sq, int Skv, int H, int Hkv, int causal, int window, int q_offset,
     float scale_log2, int dr) {
   // RT: DQK == DV is a class width and dr <= DQK the head dim of q, k, v
   // and out in memory; otherwise dr is not read
   using S = TcShape<DQK, DV>;
+  using E = Tc<T>;
   static_assert(!RT || DQK == DV, "class instantiations are uniform");
   const int dq = RT ? dr : DQK, dvr = RT ? dr : DV;   // dims in memory
   constexpr int BK = S::BK, LD = S::LD, LDV = S::LDV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sq = smem;                       // [BQ][LD]
-  __nv_bfloat16* skv = smem + BQ * LD;            // [2][K [BK][LD], V [BK][LDV]]
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* sq = smem;                   // [BQ][LD]
+  T* skv = smem + BQ * LD;        // [2][K [BK][LD], V [BK][LDV]]
 
   const int h = blockIdx.x;
   const int qt = gridDim.y - 1 - blockIdx.y;      // heavy tiles first
@@ -198,10 +239,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
 
   const size_t q_row = (size_t)H * dq, k_row = (size_t)Hkv * dq;
   const size_t v_row = (size_t)Hkv * dvr, o_row = (size_t)H * dvr;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * dq;
-  const __nv_bfloat16* kb = k + (size_t)b * Skv * k_row + (size_t)hk * dq;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * v_row + (size_t)hk * dvr;
-  [[maybe_unused]] const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const T* qb = q + (size_t)b * Sq * q_row + (size_t)h * dq;
+  const T* kb = k + (size_t)b * Skv * k_row + (size_t)hk * dq;
+  const T* vb = v + (size_t)b * Skv * v_row + (size_t)hk * dvr;
+  [[maybe_unused]] const T zero = E::one(0.f);
   const bool vec = !RT || dr % 8 == 0;  // rows 16-byte aligned
 
   // Q tile; rows past Sq and pad columns past DQK (dr) are zero-filled
@@ -221,8 +262,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
     }
   }
   auto load_kv = [&](int k0, int st) {
-    __nv_bfloat16* ks = skv + st * S::STAGE;
-    __nv_bfloat16* vs = ks + BK * LD;
+    T* ks = skv + st * S::STAGE;
+    T* vs = ks + BK * LD;
     if constexpr (RT) {           // K and V rows of dr elements, one stride
       if (vec) {
         for (int i = tid; i < BK * S::CPR; i += TC_THREADS) {
@@ -295,8 +336,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
                                   (lane >> 4) * 8);
       }
     }
-    const __nv_bfloat16* ks = skv + (it & 1) * S::STAGE;
-    const __nv_bfloat16* vs = ks + BK * LD;
+    const T* ks = skv + (it & 1) * S::STAGE;
+    const T* vs = ks + BK * LD;
 
     // S = Q K^T (16 x BK per warp)
     float s[S::NT_S][4];
@@ -319,8 +360,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
         uint32_t bf[4];
         ldmatrix_x4(bf, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                             kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], a, bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+        E::mma(s[2 * np], a, bf[0], bf[1]);
+        E::mma(s[2 * np + 1], a, bf[2], bf[3]);
       }
     }
 
@@ -375,25 +416,25 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      a[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
       for (int dp = 0; dp < S::NT_O / 2; ++dp) {
         uint32_t bf[4];
         ldmatrix_x4_trans(bf, vs + (kk * 16 + (lane & 7) +
                                     ((lane >> 3) & 1) * 8) * LDV +
                                   dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], a, bf[0], bf[1]);
-        mma_bf16(o[2 * dp + 1], a, bf[2], bf[3]);
+        E::mma(o[2 * dp], a, bf[0], bf[1]);
+        E::mma(o[2 * dp + 1], a, bf[2], bf[3]);
       }
     }
     __syncthreads();              // this stage consumed before reuse
   }
   cp_async_wait<0>();             // no copy outlives the block
 
-  // row sums over the quad, normalise, store bf16 pairs
+  // row sums over the quad, normalise, store pairs of T
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -408,43 +449,40 @@ __global__ void __launch_bounds__(TC_THREADS) flash_fwd_tc(
       lse[((size_t)b * Sq + qi) * H + h] =
           l[r] == 0.f ? __int_as_float(0x7f800000)
                       : m[r] * 0.6931471805599453f + logf(l[r]);
-    __nv_bfloat16* ob = out + ((size_t)b * Sq + qi) * o_row + (size_t)h * dvr;
+    T* ob = out + ((size_t)b * Sq + qi) * o_row + (size_t)h * dvr;
 #pragma unroll
     for (int n = 0; n < S::NT_O; ++n) {
       const int col = n * 8 + 2 * tg;
       if constexpr (RT) {         // columns past dr are not stored
         if (col >= dr) continue;
         if (dr % 2 == 0) {        // pairs stay 4-byte aligned
-          *reinterpret_cast<__nv_bfloat162*>(ob + col) =
-              __floats2bfloat162_rn(o[n][2 * r] * inv,
-                                    o[n][2 * r + 1] * inv);
+          *reinterpret_cast<typename E::T2*>(ob + col) =
+              E::pair(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
         } else {
-          ob[col] = __float2bfloat16_rn(o[n][2 * r] * inv);
-          if (col + 1 < dr)
-            ob[col + 1] = __float2bfloat16_rn(o[n][2 * r + 1] * inv);
+          ob[col] = E::one(o[n][2 * r] * inv);
+          if (col + 1 < dr) ob[col + 1] = E::one(o[n][2 * r + 1] * inv);
         }
       } else {
-        *reinterpret_cast<__nv_bfloat162*>(ob + col) =
-            __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+        *reinterpret_cast<typename E::T2*>(ob + col) =
+            E::pair(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
       }
     }
   }
 }
 
-template <int DQK, int DV, bool RT = false>
+template <typename T, int DQK, int DV, bool RT = false>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       float* lse, int B, int Sq, int Skv, int H, int Hkv,
                       int causal, int window, int q_offset, float scale,
                       int dr, cudaStream_t stream) {
   const size_t smem = TcShape<DQK, DV>::SMEM;
-  auto kern = flash_fwd_tc<DQK, DV, RT>;
+  auto kern = flash_fwd_tc<T, DQK, DV, RT>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(H, (Sq + BQ - 1) / BQ, B);
   kern<<<grid, TC_THREADS, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, Sq, Skv, H, Hkv,
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, Sq, Skv, H, Hkv,
       causal, window, q_offset, scale * 1.4426950408889634f, dr);
   return cudaGetLastError();
 }
@@ -637,14 +675,14 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+#define REPRO_FA_ARGS                                                        \
+  q, k, v, out, (float*)lse, B, Sq, Skv, H, Hkv, causal, window, q_offset,   \
+      scale, dh, s
 #define REPRO_FA_GO(DQK, DV, RT)                                             \
-  return (int)(dtype == 0                                                    \
-                   ? launch_fma<DQK, DV, RT>(q, k, v, out, (float*)lse, B,   \
-                                             Sq, Skv, H, Hkv, causal,        \
-                                             window, q_offset, scale, dh, s) \
-                   : launch_tc<DQK, DV, RT>(q, k, v, out, (float*)lse, B,    \
-                                            Sq, Skv, H, Hkv, causal, window, \
-                                            q_offset, scale, dh, s));
+  return (int)(dtype == 0   ? launch_fma<DQK, DV, RT>(REPRO_FA_ARGS)         \
+               : dtype == 1 ? launch_tc<__nv_bfloat16, DQK, DV, RT>(         \
+                                  REPRO_FA_ARGS)                             \
+                            : launch_tc<__half, DQK, DV, RT>(REPRO_FA_ARGS));
 
 // A uniform head dim 1..256 on its class instantiation, the least class
 // width that holds it.
@@ -666,8 +704,9 @@ static int launch_class(const void* q, const void* k, const void* v,
 }
 
 // dh: the q/k head dim; dv: the v/out head dim.  dtype: 0 = float32 (CUDA
-// cores), 1 = bfloat16 (tensor cores).  window <= 0 means no window.  lse:
-// null, or an fp32 (B, Sq, H) buffer for each row's log-sum-exp.
+// cores), 1 = bfloat16, 2 = float16 (tensor cores).  window <= 0 means no
+// window.  lse: null, or an fp32 (B, Sq, H) buffer for each row's
+// log-sum-exp.
 // Returns cudaGetLastError() after the launch (0 = success), or
 // cudaErrorInvalidValue for a (dh, dv) pair the kernel does not take: an
 // unequal pair other than the two instantiated, or a head dim outside
@@ -681,7 +720,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_FA_LAUNCH(DQK, DV) \
   if (dh == DQK && dv == DV) REPRO_FA_GO(DQK, DV, false)
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype < 0 || dtype > 2) return (int)cudaErrorInvalidValue;
   REPRO_FA_LAUNCH(16, 16)
   REPRO_FA_LAUNCH(24, 16)
   REPRO_FA_LAUNCH(64, 64)
@@ -694,3 +733,4 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                       window, q_offset, scale, dtype, s);
 }
 #undef REPRO_FA_GO
+#undef REPRO_FA_ARGS

@@ -36,10 +36,10 @@
 //     and a popcount a warp); a span with no valid row writes the empty
 //     partial (m = -1e30, l = 0, acc = 0) and exits;
 //   * the listed rows are staged CH at a time in their own dtype (bf16
-//     stays bf16), read in place through the strides, by 16-byte cp.async,
-//     double buffered, so the next rows land while the current ones are
-//     used; rows that are not 16-byte aligned (odd dh, odd strides) take a
-//     branch of the same kernel with element loads;
+//     and fp16 stay 16-bit), read in place through the strides, by
+//     16-byte cp.async, double buffered, so the next rows land while the
+//     current ones are used; rows that are not 16-byte aligned (odd dh,
+//     odd strides) take a branch of the same kernel with element loads;
 //   * the block's warps are spread over the keys, not the heads: a key
 //     group of LPK lanes owns one key at a time, each lane 8 of its dims,
 //     so a key's score is computed once for all the block's heads (a dot
@@ -268,7 +268,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.  Strides
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  window <= 0 means no
+// window.  Strides
 // are in elements; the head dim must be contiguous.  kpos_sb / cur_sb are 0
 // for the shared (S,) track and scalar cur, S and 1 for the per-slot
 // layout.  The rows are cut into n_split spans of `span` rows; the split
@@ -299,6 +300,8 @@ extern "C" int repro_isp_decode(const void* q, const void* k, const void* v,
     e = launch<float>(a, s);
   else if (dtype == 1)
     e = launch<__nv_bfloat16>(a, s);
+  else if (dtype == 2)
+    e = launch<__half>(a, s);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

@@ -20,11 +20,12 @@
 //   * no panel: a (V_loc, 512) slice of the table does not fit in shared
 //     memory and is not needed — a gather reads each wanted row once from
 //     device memory;
-//   * a row is cut into units — 16-byte vectors (8 bf16 or 4 fp32) where
-//     the table, the output and D allow it, single elements otherwise (the
-//     scalar path, e.g. D = 3841) — and a work item is one (row, tile of
-//     THREADS * U units); thread t of a tile takes units t, t + THREADS,
-//     ..., so neighbouring threads touch neighbouring addresses;
+//   * a row is cut into units — 16-byte vectors (8 bf16 or fp16, 4 fp32)
+//     where the table, the output and D allow it, single elements
+//     otherwise (the scalar path, e.g. D = 3841) — and a work item is one
+//     (row, tile of THREADS * U units); thread t of a tile takes units t,
+//     t + THREADS, ..., so neighbouring threads touch neighbouring
+//     addresses;
 //   * a thread issues all U loads of its item before any store and holds
 //     them in registers, so a call's loads go out together in one round
 //     trip: at a decode step U = 1 spreads 8 rows over 32 blocks on as many
@@ -38,8 +39,11 @@
 //     2.01 GB, past 2^31 bytes.
 // It launches on the caller's stream and allocates nothing.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -50,6 +54,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -57,6 +62,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // one unit: a 16-byte vector of T, or one T (the scalar path)
@@ -87,6 +96,14 @@ struct Unit<T, true> {
       f.z *= w;
       f.w *= w;
       return *reinterpret_cast<uint4*>(&f);
+    } else if constexpr (std::is_same_v<T, __half>) {
+      __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float2 f = __half22float2(h[j]);
+        h[j] = __floats2half2_rn(f.x * w, f.y * w);
+      }
+      return v;
     } else {
       __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
@@ -178,10 +195,10 @@ cudaError_t launch(const void* table, const void* ids, const void* w,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  weights may be null.  vec: 16-byte
-// units (1) or elements (0); u: units a thread per item (1, 2 or 4);
-// tiles: items a row; grid: blocks.  Returns the cudaError_t of the launch
-// (0 = success).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  weights may be null.
+// vec: 16-byte units (1) or elements (0); u: units a thread per item (1, 2
+// or 4); tiles: items a row; grid: blocks.  Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int repro_isp_gather(const void* table, const void* ids,
                                 const void* weights, void* out, long long n,
                                 long long v_loc, int d, long long off,
@@ -196,5 +213,8 @@ extern "C" int repro_isp_gather(const void* table, const void* ids,
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(table, ids, weights, out, n, v_loc, d,
                                       off, vec, u, tiles, grid, s);
+  if (dtype == 2)
+    return (int)launch<__half>(table, ids, weights, out, n, v_loc, d, off,
+                               vec, u, tiles, grid, s);
   return (int)cudaErrorInvalidValue;
 }

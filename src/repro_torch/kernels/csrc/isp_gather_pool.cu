@@ -39,10 +39,10 @@
 //     float4 (sm_90): a sentiment review's 12 ids are one add a column
 //     group, not twelve.  Unsorted segments stay right: each run still adds
 //     once; a run cut by a share's edge adds once on each side;
-//   * rows load as 16-byte (fp32) or 8-byte (bf16) vectors of four columns,
-//     UNROLL rows in flight a lane; a D that four does not divide, or a
-//     table not aligned to four elements, takes the scalar path (one column
-//     a lane, scalar loads and atomics);
+//   * rows load as 16-byte (fp32) or 8-byte (bf16, fp16) vectors of four
+//     columns, UNROLL rows in flight a lane; a D that four does not
+//     divide, or a table not aligned to four elements, takes the scalar
+//     path (one column a lane, scalar loads and atomics);
 //   * row offsets are 64-bit.
 // What holds it at the sentiment batch (480,000 ids, 40,000 reviews): the
 // launch, the fill and the grid sync are about a third of a call; the walk
@@ -55,6 +55,7 @@
 // and allocates nothing.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,8 +74,8 @@ struct Cols {
   float v[C];
 };
 
-// the C columns of a lane, as fp32: one 16-byte (fp32) or 8-byte (bf16)
-// load of four, or one element
+// the C columns of a lane, as fp32: one 16-byte (fp32) or 8-byte (bf16,
+// fp16) load of four, or one element
 template <int C>
 __device__ __forceinline__ Cols<C> load_cols(const float* p) {
   Cols<C> x;
@@ -104,6 +105,22 @@ __device__ __forceinline__ Cols<C> load_cols(const __nv_bfloat16* p) {
     x.v[3] = b.y;
   } else {
     x.v[0] = __bfloat162float(*p);
+  }
+  return x;
+}
+template <int C>
+__device__ __forceinline__ Cols<C> load_cols(const __half* p) {
+  Cols<C> x;
+  if constexpr (C == 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+    x.v[0] = a.x;
+    x.v[1] = a.y;
+    x.v[2] = b.x;
+    x.v[3] = b.y;
+  } else {
+    x.v[0] = __half2float(*p);
   }
   return x;
 }
@@ -322,8 +339,8 @@ cudaError_t launch(const void* table, const void* ids, const void* segs,
                    const void* w, void* out, long long n, int v_loc, int d,
                    long long off, int n_seg, int span, int group, int cols,
                    cudaStream_t s) {
-  // four columns load as one 16-byte (fp32) or 8-byte (bf16) vector; the
-  // zero-fill and the adds are 16-byte
+  // four columns load as one 16-byte (fp32) or 8-byte (bf16, fp16) vector;
+  // the zero-fill and the adds are 16-byte
   if (cols == 4 && (d % 4 || (uintptr_t)table % (4 * sizeof(T)) ||
                     (uintptr_t)out % 16))
     return cudaErrorInvalidValue;
@@ -339,9 +356,9 @@ cudaError_t launch(const void* table, const void* ids, const void* segs,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  weights may be null; n may be 0 (out
-// is then only zero-filled).  span: ids a range (<= 1024); group: lanes a
-// group (<= 256); cols: columns a lane (4 or 1).  Returns the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  weights may be null; n
+// may be 0 (out is then only zero-filled).  span: ids a range (<= 1024);
+// group: lanes a group (<= 256); cols: columns a lane (4 or 1).  Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int repro_isp_gather_pool(const void* table, const void* ids,
                                      const void* segs, const void* weights,
@@ -361,5 +378,8 @@ extern "C" int repro_isp_gather_pool(const void* table, const void* ids,
     return (int)launch<__nv_bfloat16>(table, ids, segs, weights, out, n,
                                       (int)v_loc, d, off, n_seg, span, group,
                                       cols, s);
+  if (dtype == 2)
+    return (int)launch<__half>(table, ids, segs, weights, out, n, (int)v_loc,
+                               d, off, n_seg, span, group, cols, s);
   return (int)cudaErrorInvalidValue;
 }

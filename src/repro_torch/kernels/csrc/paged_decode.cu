@@ -19,10 +19,10 @@
 //     block serves up to 8 query heads of one kv head (2 when the group
 //     has at most 2) over its span; a span past the slot's last valid key
 //     (or before its window) writes the empty partial at once;
-//   * a page is staged in the input dtype (bf16 stays bf16) by 16-byte
-//     cp.async copies, double buffered, so the next page lands while the
-//     current one is used; unallocated pages (-1) are never loaded and the
-//     scratch page P is never read;
+//   * a page is staged in the input dtype (bf16 and fp16 stay 16-bit) by
+//     16-byte cp.async copies, double buffered, so the next page lands
+//     while the current one is used; unallocated pages (-1) are never
+//     loaded and the scratch page P is never read;
 //   * the block's warps are spread over the keys, not the heads: a key
 //     group of LPK lanes owns one key at a time, each lane 8 of its dims,
 //     so a key's score is computed once for all the block's heads (a dot
@@ -263,7 +263,8 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window <= 0 means no window.  The key
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  window <= 0 means no
+// window.  The key
 // axis is cut into n_split spans of `span` logical pages; the split
 // partials go to the fp32 scratch pacc (B, H, n_split, dh), pl and pm
 // (B, H, n_split) and a second pass merges them into acc, l, m.  Returns
@@ -286,6 +287,9 @@ extern "C" int repro_paged_decode(const void* q, const void* kpool,
     e = launch<__nv_bfloat16>(q, kpool, vpool, pages, cur, pa, ls, ms, B, H,
                               Hkv, dh, ps, maxp, window, span, n_split, scale,
                               s);
+  else if (dtype == 2)
+    e = launch<__half>(q, kpool, vpool, pages, cur, pa, ls, ms, B, H, Hkv, dh,
+                       ps, maxp, window, span, n_split, scale, s);
   else
     e = cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;

@@ -5,7 +5,8 @@
 // headers' bytes too).
 //
 // Both run pass 1 with grid (B, Hkv * head chunks, n_split) and NT threads:
-// the block stages its span's keys in their own dtype (16-byte cp.async,
+// the block stages its span's keys in their own dtype (fp32, bf16 or fp16;
+// the loaders widen each to fp32 in registers) (16-byte cp.async,
 // double buffered) and spreads its warps over the keys: a key group of LPK
 // lanes owns one key at a time, each lane 8 of its dims, so a key's score
 // is computed once for all the block's GC query heads.  Each (warp, key
@@ -22,6 +23,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,13 +51,28 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
   }
 }
 
+__device__ __forceinline__ void load8(const __half* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ void set_zero(float& x) { x = 0.f; }
 __device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
   x = __float2bfloat16(0.f);
+}
+__device__ __forceinline__ void set_zero(__half& x) {
+  x = __float2half(0.f);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

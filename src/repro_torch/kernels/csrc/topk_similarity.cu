@@ -8,8 +8,8 @@
 //
 // The queries come in fp32 and each block normalises its own (q^ =
 // q / max(|q|, 1e-9), as the Pallas wrapper does outside its kernel); the
-// corpus is read once, as it is stored (fp32 or bf16), with no normalised
-// copy.  For each query it finds the k best (score, id) pairs of
+// corpus is read once, as it is stored (fp32, bf16 or fp16), with no
+// normalised copy.  For each query it finds the k best (score, id) pairs of
 //   s = (q^ . c) / max(|c|, 1e-9)
 // over the corpus rows, in the order: higher score first, and on equal
 // scores the lower id first (jax.lax.top_k's order).  |c| comes from the
@@ -19,13 +19,19 @@
 // 2QND flops against reading the corpus once (ND * itemsize bytes), Q / 2
 // flops a byte in fp32.  The product runs on the tensor cores at fp32
 // accuracy (a one-pass TF32 product keeps ~1e-3 and would miss the
-// scores' 1e-5 tolerance), so it costs three products:
+// scores' 1e-5 tolerance), so it costs three products (two for fp16):
 //   * fp32 corpus, 3xTF32 on mma.sync m16n8k8: a = a_hi + a_lo and
 //     b = b_hi + b_lo split in registers (cvt.rna.tf32), and
 //     a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (3 * 2QND flops at 495 TF/s);
 //   * bf16 corpus, exact in bf16: q^ is split into three bf16 parts
 //     (h + m + l holds its 24 bits) and c.q^ ~ c.l + c.m + c.h on mma.sync
-//     m16n8k16 with fp32 accumulation (3 * 2QND flops at 989 TF/s).
+//     m16n8k16 with fp32 accumulation (3 * 2QND flops at 989 TF/s);
+//   * fp16 corpus, 2xTF32 on mma.sync m16n8k8: an fp16 value (11
+//     significant bits, a narrower exponent) is a TF32 value exactly, so
+//     the staged corpus enters the product whole and only q^ is split,
+//     c.q^ ~ c.b_lo + c.b_hi (2 * 2QND flops at 495 TF/s).  Splitting q^
+//     into fp16 parts instead would lose bits: a normalised query's third
+//     part lies near 2^-22, below fp16's smallest normal.
 // At Q = 50 the corpus bytes bound it, at Q = 256 the operations (3xTF32).
 // Measured on the card (PERF.md), neither does: the running selection
 // takes most of pass 1 at Q = 50, and mma.sync's rate (not wgmma's peak)
@@ -78,6 +84,7 @@
 // Both passes launch on the caller's stream; the wrapper allocates the
 // partial lists.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -95,18 +102,29 @@ constexpr int NOID = 0x7fffffff;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;
 
-// The product's route, by the corpus dtype.
+// The product's route, by the corpus dtype.  PAD / QPAD: elements past a
+// staged corpus / query row (row strides of 4 (mod 8) words, so the
+// fragment loads do not conflict); EXACT: a corpus value is a TF32 value
+// as it is, so it enters the TF32 product whole and only q^ is split.
 template <typename T>
 struct Route;
 template <>
 struct Route<float> {              // 3xTF32 on mma.sync m16n8k8
-  static constexpr int KSTEP = 8, PAD = 4, QPARTS = 1;
+  static constexpr int KSTEP = 8, PAD = 4, QPAD = 4, QPARTS = 1;
+  static constexpr bool EXACT = false;
   using QT = float;                // staged queries: q^ itself
 };
 template <>
 struct Route<__nv_bfloat16> {      // bf16x3 on mma.sync m16n8k16
-  static constexpr int KSTEP = 16, PAD = 8, QPARTS = 3;
+  static constexpr int KSTEP = 16, PAD = 8, QPAD = 8, QPARTS = 3;
+  static constexpr bool EXACT = false;
   using QT = __nv_bfloat16;        // staged queries: q^'s three parts
+};
+template <>
+struct Route<__half> {             // 2xTF32 on mma.sync m16n8k8
+  static constexpr int KSTEP = 8, PAD = 8, QPAD = 4, QPARTS = 1;
+  static constexpr bool EXACT = true;   // fp16 values are TF32 values
+  using QT = float;                // staged queries: q^ itself
 };
 
 // Shared memory: two stages (a corpus tile, or the tile's scores once the
@@ -118,19 +136,20 @@ struct Smem {
   using R = Route<T>;
   using QT = typename R::QT;
   static constexpr int LDC = KC + R::PAD;        // staged corpus row
+  static constexpr int LDQC = KC + R::QPAD;      // staged query chunk row
   static constexpr size_t TILE = (size_t)CT * LDC * sizeof(T);
   static constexpr size_t SCORES = (size_t)QB * SLD * sizeof(float);
   static constexpr size_t BODY = TILE > SCORES ? TILE : SCORES;
-  // QCH: the unit's query chunk [parts][QB][LDC], after the tile
+  // QCH: the unit's query chunk [parts][QB][LDQC], after the tile
   static constexpr size_t QCHUNK =
-      QCH ? (size_t)R::QPARTS * QB * LDC * sizeof(QT) : 0;
+      QCH ? (size_t)R::QPARTS * QB * LDQC * sizeof(QT) : 0;
   static constexpr size_t STAGE = BODY + QCHUNK;
   // BIG: a warp's candidates of one query and tile, as offered and sorted
   static constexpr size_t CAND = BIG ? (size_t)NWARP * 4 * CT * 4 : 0;
   __host__ __device__ static int dp(int d) {     // D padded to the k-step
     return (d + R::KSTEP - 1) / R::KSTEP * R::KSTEP;
   }
-  __host__ __device__ static int ldq(int d) { return dp(d) + R::PAD; }
+  __host__ __device__ static int ldq(int d) { return dp(d) + R::QPAD; }
   __host__ __device__ static size_t whole(int d) {   // queries staged whole
     return QCH ? 0 : (size_t)R::QPARTS * QB * ldq(d) * sizeof(QT);
   }
@@ -287,6 +306,10 @@ __device__ __forceinline__ void set_zero(float& x) { x = 0.f; }
 __device__ __forceinline__ void set_zero(__nv_bfloat16& x) {
   x = __float2bfloat16(0.f);
 }
+__device__ __forceinline__ void set_zero(__half& x) { x = __float2half(0.f); }
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 // x = hi + lo with both parts in tf32 (hi keeps 11 significant bits, lo the
 // next 11)
@@ -375,12 +398,12 @@ __global__ void __launch_bounds__(NTH, 2) topk_partial_kernel(
   using SM = Smem<T, QCH, BIG>;
   using R = typename SM::R;
   using QT = typename R::QT;
-  constexpr int LDC = SM::LDC;
+  constexpr int LDC = SM::LDC, LDQC = SM::LDQC;
   constexpr int EPC = 16 / sizeof(T);     // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
   const int dp = SM::dp(d);
-  // the staged queries' row pitch: whole rows, or a chunk's LDC
-  const int ldq = QCH ? LDC : SM::ldq(d);
+  // the staged queries' row pitch: whole rows, or a chunk's LDQC
+  const int ldq = QCH ? LDQC : SM::ldq(d);
   const int nkc = (dp + KC - 1) / KC;     // stages a tile takes
   QT* qs = reinterpret_cast<QT*>(smem + 2 * SM::STAGE);  // [parts][QB][ldq]
 
@@ -400,10 +423,10 @@ __global__ void __launch_bounds__(NTH, 2) topk_partial_kernel(
   if constexpr (QCH) {
     for (int st = 0; st < 2; ++st) {
       QT* qc = reinterpret_cast<QT*>(smem + st * SM::STAGE + SM::BODY);
-      for (int i = tid; i < R::QPARTS * (QB - nqb) * LDC; i += NTH) {
-        const int p = i / ((QB - nqb) * LDC);
-        const int rem = i - p * (QB - nqb) * LDC;
-        set_zero(qc[(p * QB + nqb) * LDC + rem]);
+      for (int i = tid; i < R::QPARTS * (QB - nqb) * LDQC; i += NTH) {
+        const int p = i / ((QB - nqb) * LDQC);
+        const int rem = i - p * (QB - nqb) * LDQC;
+        set_zero(qc[(p * QB + nqb) * LDQC + rem]);
       }
     }
   }
@@ -465,7 +488,7 @@ __global__ void __launch_bounds__(NTH, 2) topk_partial_kernel(
       for (int i = tid; i < R::QPARTS * nqb * cpr; i += NTH) {
         const int pr = i / cpr, e = (i - pr * cpr) * QEPC;
         const int p = pr / nqb, r = pr - p * nqb;
-        cp_async16(qc + (p * QB + r) * LDC + e,
+        cp_async16(qc + (p * QB + r) * LDQC + e,
                    qn + ((size_t)p * nq + q0 + r) * dp + kc0 + e);
       }
     }
@@ -529,12 +552,18 @@ __global__ void __launch_bounds__(NTH, 2) topk_partial_kernel(
           uint32_t ah[2][4], al[2][4];
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            const float* ar = cs + (rg * 32 + i * 16 + g) * LDC + k0 + t;
-            const float a[4] = {ar[0], ar[8 * LDC], ar[4], ar[8 * LDC + 4]};
+            const T* ar = cs + (rg * 32 + i * 16 + g) * LDC + k0 + t;
+            const float a[4] = {to_f(ar[0]), to_f(ar[8 * LDC]), to_f(ar[4]),
+                                to_f(ar[8 * LDC + 4])};
             n2[i][0] = fmaf(a[2], a[2], fmaf(a[0], a[0], n2[i][0]));
             n2[i][1] = fmaf(a[3], a[3], fmaf(a[1], a[1], n2[i][1]));
 #pragma unroll
-            for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[i][e], al[i][e]);
+            for (int e = 0; e < 4; ++e) {
+              if constexpr (R::EXACT)
+                ah[i][e] = __float_as_uint(a[e]);
+              else
+                split_tf32(a[e], ah[i][e], al[i][e]);
+            }
           }
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
@@ -546,7 +575,8 @@ __global__ void __launch_bounds__(NTH, 2) topk_partial_kernel(
             split_tf32(br[4], bh[1], bl[1]);
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
-              mma_tf32(acc[i][j], al[i], bh[0], bh[1]);
+              if constexpr (!R::EXACT)
+                mma_tf32(acc[i][j], al[i], bh[0], bh[1]);
               mma_tf32(acc[i][j], ah[i], bl[0], bl[1]);
               mma_tf32(acc[i][j], ah[i], bh[0], bh[1]);
             }
@@ -831,15 +861,15 @@ cudaError_t launch_merge_sorted(const void* ps, const void* pi, void* out_s,
 }  // namespace
 
 // q (nq, d) fp32 queries (not normalised), contiguous; c (n, d) rows ldc
-// elements apart, fp32 (dtype 0) or bf16 (dtype 1); vec = 1 when d, ldc
-// and c's base allow 16-byte copies.  ps/pi (splits, nq, k) scratch;
-// out_s/out_i (nq, k); qn, for d > KC, the normalised queries' scratch
-// [parts][nq][dp] (1 part fp32, 3 bf16; dp = d padded to 8 / 16), else
-// unused.  Split j covers corpus rows [j * rows_per_split,
-// (j + 1) * rows_per_split).  k <= 1024; for k <= 32, splits * k <= 6144
-// (the merge pass's 48 KB), above, splits <= 128 and splits * k * 8 bytes
-// within a block's shared memory.  Returns the cudaError_t of the launches
-// (0 = success).
+// elements apart, fp32 (dtype 0), bf16 (dtype 1) or fp16 (dtype 2); vec = 1
+// when d, ldc and c's base allow 16-byte copies.  ps/pi (splits, nq, k)
+// scratch; out_s/out_i (nq, k); qn, for d > KC, the normalised queries'
+// scratch [parts][nq][dp] (1 part fp32 for an fp32 or fp16 corpus, 3 bf16
+// for a bf16 one; dp = d padded to 8 / 16), else unused.  Split j covers
+// corpus rows [j * rows_per_split, (j + 1) * rows_per_split).  k <= 1024;
+// for k <= 32, splits * k <= 6144 (the merge pass's 48 KB), above,
+// splits <= 128 and splits * k * 8 bytes within a block's shared memory.
+// Returns the cudaError_t of the launches (0 = success).
 extern "C" int repro_topk_similarity(const void* q, const void* c, void* ps,
                                      void* pi, void* out_s, void* out_i,
                                      const void* qn, int nq, int n, int d,
@@ -854,22 +884,21 @@ extern "C" int repro_topk_similarity(const void* q, const void* c, void* ps,
       (long long)splits * rows_per_split < n ||
       merge_smem > (big ? SMEM_MAX : 48 * 1024) ||
       (big && splits > SPLITS_BIG) || (d > KC && qn == nullptr) ||
-      (dtype != 0 && dtype != 1))
+      dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
+#define REPRO_TK_ARGS \
+  q, c, ps, pi, nq, n, d, ldc, k, splits, rows_per_split, vec, qn, s
   cudaError_t e;
   if (d <= KC && !big)            // the configs' shapes
-    e = dtype ? launch_partial<__nv_bfloat16, false, false>(
-                    q, c, ps, pi, nq, n, d, ldc, k, splits, rows_per_split,
-                    vec, qn, s)
-              : launch_partial<float, false, false>(
-                    q, c, ps, pi, nq, n, d, ldc, k, splits, rows_per_split,
-                    vec, qn, s);
+    e = dtype == 0   ? launch_partial<float, false, false>(REPRO_TK_ARGS)
+        : dtype == 1 ? launch_partial<__nv_bfloat16, false, false>(
+                           REPRO_TK_ARGS)
+                     : launch_partial<__half, false, false>(REPRO_TK_ARGS);
   else
-    e = dtype ? launch_wide<__nv_bfloat16>(q, c, ps, pi, nq, n, d, ldc, k,
-                                           splits, rows_per_split, vec, qn,
-                                           s)
-              : launch_wide<float>(q, c, ps, pi, nq, n, d, ldc, k, splits,
-                                   rows_per_split, vec, qn, s);
+    e = dtype == 0   ? launch_wide<float>(REPRO_TK_ARGS)
+        : dtype == 1 ? launch_wide<__nv_bfloat16>(REPRO_TK_ARGS)
+                     : launch_wide<__half>(REPRO_TK_ARGS);
+#undef REPRO_TK_ARGS
   if (e != cudaSuccess) return (int)e;
   if (big)
     return (int)launch_merge_sorted(ps, pi, out_s, out_i, nq, k, splits, s);

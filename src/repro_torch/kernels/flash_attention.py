@@ -5,9 +5,9 @@ Port of ``repro/kernels/flash_attention.py``: causal attention with an
 optional sliding window, ``q_offset`` and GQA (q head ``h`` reads kv head
 ``h // g``), online softmax with fp32 accumulation, output in q's dtype.
 The plain version is ``ref.chunked_attention`` (the forward of the
-reference's chunked path).  The kernel runs bfloat16 on the tensor cores
-(``mma.sync``) and float32 on the CUDA cores, so that fp32 keeps fp32
-products.
+reference's chunked path).  The kernel runs bfloat16 and float16 on the
+tensor cores (``mma.sync``, one template over the element type) and
+float32 on the CUDA cores, so that fp32 keeps fp32 products.
 
 The kernel takes every uniform head dim from 1 to ``MAX_HEAD_DIM`` (256),
 as the reference's kernel takes any: the GQA families' dims and the smoke
@@ -31,7 +31,6 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the widest uniform head dim the kernel's tiles take (its largest class)
 MAX_HEAD_DIM = 256
 # the (q/k head dim, v head dim) pairs that differ: deepseek-v2's MLA
@@ -70,18 +69,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None, q_offset: int = 0,
                     scale: Optional[float] = None, return_lse: bool = False):
     """Launch the CUDA kernel.  q: (B, Sq, H, dh); k: (B, Skv, Hkv, dh);
-    v: (B, Skv, Hkv, dv), contiguous CUDA tensors of one dtype (float32 or
-    bfloat16) on an sm_90 device, (dh, dv) as ``check_shapes`` takes them.  Returns
-    (B, Sq, H, dv) in q's dtype, or with ``return_lse`` (out, lse (B, Sq,
-    H) float32); ``scale`` defaults to dh ** -0.5."""
+    v: (B, Skv, Hkv, dv), contiguous CUDA tensors of one dtype (float32,
+    bfloat16 or float16) on an sm_90 device, (dh, dv) as ``check_shapes``
+    takes them.  Returns (B, Sq, H, dv) in q's dtype, or with
+    ``return_lse`` (out, lse (B, Sq, H) float32); ``scale`` defaults to
+    dh ** -0.5."""
     check_shapes(q, k, v)
     B, Sq, H, dh = q.shape
     Skv, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    code = build.dtype_code("flash_attention", q, k, v)
     build.check_device(q)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q/k/v must share one dtype of "
-                        f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
     if window is not None and window <= 0:
         raise ValueError(f"flash_attention: window must be positive, got "
                          f"{window}")
@@ -103,6 +100,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
         None if lse is None else lse.data_ptr(),
         B, Sq, Skv, H, Hkv, dh, dv, int(causal),
         -1 if window is None else int(window), int(q_offset), float(scale),
-        _DTYPES[q.dtype], stream)
+        code, stream)
     build.check_status("flash_attention", status)
     return (out, lse) if return_lse else out

@@ -27,7 +27,6 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256        # the widest lane class: 32 lanes of 8 dims a key
 # The split grid aims at BLOCKS_PER_SM blocks on each SM.  Ring rows are not
 # sorted by position, so every span reads its positions and may find few
@@ -88,15 +87,12 @@ def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
     ``decode_partial_ref``: q (B, H, dh); k/v (B, S, Hkv, dh) with a
     contiguous head dim (read in place by their strides); kpos (S,) or
     (B, S) int32; cur_pos scalar or (B,).  q, k and v share one dtype
-    (float32 or bfloat16) on an sm_90 device.  Returns (acc (B,H,dh) f32,
-    l (B,H) f32, m (B,H) f32)."""
+    (float32, bfloat16 or float16) on an sm_90 device.  Returns (acc
+    (B,H,dh) f32, l (B,H) f32, m (B,H) f32)."""
     B, H, dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    code = build.dtype_code("isp_decode", q, k, v)
     build.check_device(q)
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"isp_decode: q/k/v must share one dtype of "
-                        f"{list(_DTYPES)}, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
     check_shapes(q, k, v, kpos)
     if window is not None and window <= 0:
         raise ValueError(f"isp_decode: window must be positive, got {window}")
@@ -132,6 +128,6 @@ def decode_partial(q, k, v, kpos, cur_pos, *, window: Optional[int] = None,
         *k.stride()[:3], *v.stride()[:3],
         S if kpos.dim() == 2 else 0, 1 if cur.dim() == 1 else 0,
         -1 if window is None else int(window), span, n_split, vec,
-        float(scale), _DTYPES[q.dtype], stream)
+        float(scale), code, stream)
     build.check_status("isp_decode", status)
     return acc, l, m

@@ -10,17 +10,20 @@ rows do not.
 
 ``isp_gather`` launches the kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to ``isp_gather_ref``.  The two differ
-only with weights in bfloat16: the kernel multiplies in fp32 and rounds
-once, as the Pallas kernel does, where the plain version (a copy of the
-reference's ``ref.isp_gather``) multiplies in the table's dtype; they agree
-within one bf16 ulp there, and exactly everywhere else.
+only with weights in bfloat16 or float16: the kernel multiplies in fp32
+and rounds once, as the Pallas kernel does, where the plain version (a
+copy of the reference's ``ref.isp_gather``) multiplies in the table's
+dtype; they agree within one ulp of that dtype there, and exactly
+everywhere else.  ``shard_rows`` (the reference's plain path's argument)
+narrows the shard to its first rows; the kernel takes it as its row
+count.
 
 Port of ``repro/kernels/isp_gather.py::isp_gather_pool`` too: the same
 masked gather summed per segment into (num_segments, D) fp32, segments
 outside [0, num_segments) dropped (the RecSSD embedding bag).  The kernel
 sums with fp32 atomics, in an order that changes from run to run, so it
 agrees with the plain version within fp32 rounding of the sums; with
-weights in bfloat16 each term may differ by one bf16 ulp as above.  It
+weights in a 16-bit dtype each term may differ by one ulp as above.  It
 writes every element of its output itself (one device operation a call).
 
 Both launches follow a plan computed here from shapes and the SM count
@@ -34,8 +37,6 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import build, ref
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 isp_gather_ref = ref.isp_gather
 isp_gather_pool_ref = ref.isp_gather_pool
@@ -108,15 +109,16 @@ def _num_sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check_table(name: str, table) -> None:
+def _check_table(name: str, table) -> int:
+    """Raise unless ``table`` is a contiguous (V, D) matrix of a kernel
+    dtype on an sm_90 device; returns the dtype's code."""
+    code = build.dtype_code(name, table)
     build.check_device(table)
-    if table.dtype not in _DTYPES:
-        raise TypeError(f"{name}: table dtype must be one of "
-                        f"{list(_DTYPES)}, got {table.dtype}")
     if table.dim() != 2 or not table.is_contiguous():
         raise ValueError(f"{name}: table must be a contiguous (V, D) "
                          f"matrix, got shape {tuple(table.shape)} strides "
                          f"{table.stride()}")
+    return code
 
 
 def _ids32(name: str, what: str, t, device):
@@ -140,13 +142,16 @@ def _weights32(name: str, weights, indices, device):
     return weights.reshape(-1).to(torch.float32).contiguous()
 
 
-def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
-    """Launch the CUDA kernel.  table: (V_loc, D) float32 or bfloat16,
-    contiguous, on an sm_90 device; indices: (...) integer global ids;
-    weights: optional (...) per-index scale.  Returns (..., D) in the
-    table's dtype."""
-    _check_table("isp_gather", table)
-    v_loc, d = table.shape
+def isp_gather(table, indices, *, shard_offset: int = 0, weights=None,
+               shard_rows=None):
+    """Launch the CUDA kernel.  table: (V_loc, D) float32, bfloat16 or
+    float16, contiguous, on an sm_90 device; indices: (...) integer global
+    ids; weights: optional (...) per-index scale; shard_rows: the shard's
+    rows, ``V_loc`` by default (ids at or past ``shard_offset +
+    shard_rows`` give zeros).  Returns (..., D) in the table's dtype."""
+    code = _check_table("isp_gather", table)
+    d = table.shape[1]
+    v_loc = ref.shard_rows_of(table, shard_rows)
     ids = _ids32("isp_gather", "indices", indices, table.device)
     w = _weights32("isp_gather", weights, indices, table.device)
     n = ids.numel()
@@ -161,18 +166,18 @@ def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
     status = build.entry("isp_gather")(
         table.data_ptr(), ids.data_ptr(), None if w is None else w.data_ptr(),
         out.data_ptr(), n, v_loc, d, int(shard_offset), int(vec), plan.u,
-        plan.tiles, plan.grid, _DTYPES[table.dtype], stream)
+        plan.tiles, plan.grid, code, stream)
     build.check_status("isp_gather", status)
     return out.reshape(tuple(indices.shape) + (d,))
 
 
 def isp_gather_pool(table, indices, segment_ids, num_segments: int, *,
                     shard_offset: int = 0, weights=None):
-    """Launch the CUDA kernel.  table: (V_loc, D) float32 or bfloat16,
-    contiguous, on an sm_90 device; indices, segment_ids: (N,) integers;
-    weights: optional (N,) per-index scale.  Returns (num_segments, D)
-    float32."""
-    _check_table("isp_gather_pool", table)
+    """Launch the CUDA kernel.  table: (V_loc, D) float32, bfloat16 or
+    float16, contiguous, on an sm_90 device; indices, segment_ids: (N,)
+    integers; weights: optional (N,) per-index scale.  Returns
+    (num_segments, D) float32."""
+    code = _check_table("isp_gather_pool", table)
     v_loc, d = table.shape
     if segment_ids.shape != indices.shape:
         raise ValueError(f"isp_gather_pool: segment_ids "
@@ -198,6 +203,6 @@ def isp_gather_pool(table, indices, segment_ids, num_segments: int, *,
         table.data_ptr(), ids.data_ptr(), segs.data_ptr(),
         None if w is None else w.data_ptr(), out.data_ptr(), n, v_loc, d,
         int(shard_offset), int(num_segments), plan.span, plan.group,
-        plan.cols, _DTYPES[table.dtype], stream)
+        plan.cols, code, stream)
     build.check_status("isp_gather_pool", status)
     return out

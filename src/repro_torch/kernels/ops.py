@@ -150,12 +150,12 @@ def chunk_prefill_attention(q, k, v, kpos, qpos, *,
 
 
 @op_trace.kernel_site("isp_gather")
-def _isp_gather_fwd(table, indices, shard_offset, weights):
+def _isp_gather_fwd(table, indices, shard_offset, weights, shard_rows=None):
     if _on_cpu(table):
         return ig.isp_gather_ref(table, indices, shard_offset=shard_offset,
-                                 weights=weights)
+                                 weights=weights, shard_rows=shard_rows)
     return ig.isp_gather(table, indices, shard_offset=shard_offset,
-                         weights=weights)
+                         weights=weights, shard_rows=shard_rows)
 
 
 class _IspGather(torch.autograd.Function):
@@ -165,24 +165,26 @@ class _IspGather(torch.autograd.Function):
     Pallas backward for it: the output's gradient rows, scaled by
     ``weights`` where given, are summed into this shard's rows of the
     table for the ids it owns (a masked scatter-add, accumulated in
-    float32 and cast to the table's dtype); ids outside the shard add
-    zero.  ``weights`` gets the gradient rows' dot products with the
-    rows they scaled (zero outside the shard)."""
+    float32 and cast to the table's dtype); ids outside the shard (or past
+    its ``shard_rows``) add zero.  ``weights`` gets the gradient rows' dot
+    products with the rows they scaled (zero outside the shard)."""
 
     @staticmethod
-    def forward(ctx, table, indices, shard_offset, weights):
+    def forward(ctx, table, indices, shard_offset, weights, shard_rows):
         ctx.off = int(shard_offset)
+        ctx.rows = ref.shard_rows_of(table, shard_rows)
         ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
         ctx.save_for_backward(indices, weights,
                               table if ctx.needs_input_grad[3] else None)
-        return _isp_gather_fwd(table, indices, shard_offset, weights)
+        return _isp_gather_fwd(table, indices, shard_offset, weights,
+                               shard_rows)
 
     @staticmethod
     def backward(ctx, g):
         indices, weights, table = ctx.saved_tensors
         v_loc, d = ctx.table_shape
         local = indices.reshape(-1).long() - ctx.off
-        ok = (local >= 0) & (local < v_loc)
+        ok = (local >= 0) & (local < ctx.rows)
         rows = g.reshape(-1, d).float()
         dtable = dw = None
         if ctx.needs_input_grad[0]:
@@ -196,22 +198,28 @@ class _IspGather(torch.autograd.Function):
                            torch.where(ok[:, None], rows, 0.0))
             dtable = acc.to(ctx.table_dtype)
         if ctx.needs_input_grad[3]:
-            plain = ref.isp_gather(table, indices, ctx.off).float()
+            plain = ref.isp_gather(table, indices, ctx.off,
+                                   shard_rows=ctx.rows).float()
             dw = (g.float() * plain).sum(-1).to(weights.dtype)
-        return dtable, None, None, dw
+        return dtable, None, None, dw, None
 
 
-def isp_gather(table, indices, *, shard_offset: int = 0, weights=None):
+def isp_gather(table, indices, *, shard_offset: int = 0, shard_rows=None,
+               weights=None):
     """Masked shard-local row gather: ``table[id - shard_offset]`` for ids in
     this shard's rows, zeros elsewhere.  table (V_loc, D); indices (...)
-    int; weights optional (...).  Returns (..., D) in the table's dtype.
+    int; shard_rows: the shard's rows, at most (and by default) V_loc, as
+    the reference's plain path takes it (ids at or past ``shard_offset +
+    shard_rows`` give zeros; more than V_loc raises ValueError); weights
+    optional (...).  Returns (..., D) in the table's dtype.
     Differentiable in ``table`` and ``weights``: with grad enabled and
     either requiring it, the call goes through ``_IspGather`` (the same
     forward, a plain backward); otherwise the forward alone runs."""
     if torch.is_grad_enabled() and (table.requires_grad or (
             weights is not None and weights.requires_grad)):
-        return _IspGather.apply(table, indices, shard_offset, weights)
-    return _isp_gather_fwd(table, indices, shard_offset, weights)
+        return _IspGather.apply(table, indices, shard_offset, weights,
+                                shard_rows)
+    return _isp_gather_fwd(table, indices, shard_offset, weights, shard_rows)
 
 
 @op_trace.kernel_site("isp_gather_pool")

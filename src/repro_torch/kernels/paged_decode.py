@@ -31,7 +31,6 @@ from repro_torch.core import kv_pages
 from repro_torch.kernels import build, ref
 
 NEG_INF = ref.NEG_INF
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The split grid aims at BLOCKS_PER_SM blocks on each SM as if every slot
 # were full.  Slots are ragged: most spans hold no valid key and exit at
 # once, and the longest slot's span sets the time, so the spans are kept
@@ -129,15 +128,12 @@ def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
                          scale: Optional[float] = None):
     """Launch the CUDA kernel.  Same arguments and results as
     ``paged_decode_partial_ref``; every tensor must be a contiguous CUDA
-    tensor on an sm_90 device (q and pools float32 or bfloat16, pages and
-    cur_pos int32).  The pools are read in place, by their layout."""
+    tensor on an sm_90 device (q and pools one of float32, bfloat16 and
+    float16, pages and cur_pos int32).  The pools are read in place, by
+    their layout."""
     B, H, dh = q.shape
+    code = build.dtype_code("paged_decode", q, kpool, vpool)
     build.check_device(q)
-    if q.dtype not in _DTYPES or kpool.dtype != q.dtype \
-            or vpool.dtype != q.dtype:
-        raise TypeError(f"paged_decode: q/kpool/vpool must share one dtype "
-                        f"of {list(_DTYPES)}, got {q.dtype}, {kpool.dtype}, "
-                        f"{vpool.dtype}")
     check_shapes(q, kpool, vpool, pages)
     ps, Hkv = kpool.shape[1], kpool.shape[2]
     cur = torch.as_tensor(cur_pos, dtype=torch.int32, device=q.device)
@@ -172,6 +168,6 @@ def paged_decode_partial(q, kpool, vpool, pages, cur_pos, *,
         cur.data_ptr(), acc.data_ptr(), l.data_ptr(), m.data_ptr(),
         *(t.data_ptr() for t in scratch), B, H, Hkv, dh, ps, maxp,
         -1 if window is None else int(window), span, n_split, float(scale),
-        _DTYPES[q.dtype], stream)
+        code, stream)
     build.check_status("paged_decode", status)
     return acc, l, m

@@ -339,17 +339,30 @@ def combine_partials(acc, l, m, axis: int = 0):
     return acc / l[..., None]
 
 
-def isp_gather(table, indices, shard_offset: int = 0, weights=None):
+def shard_rows_of(table, shard_rows=None) -> int:
+    """The rows of ``table`` a gather may read: ``shard_rows``, or all of
+    them by default; raises ValueError past the table's rows."""
+    if shard_rows is None:
+        return table.shape[0]
+    if not 0 <= shard_rows <= table.shape[0]:
+        raise ValueError(f"isp_gather: shard_rows={shard_rows} must lie in "
+                         f"[0, {table.shape[0]}], the table's rows")
+    return int(shard_rows)
+
+
+def isp_gather(table, indices, shard_offset: int = 0, weights=None,
+               shard_rows=None):
     """Gather rows of a (local) table shard for global ``indices``.
 
-    Rows outside [shard_offset, shard_offset + V_local) contribute zeros —
-    summing across shards reconstructs the full gather.  This is the paper's
-    "send indexes, not data": indices travel, table rows do not.
+    Rows outside [shard_offset, shard_offset + shard_rows) contribute zeros
+    — summing across shards reconstructs the full gather.  This is the
+    paper's "send indexes, not data": indices travel, table rows do not.
 
     table: (V_local, D); indices: (...,) int; weights: optional (...,) scale,
-    applied in the table's dtype.  Returns (..., D) in the table's dtype.
+    applied in the table's dtype; shard_rows: at most V_local (the
+    default).  Returns (..., D) in the table's dtype.
     """
-    v_local = table.shape[0]
+    v_local = shard_rows_of(table, shard_rows)
     local = indices.long() - shard_offset
     in_range = (local >= 0) & (local < v_local)
     safe = torch.clamp(local, 0, v_local - 1)

@@ -7,7 +7,8 @@ queries in fp32 (eps 1e-9), as the Pallas wrapper does, and reads the
 corpus once, in its own dtype, taking each row's norm from its staged tile;
 it forms ``(q^ . c) / max(|c|, 1e-9)`` on the tensor cores
 at fp32 accuracy (3xTF32 for an fp32 corpus, three bf16 parts of q^ for a
-bf16 one), keeping each query's k best (score, id) pairs, the lower id
+bf16 one, two TF32 parts of q^ against the exact fp16 values for an fp16
+one), keeping each query's k best (score, id) pairs, the lower id
 first on equal scores (``jax.lax.top_k``'s order).  Only (Q, k) scores and
 ids leave the kernel.
 
@@ -58,9 +59,11 @@ def _splits(nq: int, n: int, k: int, sms: int):
 
 
 def topk_similarity(queries, corpus, k: int):
-    """Launch the CUDA kernel.  queries: (Q, D), corpus: (N, D), float32
-    or bfloat16 on one sm_90 device; 0 < k <= min(N, ``K_MAX``), any D.
-    Returns (scores float32 (Q, k), ids int32 (Q, k))."""
+    """Launch the CUDA kernel.  queries: (Q, D), corpus: (N, D), float32,
+    bfloat16 or float16 on one sm_90 device; 0 < k <= min(N, ``K_MAX``),
+    any D.  Returns (scores float32 (Q, k), ids int32 (Q, k))."""
+    build.dtype_code("topk_similarity", queries)
+    code = build.dtype_code("topk_similarity", corpus)
     build.check_device(queries)
     if queries.dim() != 2 or corpus.dim() != 2 or \
             queries.shape[1] != corpus.shape[1]:
@@ -70,15 +73,11 @@ def topk_similarity(queries, corpus, k: int):
     if corpus.device != queries.device:
         raise ValueError(f"topk_similarity: corpus must be on "
                          f"{queries.device}")
-    for name, t in (("queries", queries), ("corpus", corpus)):
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"topk_similarity: {name} must be float32 or "
-                            f"bfloat16, got {t.dtype}")
     (nq, d), n = queries.shape, corpus.shape[0]
     if not 0 < k <= min(n, K_MAX):
         raise ValueError(f"topk_similarity: k={k} must lie in [1, "
                          f"min(N={n}, {K_MAX})]")
-    bf16 = corpus.dtype == torch.bfloat16
+    bf16 = code == build.DTYPE_CODES["bfloat16"]
     if corpus.stride(1) != 1 or corpus.stride(0) < d:
         corpus = corpus.contiguous()      # the kernel reads rows in place
     qf = queries.float().contiguous()     # the kernel normalises them
@@ -95,15 +94,17 @@ def topk_similarity(queries, corpus, k: int):
     ps = torch.empty((splits, nq, k), dtype=torch.float32, device=dev)
     pi = torch.empty((splits, nq, k), dtype=torch.int32, device=dev)
     qn = None
-    if d > _KC:       # the normalised queries, staged a chunk at a time
+    if d > _KC:       # the normalised queries, staged a chunk at a time:
+        # three bf16 parts for a bf16 corpus, else q^ in fp32
         step = 16 if bf16 else 8            # the product's k-step
         qn = torch.empty((3 if bf16 else 1, nq, -(-d // step) * step),
-                         dtype=corpus.dtype, device=dev)
+                         dtype=torch.bfloat16 if bf16 else torch.float32,
+                         device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = build.entry("topk_similarity")(
         qf.data_ptr(), corpus.data_ptr(), ps.data_ptr(), pi.data_ptr(),
         scores.data_ptr(), ids.data_ptr(),
         None if qn is None else qn.data_ptr(), nq, n, d, ldc, k, splits,
-        rows, vec, int(bf16), stream)
+        rows, vec, code, stream)
     build.check_status("topk_similarity", status)
     return scores, ids

@@ -52,7 +52,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import dense_init, empty_param, rms_norm
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:

@@ -28,7 +28,8 @@ import torch
 
 from repro_torch import sharding as sh
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 @dataclass(frozen=True)

@@ -7,6 +7,9 @@ too.
   phase's sweep at groups up to 71, and refuse a head dim of 257 and the
   unequal (q/k, v) pairs other than (24, 16) and (192, 128), each with a
   message that names the limit.
+* The six wrappers' dtype check, which runs before the device check, takes
+  float16 beside float32 and bfloat16 and refuses float64 with a
+  TypeError naming the three.
 * The plain flash and paged decode at dh 80, 96 and 256, and at a group of
   48, against the JAX package: its jnp oracle and (float32) its Pallas
   kernel in interpret mode, as the reference's own tests run it, under
@@ -39,8 +42,10 @@ from repro.models import model as JM
 from repro.train.serve_loop import ServeEngine as JEngine
 from repro_torch.bridge import params_from_jax
 from repro_torch.config import reduced_config as t_reduced
+from repro_torch.kernels import build as t_build
 from repro_torch.kernels import flash_attention as t_flash
 from repro_torch.kernels import isp_decode as t_isp
+from repro_torch.kernels import isp_gather as t_ig
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import paged_decode as t_paged
 from repro_torch.kernels import topk_similarity as t_tk
@@ -153,6 +158,37 @@ def test_shape_checks_refuse_past_the_domain():
                              torch.zeros(1, 3, 4, dv))
     assert t_paged.staged_width(80) == 128 and t_paged.staged_width(37) == 64
     assert t_paged.staged_width(240) == 240
+
+
+def test_wrappers_take_float16_and_refuse_float64():
+    """Each CUDA wrapper's dtype check (which runs before it needs the
+    card) passes float16, so a CPU tensor then meets the device check;
+    float64 raises TypeError naming the three dtypes."""
+    for dt, err, match in ((torch.float16, ValueError, ON_CPU),
+                           (torch.float64, TypeError,
+                            r"\['float32', 'bfloat16', 'float16'\]")):
+        q, kv = torch.zeros(1, 3, 4, 16, dtype=dt), torch.zeros(
+            1, 3, 2, 16, dtype=dt)
+        qd, pool = torch.zeros(2, 4, 16, dtype=dt), torch.zeros(
+            5, 8, 2, 16, dtype=dt)
+        pages = torch.zeros(2, 3, dtype=torch.int32)
+        strip = torch.zeros(2, 8, 2, 16, dtype=dt)
+        table, ids = torch.zeros(10, 16, dtype=dt), torch.zeros(
+            4, dtype=torch.int32)
+        calls = (
+            lambda: t_flash.flash_attention(q, kv, kv),
+            lambda: t_paged.paged_decode_partial(qd, pool, pool, pages, 0),
+            lambda: t_isp.decode_partial(qd, strip, strip,
+                                         torch.zeros(8, dtype=torch.int32),
+                                         0),
+            lambda: t_ig.isp_gather(table, ids),
+            lambda: t_ig.isp_gather_pool(table, ids, ids, 2),
+            lambda: t_tk.topk_similarity(torch.zeros(2, 16), table, 3))
+        for call in calls:
+            with pytest.raises(err, match=match):
+                call()
+    assert t_build.DTYPE_CODES == {"float32": 0, "bfloat16": 1,
+                                   "float16": 2}
 
 
 # -- the plain versions against the JAX package -------------------------------
