@@ -84,10 +84,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 every step (nothing launched on the CPU); fp32 tokens
                 identical, bf16 flips only below BF16_FLIP_MARGIN; then
                 three steps of the train CLI's path (train_loop.train, 8 x
-                256, no warmup, one batch repeated) for reduced yi-9b and
-                deepseek-v2: finite losses that fall, flash (with lse, at
-                (16, 16) and (24, 16)) on every layer of every step, step
-                0's loss within SMOKE_LOSS_TOL of the CPU's;
+                256, no warmup, one batch repeated) for every reduced
+                config of configs.ASSIGNED (SMOKE_TRAIN_ARCHS: the
+                reduced Mamba, mLSTM and sLSTM backward too): finite
+                losses that fall, flash (with lse, at (16, 16) and (24,
+                16)) on every attention layer of every step and no other
+                kernel, step 0's loss within SMOKE_LOSS_TOL of the CPU's;
   3c. cli     — the port's serve CLI (launch/serve.py's main, in this
                 process under a patched sys.argv, no --device) on the
                 card: yi-9b at full width and CLI_LAYERS = 8 of 48 layers
@@ -168,8 +170,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 FP16_FLIP_MARGIN) and through the one-rank plan
                 (isp_gather, isp decode); the smoke phase in fp16 (every
                 reduced config served card against CPU, flips only below
-                FP16_FLIP_MARGIN; yi-9b and deepseek-v2 trained, moments
-                in fp16 too); every fp16 check at fp16's own tolerances
+                FP16_FLIP_MARGIN; FP16_TRAIN_ARCHS, yi-9b and
+                deepseek-v2, trained, moments in fp16 too); every fp16
+                check at fp16's own tolerances
                 (TOL, GRAD_REL_TOL, SMOKE_LOSS_TOL);
   4. serve    — full-width, full-depth yi-9b in bfloat16 with seeded random
                 weights: 16 requests with prompt lengths in 16..700 and
@@ -292,6 +295,27 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 launched, every weight and cache on the card; k_block=1
                 gives identical tokens; one sLSTM layer's sequential
                 prefill timed;
+  15b. families — every family's train step at full width, its depth cut
+                (FAMILY_TRAIN: gemma3-12b 6 of 48 layers, hymba-1.5b
+                whole, musicgen-large 8 of 48, starcoder2-15b 4 of 40,
+                chameleon-34b 2 of 48 at 1 x 4096; deepseek-v2 1 of 60 at
+                1 x 1024, one microbatch; xlstm-125m whole at 2 x 512) in
+                bfloat16 with the config's remat and moment dtype: four
+                steps of train_loop.train on one repeated batch at lr
+                1e-4; finite losses and grad norms, a falling loss, flash
+                launched exactly twice an attention layer a step (with
+                lse) and no other kernel, every weight and optimizer leaf
+                on the card; median step, tokens/s, peak memory beside
+                the state at 12 bytes a parameter; hymba's peak within
+                FAMILY_PEAK_TOL of the op recorder's prediction on meta
+                (a CPU process started before llama4, launch/dryrun.py
+                --mesh card); then flash with lse at every shape the runs
+                gave it (gemma3's band and causal at dh 240, hymba's band
+                at group 5, musicgen's MHA at dh 64, starcoder2's group
+                12, chameleon's group 8, MLA's (192, 128) at 128 heads)
+                in fp32 and bf16 against the plain version (out, lse,
+                dq/dk/dv within GRAD_REL_TOL), timed beside its bound, the
+                plain forward and SDPA's forward with the same mask;
   16. train   — yi-9b in bfloat16 at every published width, its depth cut
                 from 48 to TRAIN_LAYERS = 8 layers (1.908 B parameters),
                 AdamW moments in float32, remat "dots": 8 steps of 2 x 4096
@@ -339,7 +363,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 review, beside the cluster phase's Table I line; every
                 joule figure with its source;
   17. elastic — launch.elastic.supervise runs the train CLI on xlstm-125m
-                at full width and ELASTIC_LAYERS = 4 of its 12 layers
+                at full width and ELASTIC_LAYERS = 2 of its 12 layers
                 (6 steps of 4 x 256, a checkpoint every 2) with
                 REPRO_FAIL_AT_STEP=5 and a marker: it dies once (exit 42),
                 resumes from a committed checkpoint (step 2 or 4: at 4
@@ -352,7 +376,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
                 tensors: NCCL refuses two ranks on one device) and serve
                 through ServeEngine(recipe=...) (num_slots=8,
                 max_len=1024, k_block=8; mesh_cases): yi-9b at full width
-                and MESH_LAYERS = 16 of 48 layers in bf16
+                and MESH_LAYERS = 8 of 48 layers in bf16
                 (TP 2 on the block weights, SP in prefill, the paged
                 engine, decode on the strips over the model axis) and at
                 MESH_FP32_LAYERS = 4 in fp32, deepseek-v2 at full width
@@ -458,6 +482,12 @@ kernel rows as one JSON line.
 
 builds the kernels and runs only the fp16 phase, then prints its kernel
 rows as one JSON line.
+
+    python3 chip_smoke.py --train-families
+
+builds flash and runs only the smoke phase's train runs (every reduced
+config) and the train-families phase, then prints the families' summary
+and its kernel rows as one JSON line each.
 
     python3 chip_smoke.py --roofline
 
@@ -1035,74 +1065,104 @@ def grad_rel_err(got, want, dtype, what) -> float:
     return worst
 
 
+def sdpa_call(q, k, v, window=None, scale=None):
+    """SDPA's forward on (B, S, H, dh) tensors with flash's mask: causal,
+    and the band of ``window`` keys where one is given."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None:
+        return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True,
+                            scale=scale)
+    i = torch.arange(q.shape[1], device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    return lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True,
+                        scale=scale)
+
+
 def flash_train_row(dev, gen, flush, path="yi-9b train", shape=TRAIN_FLASH,
-                    dv=None, chunk=TRAIN_CHUNK, dtypes=DTYPES):
+                    dv=None, chunk=TRAIN_CHUNK, dtypes=DTYPES, window=None,
+                    scale=None, extras=True):
     """Flash with lse at a train path's shape (by default TRAIN_FLASH:
     yi-9b at 4096 rows, causal; ``dv`` the v head dim, dh's by default;
-    ``chunk`` the config's attn_chunk), in each of ``dtypes``: out and lse
-    against
+    ``chunk`` the config's attn_chunk; ``window`` and ``scale`` as the
+    path passes them), in each of ``dtypes``: out and lse against
     the plain ``chunked_attention(return_lse=True)``; the differentiable
     op's dq/dk/dv (the kernel's forward) against the plain forward's, both
     through the plain backward; then timed in the last of them with lse
     beside its bound, the
-    plain version, SDPA's forward and the kernel without lse, and one
-    layer's plain backward timed."""
+    plain version and SDPA's forward with the same mask, and with
+    ``extras`` the kernel without lse and one layer's plain backward."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     B, S, H, Hkv, dh = shape
     dv = dh if dv is None else dv
     ck = dict(q_chunk=chunk, kv_chunk=chunk)
+    kw = dict(window=window, scale=scale)
     errs, lerrs, gerrs = {}, {}, {}
     for dtype in dtypes:
         r = lambda *s: torch.randn(*s, generator=gen).to(dev, dtype)
         q, k, v, dout = r(B, S, H, dh), r(B, S, Hkv, dh), r(B, S, Hkv, dv), \
             r(B, S, H, dv)
-        out, lse = fa.flash_attention(q, k, v, return_lse=True)
-        want, wlse = ref.chunked_attention(q, k, v, return_lse=True, **ck)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        want, wlse = ref.chunked_attention(q, k, v, return_lse=True, **ck,
+                                           **kw)
         torch.cuda.synchronize()
         assert lse.dtype == torch.float32 and lse.shape == (B, S, H)
         errs[dtype] = max_err([out], [want], dtype)
         lerrs[dtype] = lse_err(lse, wlse)
         qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
-        got = torch.autograd.grad(ops.flash_attention(qq, kk, vv, **ck),
+        got = torch.autograd.grad(ops.flash_attention(qq, kk, vv, **ck,
+                                                      **kw),
                                   (qq, kk, vv), dout)
-        plain = ref.flash_attention_bwd(q, k, v, want, wlse, dout, **ck)
-        gerrs[dtype] = grad_rel_err(got, plain, dtype, "train shape")
+        plain = ref.flash_attention_bwd(q, k, v, want, wlse, dout, **ck,
+                                        **kw)
+        gerrs[dtype] = grad_rel_err(got, plain, dtype, f"{path} shape")
         log(f"[kernels] flash_attention {path} {dtype} (B={B} S={S} "
-            f"H={H} Hkv={Hkv} dh={dh} dv={dv}, with lse): out max abs err "
+            f"H={H} Hkv={Hkv} dh={dh} dv={dv} window={window}, with lse): "
+            f"out max abs err "
             f"{errs[dtype]:.3g}, lse {lerrs[dtype]:.3g}; dq/dk/dv with the "
             f"kernel's forward vs the plain forward's, max err / max |grad| "
             f"{gerrs[dtype]:.3g} (bound {GRAD_REL_TOL[dtype]})")
         del qq, kk, vv, got, plain, want, wlse, out, lse
     # q/k/v/dout: the inputs of the last iteration (the timed dtype)
     bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
-                                       return_lse=True)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                                       return_lse=True, **kw)
+    try:
+        library_ms = time_ms(sdpa_call(q, k, v, **kw), flush)
+    except RuntimeError as e:      # no SDPA backend takes this shape
+        library_ms = None
+        log(f"[kernels] flash_attention {path}: library yardstick none, "
+            f"scaled_dot_product_attention refused the shape: "
+            f"{str(e).splitlines()[0][:200]}")
     row = dict(
         name="flash_attention", kernel="flash_attention", path=path,
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:77",
         dtype=dname(dtypes[-1]),
-        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} dv={dv} causal, with lse",
+        shape=f"B={B} S={S} H={H} Hkv={Hkv} dh={dh} dv={dv} causal"
+        + ("" if window is None else f" window={window}") + ", with lse",
         **err_fields(dtypes, max_abs_err=errs, lse_max_abs_err=lerrs,
                      grad_rel_err=gerrs),
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True),
-                   flush),
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, return_lse=True,
+                                              **kw), flush),
         plain_ms=time_ms(lambda: ref.chunked_attention(
-            q, k, v, return_lse=True, **ck), flush),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(lambda: torch.nn.functional.
-                           scaled_dot_product_attention(
-                               qt, kt, vt, is_causal=True, enable_gqa=True),
-                           flush),
-        ms_no_lse=time_ms(lambda: fa.flash_attention(q, k, v), flush))
-    out, lse = fa.flash_attention(q, k, v, return_lse=True)
+            q, k, v, return_lse=True, **ck, **kw), flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    if not extras:
+        log(f"[kernels] flash_attention {path}: with lse {row['ms']:.4f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}), plain forward "
+            f"{row['plain_ms']:.4f} ms, SDPA forward {lib}")
+        return row
+    row["ms_no_lse"] = time_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                               flush)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     row["plain_bwd_ms"] = time_ms(lambda: ref.flash_attention_bwd(
-        q, k, v, out, lse, dout, **ck), flush)
+        q, k, v, out, lse, dout, **ck, **kw), flush)
     log(f"[kernels] flash_attention {path}: with lse {row['ms']:.4f} "
         f"ms, without {row['ms_no_lse']:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}), plain forward {row['plain_ms']:.4f} ms, SDPA "
-        f"forward {row['library_ms']:.4f} ms; one layer's plain backward "
+        f"forward {lib}; one layer's plain backward "
         f"({dname(dtypes[-1])} inputs, fp32 math) {row['plain_bwd_ms']:.4f} ms")
     return row
 
@@ -1472,7 +1532,6 @@ def flash_row(dev, gen, flush, path, shape, dtypes=DTYPES):
     row."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     B, S, H, Hkv, dh, dv, window = shape
     errs = {}
     for dtype in dtypes:
@@ -1490,18 +1549,8 @@ def flash_row(dev, gen, flush, path, shape, dtypes=DTYPES):
     # output (B, S, H, dv) written once
     bound_ms, bound_by, _ = site_bound("flash_attention", q, k, v,
                                        window=window)
-    w = S if window is None else window
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if window is None:
-        lib = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
-                           enable_gqa=True)
-    else:
-        i = torch.arange(S, device=dev)
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
-        lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
-                           enable_gqa=True)
     try:
-        library_ms = time_ms(lib, flush)
+        library_ms = time_ms(sdpa_call(q, k, v, window), flush)
     except RuntimeError as e:      # no SDPA backend takes this shape
         library_ms = None
         log(f"[kernels] flash_attention {path}: library yardstick none, "
@@ -3809,6 +3858,219 @@ def train_phase(dev):
         loader=loader)
 
 
+# -- the train-families phase -------------------------------------------------
+# every family's train step on the card at full width, its depth cut so
+# that its state (bf16 weights and gradients, fp32 AdamW moments: 12
+# bytes a parameter) and activations fit 80 GB, in bf16 with the config's
+# own remat, through train_loop.train as train_phase runs yi-9b:
+# (arch, layers, batch, sequence length)
+FAMILY_TRAIN = (
+    ("gemma3-12b", 6, 1, 4096),       # of 48: one 5 local + 1 global
+    ("hymba-1.5b", 32, 1, 4096),      # whole: 32 Mamba chunks a layer
+    ("musicgen-large", 8, 1, 4096),   # of 48
+    ("starcoder2-15b", 4, 1, 4096),   # of 40
+    ("chameleon-34b", 2, 1, 4096),    # of 48
+    ("deepseek-v2-236b", 1, 1, 1024),  # of 60: remat "full", dense MoE;
+    # one microbatch (its grad_accum of 4 keeps float32 gradient sums,
+    # 20.1 GB at 5.02 B parameters, beside the 60.3 GB of state)
+    ("xlstm-125m", 12, 2, 512))       # whole: 4 sLSTM chunks a layer
+FAMILY_STEPS = 4
+FAMILY_LR = 1e-4                # on one repeated batch, no warmup, as
+                                # train_phase's repeated batch
+# hymba's measured peak against the op recorder's on meta (one card, the
+# dry-run's "card" mesh): arguments + counted temporaries
+FAMILY_PEAK_ARCH = "hymba-1.5b"
+FAMILY_PEAK_TOL = 0.10
+FAMILY_PEAK_DIR = ROOT / "build" / "peak_prediction"
+
+
+def start_peak_prediction():
+    """A CPU process (no card visible) tracing FAMILY_PEAK_ARCH's train
+    step at its FAMILY_TRAIN cut on ``meta`` (``launch/dryrun.py --mesh
+    card``); read by ``predicted_peak``."""
+    import atexit
+    import os
+    import shutil
+    if not _CHILDREN:
+        atexit.register(_stop_children)
+    shutil.rmtree(FAMILY_PEAK_DIR, ignore_errors=True)
+    _, layers, batch, seq = next(f for f in FAMILY_TRAIN
+                                 if f[0] == FAMILY_PEAK_ARCH)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         FAMILY_PEAK_ARCH, "--shape", "train_4k", "--mesh", "card",
+         "--layers", str(layers), "--global-batch", str(batch),
+         "--seq-len", str(seq), "--out", str(FAMILY_PEAK_DIR)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    _CHILDREN.append(p)
+    return p
+
+
+def predicted_peak(proc) -> dict:
+    """The prediction process's JSON (bytes_per_device: arguments +
+    counted temporaries)."""
+    try:
+        text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"peak prediction: not done in "
+                             f"{DRYRUN_TIMEOUT} s")
+    assert proc.returncode == 0, f"peak prediction:\n{text[-4000:]}"
+    return json.loads((FAMILY_PEAK_DIR /
+                       f"{FAMILY_PEAK_ARCH}__train_4k__card.json")
+                      .read_text())
+
+
+class FlashCalls:
+    """Counts the flash kernel wrapper's calls by their arguments' shapes
+    (q, k, v, window, scale, q_offset, causal, lse) while active: the
+    shapes a path gives the kernel.  It wraps the wrapper and launches
+    nothing itself."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        self._fa, self._real = fa, fa.flash_attention
+
+        def counted(q, k, v, **kw):
+            key = (tuple(q.shape), tuple(k.shape), tuple(v.shape),
+                   kw.get("window"), kw.get("scale"), kw.get("q_offset", 0),
+                   kw.get("causal", True), kw.get("return_lse", False))
+            self.calls[key] = self.calls.get(key, 0) + 1
+            return self._real(q, k, v, **kw)
+        fa.flash_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.flash_attention = self._real
+
+
+def train_family(dev, arch, layers, batch, seq) -> dict:
+    """``arch`` at full width and ``layers`` layers in bf16 (its remat and
+    moment dtype): FAMILY_STEPS steps of ``train_loop.train`` on one
+    repeated SyntheticTokenSource batch at FAMILY_LR, no warmup.  Every
+    loss and grad norm finite and the loss falling; flash launched
+    exactly twice an attention layer a step (the forward and the remat
+    recompute), always with lse, and no other kernel; every weight and
+    optimizer leaf on the card.  Returns the run's summary, its launches
+    and flash's calls by shape."""
+    from repro_torch.config import get_config
+    from repro_torch.data import DataConfig, SyntheticTokenSource
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import train_loop as TL
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              grad_accum=1)
+    assert cfg.dtype == "bfloat16" and cfg.remat in ("dots", "full"), cfg
+    n = M.count_params(cfg)
+    n_attn = sum(k in ATTN_KINDS for k in cfg.layer_pattern)
+    kinds = "/".join(sorted(set(cfg.layer_pattern)))
+    log(f"[families] {arch} bf16 at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+        f"{cfg.vocab_size}), {layers} of {get_config(arch).num_layers} "
+        f"layers ({kinds}, {n_attn} with attention): {n / 1e9:.3f} B "
+        f"parameters, state {n * 12 / 1e9:.1f} GB at 12 bytes a parameter; "
+        f"remat {cfg.remat!r}, moments {cfg.optimizer_state_dtype}; "
+        f"{batch} x {seq} tokens a step")
+    dcfg = DataConfig(seq_len=seq, global_batch=batch,
+                      vocab_size=cfg.vocab_size, seed=SEED)
+    tcfg = TL.TrainConfig(steps=FAMILY_STEPS, lr=FAMILY_LR, warmup=0,
+                          log_every=1, ckpt_every=10**9, seed=SEED)
+    source = RepeatedBatch(SyntheticTokenSource(dcfg.vocab_size, dcfg.seed),
+                           batch * (seq + 1))
+    free_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mets = []
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    with FlashCalls() as fc:
+        state = TL.train(cfg, dcfg, tcfg, source=source, device=dev,
+                         metrics_cb=lambda step, m: mets.append(m))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in mets]
+    norms = [m["grad_norm"] for m in mets]
+    assert state.step == FAMILY_STEPS and len(mets) == FAMILY_STEPS, arch
+    assert all(math.isfinite(x) for x in losses + norms), (arch, mets)
+    assert losses[-1] < losses[0], (arch, losses)
+    want = {k: 0 for k in launches}
+    want["flash_attention"] = 2 * n_attn * FAMILY_STEPS
+    assert launches == want, (arch, launches, want)
+    assert sum(fc.calls.values()) == want["flash_attention"], (arch,
+                                                                fc.calls)
+    for q, k, v, window, scale, q_off, causal, lse in fc.calls:
+        assert lse and causal and q_off == 0, (arch, q, k, v)
+    leaves = list(state.params.parameters()) + [
+        t for g in ("m", "v") for t in state.opt_state[g].values()]
+    assert leaves and all(t.device == dev for t in leaves), arch
+    assert all(str(t.dtype) == f"torch.{cfg.optimizer_state_dtype}"
+               for t in state.opt_state["m"].values()), arch
+    med_ms = float(np.median([m["step_time_s"] for m in mets[1:]])) * 1e3
+    tokens = batch * seq
+    shapes = ", ".join(
+        f"q {q[1:]} k {k[1:]} v {v[1:]} window {w}: {c}"
+        for (q, k, v, w, *_), c in sorted(fc.calls.items(), key=str))
+    log(f"[families] {arch}: losses {[round(x, 5) for x in losses]}, grad "
+        f"norms {[round(x, 4) for x in norms]}; step times (host clock, ms) "
+        f"{[round(m['step_time_s'] * 1e3, 1) for m in mets]}: median after "
+        f"the first {med_ms:.1f} ms, {tokens / med_ms * 1e3:.0f} tokens/s; "
+        f"peak memory {peak / 1e9:.2f} GB (state {n * 12 / 1e9:.1f} GB); "
+        f"launches {launches}, flash by shape: {shapes}; {wall:.1f} s")
+    del state
+    free_device()
+    return dict(summary=dict(
+        layers=layers, batch=batch, seq=seq, params_b=n / 1e9,
+        state_gb=n * 12 / 1e9, losses=losses, median_step_ms=med_ms,
+        tokens_per_s=tokens / med_ms * 1e3, peak_gb=peak / 1e9),
+        launches=launches, calls=fc.calls, cfg=cfg)
+
+
+def families_phase(dev, prediction):
+    """FAMILY_TRAIN, each through ``train_family``; then flash with lse at
+    every shape the runs gave it (``flash_train_row`` in fp32 and bf16:
+    out, lse, dq/dk/dv against the plain version, timed beside its bound,
+    the plain forward and SDPA's forward with the same mask), and
+    FAMILY_PEAK_ARCH's peak memory against ``prediction`` (the process of
+    ``start_peak_prediction``).  Returns (kernel rows, launches by path,
+    summaries)."""
+    runs = {arch: train_family(dev, arch, *rest)
+            for arch, *rest in FAMILY_TRAIN}
+    flush, _ = l2_flushes(dev)
+    gen = torch.Generator().manual_seed(SEED)
+    rows, path_launches = [], {}
+    for arch, run in runs.items():
+        for (q, k, v, window, scale, *_), count in sorted(
+                run["calls"].items(), key=str):
+            path = f"{arch} train" + (f" window {window}" if window else "")
+            rows.append(flash_train_row(
+                dev, gen, flush, path, (q[0], q[1], q[2], k[2], q[3]),
+                dv=v[3], chunk=run["cfg"].attn_chunk, window=window,
+                scale=scale, extras=False))
+            path_launches[path] = {**{k_: 0 for k_ in run["launches"]},
+                                   "flash_attention": count}
+    d = predicted_peak(prediction)
+    got = runs[FAMILY_PEAK_ARCH]["summary"]["peak_gb"] * 1e9
+    want = d["bytes_per_device"]
+    log(f"[families] {FAMILY_PEAK_ARCH}: peak memory {got / 1e9:.3f} GB "
+        f"against the op recorder's prediction on meta {want / 1e9:.3f} GB "
+        f"(arguments {d['memory']['argument_bytes'] / 1e9:.3f} + counted "
+        f"temporaries {d['memory']['temp_bytes'] / 1e9:.3f}; trace "
+        f"{d['trace_s']:.1f} s): {got / want - 1:+.1%}, bound "
+        f"{FAMILY_PEAK_TOL:.0%}")
+    assert abs(got - want) <= FAMILY_PEAK_TOL * want, (got, want)
+    summaries = {a: r["summary"] for a, r in runs.items()}
+    summaries[FAMILY_PEAK_ARCH]["predicted_peak_gb"] = want / 1e9
+    return rows, path_launches, summaries
+
+
 # -- the roofline phase -------------------------------------------------------
 # the port's analysis layer on real steps: a step counted by its op
 # recorder (analysis/op_trace.py) held against the same step measured
@@ -4078,10 +4340,11 @@ def roofline_phase(dev, tr, smi, meter) -> dict:
     return out
 
 
-# xlstm-125m's depth in the kill-and-resume phase, cut from 12 to keep the
-# script in its time (its sLSTM recurrence steps through the sequence on
-# the host, one layer at a time)
-ELASTIC_LAYERS = 4
+# xlstm-125m's depth in the kill-and-resume phase, cut from 12 (to 4, then
+# to 2 when the train-families phase came) to keep the script in its time
+# (its sLSTM recurrence steps through the sequence on the host, one layer
+# at a time)
+ELASTIC_LAYERS = 2
 
 
 def elastic_phase(dev):
@@ -4171,8 +4434,9 @@ def elastic_phase(dev):
 # reduce_scatter_tensor and all_to_all_single, which the port uses; it has
 # none for the list form of all_to_all, which the port does not use.
 MESH_REQUESTS = 8
-MESH_LAYERS = 16               # yi-9b in bf16, of 48 (whole before the
-#                                two-rank train phase came)
+MESH_LAYERS = 8                # yi-9b in bf16, of 48 (whole before the
+#                                two-rank train phase came, 16 before the
+#                                train-families phase)
 MESH_FP32_LAYERS = 4           # yi-9b in fp32 at a cut depth: identical
 MESH_DEEPSEEK_LAYERS = 4       # deepseek-v2 in bf16, of 60
 MESH_DEEPSEEK_FP32_LAYERS = 2  # deepseek-v2 in fp32: identical
@@ -4963,11 +5227,16 @@ def _rank_plan(cfg, shape, rank):
 # cell of fig5-fig9 (reduced yi-9b in float32) served as the serve CLI
 # serves --requests 8 at its other defaults on the card, then on the CPU
 # from the same weights; three steps
-# of the train CLI's path for reduced yi-9b and deepseek-v2 (flash with lse
-# at (16, 16) and (24, 16))
+# of the train CLI's path for every reduced config (flash with lse at
+# (16, 16) and (24, 16); the reduced Mamba, mLSTM and sLSTM backward), in
+# float16 for reduced yi-9b and deepseek-v2
 SMOKE_SERVE = dict(requests=8, prompt_len=32, min_prompt=4, max_new=32,
                    max_len=256, num_slots=8, page_size=16, k_block=8)
-SMOKE_TRAIN_ARCHS = ("yi-9b", "deepseek-v2-236b")
+SMOKE_TRAIN_ARCHS = ("xlstm-125m", "hymba-1.5b", "gemma3-12b", "yi-9b",
+                     "starcoder2-15b", "llama3-405b", "chameleon-34b",
+                     "musicgen-large", "llama4-scout-17b-a16e",
+                     "deepseek-v2-236b")     # configs.ASSIGNED
+FP16_TRAIN_ARCHS = ("yi-9b", "deepseek-v2-236b")
 SMOKE_TRAIN_STEPS = 3
 SMOKE_TRAIN_SHAPE = (8, 256)    # the train CLI's --global-batch, --seq-len
 SMOKE_TRAIN_LR = 3e-4           # the train CLI's --lr
@@ -5058,7 +5327,7 @@ def smoke_cells(dtype=None):
                                            dtype="float32"))]
 
 
-def smoke_phase(dev, dtype=None):
+def smoke_phase(dev, dtype=None, train_archs=SMOKE_TRAIN_ARCHS):
     """Each smoke cell (``smoke_cells(dtype)``) served on the card and on
     the CPU from the same
     weights (drawn on the CPU, copied to the card): every request ok, free
@@ -5066,22 +5335,10 @@ def smoke_phase(dev, dtype=None):
     prefill call and paged or isp decode on every attention layer of every
     decode step, nothing launched on the CPU; fp32 tokens identical, bf16
     tokens parting only where the top-2 margin is below BF16_FLIP_MARGIN.
-    Then SMOKE_TRAIN_STEPS steps of ``train_loop.train`` (the train CLI's
-    path) for each of SMOKE_TRAIN_ARCHS on the card: finite losses, flash
-    on every attention layer of every step, step 0's loss within
-    SMOKE_LOSS_TOL of the CPU's on the same weights and batch.  The train
-    runs see one batch repeated, with no warmup, so their loss must fall;
-    with ``dtype`` the train configs take it, moments too.  Returns the
-    serve cells' launches summed and the train runs'."""
-    from repro_torch.config import ShapeConfig, reduced_config
-    from repro_torch.data import DataConfig, ShardedLoader, \
-        SyntheticTokenSource
-    from repro_torch.kernels import ops
+    Then ``smoke_train`` of ``train_archs``.  Returns the serve cells'
+    launches summed and the train runs'."""
     from repro_torch.models import model as M
-    from repro_torch.optim import AdamWConfig
-    from repro_torch.sharding import make_plan, make_recipe
-    from repro_torch.train import train_loop as TL
-    serve_total, train_total = {}, {}
+    serve_total = {}
     for tag, cfg in smoke_cells(dtype):
         t0 = time.perf_counter()
         cpu = M.seeded_params(cfg, SEED, "cpu")
@@ -5124,8 +5381,28 @@ def smoke_phase(dev, dtype=None):
             + f" against the CPU's; {time.perf_counter() - t0:.2f} s")
         del params, cpu
     free_device()
+    return serve_total, smoke_train(dev, dtype, train_archs)
+
+
+def smoke_train(dev, dtype=None, archs=SMOKE_TRAIN_ARCHS):
+    """SMOKE_TRAIN_STEPS steps of ``train_loop.train`` (the train CLI's
+    path) for each reduced config of ``archs`` on the card: finite losses,
+    flash on every attention layer of every step, step 0's loss within
+    SMOKE_LOSS_TOL of the CPU's on the same weights and batch.  The runs
+    see one batch repeated, with no warmup, so their loss must fall; with
+    ``dtype`` the configs take it, moments too.  Returns the runs'
+    launches summed."""
+    from repro_torch.config import ShapeConfig, reduced_config
+    from repro_torch.data import DataConfig, ShardedLoader, \
+        SyntheticTokenSource
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sharding import make_plan, make_recipe
+    from repro_torch.train import train_loop as TL
+    train_total = {}
     B, S = SMOKE_TRAIN_SHAPE
-    for arch in SMOKE_TRAIN_ARCHS:
+    for arch in archs:
         cfg = reduced_config(arch)
         if dtype is not None:
             cfg = dataclasses.replace(cfg, dtype=dtype,
@@ -5162,8 +5439,9 @@ def smoke_phase(dev, dtype=None):
         assert len(losses) == SMOKE_TRAIN_STEPS and all(
             math.isfinite(x) for x in losses), (arch, losses)
         n_attn = sum(k in ATTN_KINDS for k in cfg.layer_pattern)
-        assert ln["flash_attention"] == n_attn * SMOKE_TRAIN_STEPS, (arch,
-                                                                     ln)
+        assert ln["flash_attention"] == n_attn * SMOKE_TRAIN_STEPS and all(
+            v == 0 for k, v in ln.items() if k != "flash_attention"), (arch,
+                                                                       ln)
         d = abs(losses[0] - cpu_loss)
         log(f"[smoke] train {arch} ({cfg.dtype}, moments "
             f"{cfg.optimizer_state_dtype}, {B} x {S}, {SMOKE_TRAIN_STEPS} "
@@ -5180,7 +5458,7 @@ def smoke_phase(dev, dtype=None):
         for k, v in ln.items():
             train_total[k] = train_total.get(k, 0) + v
     free_device()
-    return serve_total, train_total
+    return train_total
 
 
 # -- the domain phase ---------------------------------------------------------
@@ -5424,7 +5702,8 @@ def domain_phase(dev):
 # full width served in fp16, and the smoke phase in fp16 (docstring, 3f)
 FP16 = torch.float16
 FP16_DTYPES = (FP16,)
-FP16_LAYERS = 48          # yi-9b's depth in the fp16 serve: all of it
+FP16_LAYERS = 24          # yi-9b's depth in the fp16 serve: of 48 (all
+                          # of it before the train-families phase came)
 FP16_REQUESTS = 16        # prompts of 16..700 tokens, 32 new, as serve's
 # the fp16 yi-9b through the one-rank plan: prefill 8 x 704, 16 decode
 # steps fed 8 prompt tokens, the plan run then the run without it
@@ -5692,7 +5971,8 @@ def fp16_phase(dev):
     free_device()
     log(f"[fp16] kernel rows done at {time.perf_counter() - t0:.1f} s")
     serve_launches, plan_launches = fp16_serve(dev)
-    smoke_serve_l, smoke_train_l = smoke_phase(dev, "float16")
+    smoke_serve_l, smoke_train_l = smoke_phase(dev, "float16",
+                                               FP16_TRAIN_ARCHS)
     launches = {"yi-9b fp16 serve": serve_launches,
                 "yi-9b fp16 plan": plan_launches,
                 "smoke serve fp16": smoke_serve_l,
@@ -6588,6 +6868,12 @@ def main() -> int:
         "only build the kernels and run the fp16 phase (the six kernels' "
         "fp16 instantiations, yi-9b and the reduced configs served and "
         "trained in float16), then print its kernel rows as one JSON line"))
+    parser.add_argument("--train-families", action="store_true", help=(
+        "only build flash and run the train-families phase (every "
+        "reduced config's train CLI steps, card against CPU; every family "
+        "at full width with cut depth through train_loop.train, flash "
+        "with lse at each shape they give it), then print its kernel rows "
+        "as one JSON line"))
     parser.add_argument("--flash-times", action="store_true", help=(
         "only time flash at its six serve paths' shapes and the smoke "
         "configs' two without lse and "
@@ -6628,6 +6914,22 @@ def main() -> int:
         log(f"[device] kernel build {secs:.2f} s")
         cli_phase(dev)
         log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if args.train_families:
+        from repro_torch.kernels import build
+        prediction = start_peak_prediction()
+        secs = build.build(["flash_attention"])
+        log(f"[device] kernel build {secs:.2f} s")
+        launches = {"smoke train": smoke_train(dev)}
+        log(f"[time] smoke train done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        rows, family_launches, families = families_phase(dev, prediction)
+        launches.update(family_launches)
+        for row in rows:
+            row["launches"] = launches[row["path"]][row["kernel"]]
+        log(f"[done] total {time.perf_counter() - t_start:.1f} s")
+        log(json.dumps({"families": families}))
+        log(json.dumps({"kernels": rows}))
         return 0
     build_kernels()
     if args.examples or args.domain or args.fp16:
@@ -6741,6 +7043,9 @@ def main() -> int:
     lap("gemma3-12b and plan")
 
     # -- the other model families: llama4-scout's MoE, musicgen-large whole
+    # (the train-families phase's peak prediction traces on the CPU
+    # meanwhile)
+    prediction = start_peak_prediction()
     path_launches["llama4-scout serve"] = llama4_phase(dev)
     lap("llama4-scout")
     (path_launches["musicgen-large serve"],
@@ -6753,7 +7058,12 @@ def main() -> int:
     path_launches["xlstm serve"] = xlstm_phase(dev)
     lap("xlstm-125m")
 
-    # -- training: yi-9b at 8 layers on the card, then kill and resume ------
+    # -- training: every family at full width, then yi-9b at 8 layers ------
+    family_rows, family_launches, families = families_phase(dev, prediction)
+    rows += family_rows
+    path_launches.update(family_launches)
+    lap("train families")
+
     path_launches["yi-9b train"], train, tr = train_phase(dev)
     lap("train yi-9b")
     roofline = roofline_phase(dev, tr, smi, meter)
@@ -6771,6 +7081,7 @@ def main() -> int:
     log(f"[done] total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"train": train}))
+    log(json.dumps({"families": families}))
     log(json.dumps({"roofline": roofline}))
     log(json.dumps({"energy": energy}))
     log(json.dumps({"kernels": rows}))

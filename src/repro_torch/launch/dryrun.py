@@ -11,10 +11,17 @@ mesh, and nothing is allocated or moved.  The step is the port's own
 (``launch/steps.step_for``), with its kernel sites counted as their
 kernels.
 
+The "card" mesh is one card with no mesh (what ``chip_smoke.py`` trains
+on): the whole model on one rank, no process group.  A production shape
+does not fit one card, so ``--global-batch``, ``--seq-len`` and
+``--layers`` cut a cell to one card's size.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch yi-9b --shape train_4k --mesh pod
   python -m repro_torch.launch.dryrun --all --mesh pod        # every live cell
   python -m repro_torch.launch.dryrun --all --mesh multipod   # 2 pods, 512 ranks
+  python -m repro_torch.launch.dryrun --arch hymba-1.5b --shape train_4k \
+      --mesh card --global-batch 1                            # one card
 
 Writes results/dryrun_torch/<arch>__<shape>__<mesh>.json: bytes a rank
 (arguments exact from the local shapes, temporaries counted) against one
@@ -26,8 +33,11 @@ the roofline from them).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gzip
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -45,9 +55,11 @@ RESULTS = pathlib.Path(__file__).resolve().parents[3] / "results" \
     / "dryrun_torch"
 
 # mesh kind -> (shape, axis names); "pod" and "multipod" are the
-# production meshes, the others small debug meshes
+# production meshes, "card" one card with no mesh, the others small debug
+# meshes
 MESHES = {"pod": ((16, 16), ("data", "model")),
           "multipod": ((2, 16, 16), ("pod", "data", "model")),
+          "card": ((), ()),
           "2x2": ((2, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
 
@@ -67,6 +79,8 @@ def tree_bytes(tree) -> int:
 
 def _mesh(kind: str):
     from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
+    if kind == "card":
+        return None
     if kind in ("pod", "multipod"):
         return make_production_mesh(multi_pod=kind == "multipod",
                                     device="cpu")
@@ -106,10 +120,8 @@ def run_cell(arch: Union[str, ModelConfig], shape: Union[str, ShapeConfig],
         return {"arch": cfg.name, "shape": shape.name, "mesh": mesh_kind,
                 "status": "skipped", "reason": why}
     dims, _ = MESHES[mesh_kind]
-    chips = 1
-    for d in dims:
-        chips *= d
-    with fake_group(chips):
+    chips = math.prod(dims)
+    with fake_group(chips) if dims else contextlib.nullcontext():
         mesh = _mesh(mesh_kind)
         plan = make_plan(mesh, cfg, fsdp=fsdp)
         recipe = make_recipe(plan, cfg, shape)
@@ -182,7 +194,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch")
     ap.add_argument("--shape")
-    ap.add_argument("--mesh", default="pod", choices=["pod", "multipod"])
+    ap.add_argument("--mesh", default="pod",
+                    choices=["pod", "multipod", "card"])
+    ap.add_argument("--global-batch", type=int, default=None,
+                    help="the shape's global batch (default: the shape's)")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="the shape's sequence length (default: the "
+                    "shape's)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch's depth to this many layers")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--subprocess", action="store_true",
                     help="run each cell in a fresh process")
@@ -221,7 +241,13 @@ def main(argv=None) -> int:
 
     if not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
-    run_cell(args.arch, args.shape, args.mesh, out_dir, fsdp=fsdp)
+    cfg, shape = get_config(args.arch), get_shape(args.shape)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    shape = dataclasses.replace(
+        shape, global_batch=args.global_batch or shape.global_batch,
+        seq_len=args.seq_len or shape.seq_len)
+    run_cell(cfg, shape, args.mesh, out_dir, fsdp=fsdp)
     return 0
 
 

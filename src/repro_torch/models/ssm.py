@@ -33,7 +33,17 @@ Numerics:
     recurrence, equal up to rounding to the per-step form
     (``mlstm_step_ref``, which decode runs).
   * sLSTM: sequential (the gates feed back the previous h): a loop over
-    the prompt's steps.
+    the prompt's steps, in chunks of ``chunk_size`` rows.
+
+In train mode with grad enabled each chunk runs under a non-reentrant
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` on its
+chunk bodies: the backward keeps only each chunk's inputs and carry, and
+recomputes the chunk's intermediates (Mamba's (B, L, d_in, N) scan
+levels, mLSTM's (B, L, L, nh) weights, sLSTM's steps).  This nests
+inside the per-block remat.  The chunks are taken with one ``split`` (and
+sLSTM's rows with one ``unbind`` a chunk), so the backward writes each
+input gradient once, not once a chunk or a row.  Values are the same
+with or without the checkpoint.
 
 Parameters keep the reference's layouts and dtypes: Mamba's ``dt_bias``,
 ``a_log`` and ``d_skip``, mLSTM's ``if_bias`` and sLSTM's ``bias`` are
@@ -53,6 +63,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding as sh
 from repro_torch.config import ModelConfig
@@ -77,6 +88,19 @@ def _mm(x, w):
     w's first, whatever w's trailing shape."""
     out = x.reshape(-1, x.shape[-1]) @ w.reshape(w.shape[0], -1)
     return out.reshape(tuple(x.shape[:-1]) + tuple(w.shape[1:]))
+
+
+def _chunked(mode: str, fn, *args):
+    """``fn(*args)``: one chunk of a mixer.  In train mode with grad on, it
+    runs under a non-reentrant checkpoint (recomputed in the backward,
+    only ``args`` kept), as the reference checkpoints its chunk bodies.
+    Each tensor is an argument of its own: the checkpoint would hold a
+    tuple's tensors outside the saved-tensor hooks, so past an enclosing
+    checkpoint (the block remat), for the whole forward."""
+    if mode == "train" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def _write_state(cache, new: Dict[str, torch.Tensor]):
@@ -166,7 +190,8 @@ def doubling_scan(a, b, inplace: bool = True):
     for o = 1, 2, 4, ...  Returns (A, H): A_t the product a_0 .. a_t and
     H_t the state at t; the state from h0 is A_t * h0 + H_t.  ``a`` and
     ``b`` are consumed (updated in place) unless ``inplace`` is false, as
-    training needs: autograd keeps the tensors of every pass."""
+    training needs: a chunk's backward reads the tensors of every pass
+    (recomputed under the chunk's checkpoint, ``_chunked``)."""
     L = a.shape[1]
     o = 1
     while o < L:
@@ -178,6 +203,22 @@ def doubling_scan(a, b, inplace: bool = True):
             a = torch.cat([a[:, :o], a[:, o:] * a[:, :-o]], 1)
         o *= 2
     return a, b
+
+
+def _mamba_chunk(dt, xdt, bmat, cmat, a, h0, inplace: bool):
+    """One chunk of the selective scan from state h0 (B, d_in, N): dt, xdt
+    (B, l, d_in), bmat, cmat (B, l, N) float32, a (d_in, N).  Returns (y
+    (B, l, d_in), the state after the chunk's last row)."""
+    da = torch.exp(dt[..., None] * a)                         # (B, l, d_in, N)
+    dbx = xdt[..., None] * bmat[:, :, None, :]
+    acc, h_all = doubling_scan(da, dbx, inplace=inplace)
+    if inplace:
+        h_all += acc * h0[:, None]
+    else:
+        h_all = h_all + acc * h0[:, None]
+    del acc, da, dbx
+    y = torch.einsum("bsen,bsn->bse", h_all, cmat)
+    return y, h_all[:, -1].clone()
 
 
 def mamba_apply(p: Mamba, x, cfg: ModelConfig, cache: Optional[Dict] = None,
@@ -234,19 +275,11 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, cache: Optional[Dict] = None,
         L = min(s.chunk_size, S)
         ys = []
         h_last = h0
-        for c0 in range(0, S, L):
-            sl = slice(c0, min(c0 + L, S))
-            da = torch.exp(dt[:, sl, :, None] * a)            # (B, l, d_in, N)
-            dbx = xdt[:, sl, :, None] * bmat[:, sl, None, :]
-            acc, h_all = doubling_scan(da, dbx, inplace=mode != "train")
-            if mode == "train":
-                h_all = h_all + acc * h_last[:, None]
-            else:
-                h_all += acc * h_last[:, None]
-            del acc, da
-            ys.append(torch.einsum("bsen,bsn->bse", h_all, cmat[:, sl]))
-            h_last = h_all[:, -1].clone()
-            del h_all, dbx
+        for dt_c, xdt_c, b_c, c_c in zip(
+                *(t.split(L, dim=1) for t in (dt, xdt, bmat, cmat))):
+            y_c, h_last = _chunked(mode, _mamba_chunk, dt_c, xdt_c, b_c, c_c,
+                                   a, h_last, mode != "train")
+            ys.append(y_c)
         y = torch.cat(ys, dim=1)
 
     y = y + p.d_skip * xc.float()
@@ -366,6 +399,12 @@ def _mlstm_chunk(state, q, k, v, li, lf):
     return (C_new, n_new, m_new), h
 
 
+def _mlstm_chunk_flat(C, n, m, q, k, v, li, lf):
+    """``_mlstm_chunk`` with the state's tensors as arguments
+    (``_chunked``)."""
+    return _mlstm_chunk((C, n, m), q, k, v, li, lf)
+
+
 def mlstm_apply(p: MLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
                 mode: str = "prefill", plan=None):
     """xLSTM mLSTM block core (pre-up-projection).  Cache: {"C" (B, nh, dh,
@@ -408,10 +447,8 @@ def mlstm_apply(p: MLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
             q, k, v, lf = padt(q), padt(k), padt(v), padt(lf)
             li = padt(li, -1e30)
         hs = []
-        for c0 in range(0, S + pad, L):
-            sl = slice(c0, c0 + L)
-            state, h = _mlstm_chunk(state, q[:, sl], k[:, sl], v[:, sl],
-                                    li[:, sl], lf[:, sl])
+        for chunk in zip(*(t.split(L, dim=1) for t in (q, k, v, li, lf))):
+            state, h = _chunked(mode, _mlstm_chunk_flat, *state, *chunk)
             hs.append(h)
         h = torch.cat(hs, dim=1)[:, :S]
 
@@ -494,12 +531,24 @@ def _slstm_step(r_h, nh: int, dh: int, carry, x_t):
     return c_new, n_new, m_new, h_new
 
 
+def _slstm_rows(r_h, nh: int, dh: int, xg, *carry):
+    """sLSTM steps over one chunk's rows xg (B, l, 4d) fp32 from
+    ``carry`` (c, n, m, h): (the carry after the last row, h (B, l, nh,
+    dh))."""
+    hs = []
+    for x_t in xg.unbind(1):
+        carry = _slstm_step(r_h, nh, dh, carry, x_t)
+        hs.append(carry[3])
+    return carry, torch.stack(hs, dim=1)
+
+
 def slstm_apply(p: SLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
                 mode: str = "prefill", plan=None):
     """sLSTM core and its gelu up-projection.  Cache: {"c", "n", "m", "h"},
-    each (B, nh, dh) float32.  prefill steps through the S rows one by one
-    (the reference's padded steps keep the carry, so stopping at S is the
-    same); decode takes one step and updates ``cache`` in place."""
+    each (B, nh, dh) float32.  prefill steps through the S rows one by one,
+    in chunks of ``chunk_size`` rows as the reference scans them (its
+    padded steps keep the carry, so stopping at S is the same); decode
+    takes one step and updates ``cache`` in place."""
     s = cfg.ssm
     B, S, D = x.shape
     nh = s.num_heads
@@ -513,10 +562,10 @@ def slstm_apply(p: SLSTM, x, cfg: ModelConfig, cache: Optional[Dict] = None,
         carry = (zero, zero, zero, zero)
     r_h = p.r_h.float()
     hs = []
-    for t in range(S):
-        carry = _slstm_step(r_h, nh, dh, carry, xg[:, t])
-        hs.append(carry[3])
-    h_all = torch.stack(hs, dim=1).reshape(B, S, D)
+    for xg_c in xg.split(min(s.chunk_size, S), dim=1):
+        carry, h = _chunked(mode, _slstm_rows, r_h, nh, dh, xg_c, *carry)
+        hs.append(h)
+    h_all = torch.cat(hs, dim=1).reshape(B, S, D)
     h_all = rms_norm(h_all.to(x.dtype), p.out_norm, cfg.norm_eps)
     y = _mm(h_all, p.w_pf1)
     y = F.gelu(y.float(), approximate="tanh").to(x.dtype)
